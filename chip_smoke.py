@@ -11,20 +11,35 @@ and the script exits non-zero:
   2. build: compile the CUDA kernels from ``csrc/`` (parallel ``nvcc``);
   3. reference: on a small input, the augmentation with the kernels on
      the card against the plain versions on the CPU (same draws), and the
-     float32 forward on the card against the CPU;
-  4. capture: the config-2 augmentation once at the train shapes,
-     recording the tensors the path hands each kernel;
+     float32 forwards of Unet-resnet34 and FPN-efficientnetb0 on the card
+     against the CPU (TF32 off);
+  4. capture: the config-2 augmentation once at the train shapes on each
+     of its three paths (default: kernels X, Y, elastic;
+     ``STP_FUSE_ELASTIC=1``: X, YE; ``STP_PALLAS_WARP=0``: the shear
+     kernel twice around the f32 scale matmuls, then elastic), recording
+     the tensors the path hands each kernel;
   5. kernel: per kernel, on those tensors, the kernel against its plain
      PyTorch version on the card (images within 1e-3, mask pixels
      mismatching in at most 1e-4 of the mask entries) and both timed
      with CUDA events beside the kernel's memory bound;
-  6. train: full-width Unet-resnet34 at 512², B16, bf16 autocast (f32
+  6. warp_paths: the config-2 block at B16 512² through
+     ``Augmentation.apply`` on one set of draws, the three paths timed
+     (CUDA events, median), their launch counts read, and held against
+     each other (YE against X→Y→elastic within 1e-3 and 1e-4 of the mask
+     pixels; unfused against fused within the JAX test's 1e-2 and 2e-3);
+  7. train: full-width Unet-resnet34 at 512², B16, bf16 autocast (f32
      head), bce + 0.25·dice, Adam at lr 5e-4, with the config-2 block,
-     for 10 steps on a fixed synthetic batch; every launch count
-     is reset just before and read just after, and each kernel must have
-     launched once per step;
-  7. the ``kernels`` summary line, then the last line
+     for 10 steps on a fixed synthetic batch; every launch count is reset
+     just before and read just after: X, Y and elastic once per step;
+  8. train_fpn: ``examples/fpn_augmented_512.yaml`` parsed by the port
+     (FPN + efficientnetb0 at full width, 512², B16, bf16, its loss,
+     optimizer, lr and augmentation) for 10 steps with
+     ``STP_FUSE_ELASTIC=1``: X and YE once per step, nothing else;
+  9. the ``kernels`` summary line, then the last line
      ``{"ok": true, "device": {...}}``.
+
+``--profile FILE`` profiles three more steps of each train phase
+(``FILE`` for Unet, ``FILE`` with ``_fpn`` before its suffix for FPN).
 """
 
 from __future__ import annotations
@@ -32,6 +47,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -40,13 +56,16 @@ import time
 import numpy as np
 import torch
 
+from segmentation_training_pipeline_tpu_torch import config as CF
 from segmentation_training_pipeline_tpu_torch import kernels as K
 from segmentation_training_pipeline_tpu_torch.models import factory as MF
 from segmentation_training_pipeline_tpu_torch.ops import losses as LO
 from segmentation_training_pipeline_tpu_torch.ops import metrics as ME
 from segmentation_training_pipeline_tpu_torch.ops.aug import elastic as EL
+from segmentation_training_pipeline_tpu_torch.ops.aug import fast_warp as MP
 from segmentation_training_pipeline_tpu_torch.ops.aug import fused_warp as FW
 from segmentation_training_pipeline_tpu_torch.ops.aug import lowering as LW
+from segmentation_training_pipeline_tpu_torch.ops.aug import shear as SH
 from segmentation_training_pipeline_tpu_torch.train import optimizers as OP
 from segmentation_training_pipeline_tpu_torch.train import step as ST
 
@@ -60,8 +79,17 @@ CONFIG2_BLOCK = {
 LOSS = "binary_crossentropy + 0.25*dice_loss"
 LR = 5e-4
 STEPS, BATCH, SIZE, SEED = 10, 16, 512, 0   # the config-2 batch at 512²
+FPN_YAML = "examples/fpn_augmented_512.yaml"
 IMG_ATOL = 1e-3
 MASK_SHARE = 1e-4
+# unfused against fused warp with an elastic field: the JAX test's own
+# tolerances for that comparison (tests/test_pallas_warp.py,
+# test_unfused_disp_fallback: images 1e-2 on 0..255, masks 2e-3).  The two
+# paths round their sample coordinates in different orders; at 512² a
+# canvas coordinate near 700 has an f32 spacing of 6e-5 px, times an image
+# gradient of up to 255 per px
+PATH_IMG_ATOL = 1e-2
+PATH_MASK_SHARE = 2e-3
 # card vs CPU end to end: sin/cos/exp and the blur's sums round differently
 # there, moving a sample coordinate by ~1e-5 px, which moves a noisy image
 # value by up to |grad I|·1e-5 and can flip a mask pixel sitting on a tie
@@ -73,10 +101,15 @@ REF_MASK_SHARE = 1e-3
 HBM_BYTES_S = 3.35e12
 F32_FLOPS = 67e12
 # f32 operations per output pixel, counted from the kernel sources
-OPS_PER_PIXEL = {"warp_x": 25, "warp_y": 27, "elastic": 32}
-SOURCES = {"warp_x": "segmentation_training_pipeline_tpu_torch/csrc/warp_xy.cu",
-           "warp_y": "segmentation_training_pipeline_tpu_torch/csrc/warp_xy.cu",
-           "elastic": "segmentation_training_pipeline_tpu_torch/csrc/elastic.cu"}
+OPS_PER_PIXEL = {"warp_x": 25, "warp_y": 27, "elastic": 32, "shear": 15,
+                 "warp_ye": 150}
+_CSRC = "segmentation_training_pipeline_tpu_torch/csrc/"
+SOURCES = {"warp_x": _CSRC + "warp_xy.cu", "warp_y": _CSRC + "warp_xy.cu",
+           "elastic": _CSRC + "elastic.cu", "shear": _CSRC + "shear.cu",
+           "warp_ye": _CSRC + "warp_xy.cu"}
+# the three paths of the warp and the environment that selects each
+PATHS = {"default": {}, "fuse_elastic": {"STP_FUSE_ELASTIC": "1"},
+         "unfused": {"STP_PALLAS_WARP": "0"}}
 
 
 def check(ok: bool, what) -> None:
@@ -151,9 +184,48 @@ def phase_build() -> None:
          libraries=[p.name for p in libs])
 
 
+class env:
+    """Set environment variables for a block, restoring them after."""
+
+    def __init__(self, values):
+        self.values = values
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.values}
+        os.environ.update(self.values)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _forward_err(arch: str, backbone: str, x, seed: int) -> float:
+    """Relative error of the f32 forward on the card against the CPU,
+    with TF32 off for convolutions and matmuls."""
+    model = MF.init_model(MF.create_model(arch, backbone, 1,
+                                          dtype="float32"), seed, "cpu")
+    params, stats = MF.model_variables(model)
+    want = MF.apply_model(model, params, stats, x)
+    conv_tf32 = torch.backends.cudnn.allow_tf32
+    mm = torch.get_float32_matmul_precision()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    try:
+        model.cuda()
+        params, stats = MF.model_variables(model)
+        got = MF.apply_model(model, params, stats, x.cuda()).cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32 = conv_tf32
+        torch.set_float32_matmul_precision(mm)
+    return float((got - want).abs().max() / want.abs().max())
+
+
 def phase_reference(seed: int) -> None:
     """Small input: kernels on the card vs plain versions on the CPU, and
-    the f32 forward on the card vs the CPU (TF32 off for the check)."""
+    the f32 forwards on the card vs the CPU (TF32 off for the check)."""
     aug = LW.build_augmentation(CONFIG2_BLOCK)
     imgs, masks = synthetic_batch(2, 128, 128, seed + 1)
     draws = aug.sample(torch.Generator().manual_seed(seed), 2, 128, 128)
@@ -162,29 +234,19 @@ def phase_reference(seed: int) -> None:
                        torch.from_numpy(masks).cuda())
     aug_err = float((gi.cpu() - ci).abs().max())
     aug_mis = mask_mismatch(gm.cpu(), cm)
-
-    model = MF.init_model(MF.create_model("Unet", "resnet34", 1,
-                                          dtype="float32"), seed, "cpu")
     x = torch.from_numpy(imgs).float() / 127.5 - 1.0
-    params, stats = MF.model_variables(model)
-    want = MF.apply_model(model, params, stats, x)
-    tf32 = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        model.cuda()
-        params, stats = MF.model_variables(model)
-        got = MF.apply_model(model, params, stats, x.cuda()).cpu()
-    finally:
-        torch.backends.cudnn.allow_tf32 = tf32
-    fwd_err = float((got - want).abs().max() / want.abs().max())
+    fwd_err = _forward_err("Unet", "resnet34", x, seed)
+    fpn_err = _forward_err("FPN", "efficientnetb0", x, seed)
     emit("reference", aug_max_err=aug_err, aug_mask_mismatch=aug_mis,
-         forward_rel_err=fwd_err, shape=[2, 128, 128],
+         forward_rel_err=fwd_err, fpn_forward_rel_err=fpn_err,
+         shape=[2, 128, 128],
          tolerance=dict(aug_img_atol=REF_IMG_ATOL,
                         aug_mask_share=REF_MASK_SHARE, forward_rel=1e-3))
     check(aug_err <= REF_IMG_ATOL, ("aug image error", aug_err))
     check(aug_mis <= REF_MASK_SHARE, ("aug mask mismatch", aug_mis))
     # cuDNN's f32 algorithms against the CPU's
     check(fwd_err <= 1e-3, ("forward error", fwd_err))
+    check(fpn_err <= 1e-3, ("FPN forward error", fpn_err))
 
 
 def _to(draws, device):
@@ -195,39 +257,75 @@ def _to(draws, device):
     return [_to(v, device) for v in draws]
 
 
-def phase_capture(aug, imgs, masks, gen):
-    """Run the augmentation once and record each kernel wrapper's
-    arguments (the tensors the main path gives the kernel)."""
+def _check_augmented(out_i, out_m, what: str) -> None:
+    check(bool(torch.isfinite(out_i).all()), (what, "images finite"))
+    check(float(out_i.min()) >= 0.0 and float(out_i.max()) <= 255.0,
+          (what, "images in [0, 255]"))
+    check(bool(((out_m == 0) | (out_m == 1)).all()), (what, "masks binary"))
+
+
+def phase_capture(aug, imgs, masks, draws):
+    """Run the augmentation once on each path and record each kernel
+    wrapper's arguments (the tensors the main path gives the kernel)."""
     captured = {}
-    hooks = [(FW, "warp_x"), (FW, "warp_y"), (EL, "elastic_resample")]
+    hooks = [(FW, "warp_x"), (FW, "warp_y"), (FW, "warp_ye"),
+             (EL, "elastic_resample"), (MP, "shear_pass")]
     originals = {name: getattr(mod, name) for mod, name in hooks}
 
     def hook(name):
         def call(*args):
-            captured[name] = args
+            captured.setdefault(name, []).append(args)
             return originals[name](*args)
         return call
 
     for mod, name in hooks:
         setattr(mod, name, hook(name))
     try:
-        b, h, w, c = imgs.shape
-        out_i, out_m = aug.apply(aug.sample(gen, b, h, w, c), imgs, masks)
-        torch.cuda.synchronize()
+        for path, values in PATHS.items():
+            with env(values):
+                out_i, out_m = aug.apply(draws, imgs, masks)
+            torch.cuda.synchronize()
+            _check_augmented(out_i, out_m, path)
     finally:
         for mod, name in hooks:
             setattr(mod, name, originals[name])
-    planes = captured["warp_x"][0]
-    check(bool(torch.isfinite(out_i).all()), "augmented images finite")
-    check(float(out_i.min()) >= 0.0 and float(out_i.max()) <= 255.0,
-          "augmented images in [0, 255]")
-    check(bool(((out_m == 0) | (out_m == 1)).all()), "masks binary")
-    emit("capture", planes=list(planes.shape), px=captured["warp_x"][3],
-         py=captured["warp_y"][3], k=captured["elastic_resample"][4],
-         image_range=[float(out_i.min()), float(out_i.max())],
-         mask_values=sorted(set(out_m.unique().tolist())))
-    return {"warp_x": captured["warp_x"], "warp_y": captured["warp_y"],
-            "elastic": captured["elastic_resample"]}
+    # default path: X, Y, elastic; fused: X, YE; unfused: 2 shears, elastic
+    check(len(captured["warp_ye"]) == 1 and len(captured["shear_pass"]) == 2
+          and len(captured["warp_y"]) == 1, ("captures", {
+              k: len(v) for k, v in captured.items()}))
+    args_of = {"warp_x": captured["warp_x"][0],
+               "warp_y": captured["warp_y"][0],
+               "elastic": captured["elastic_resample"][0],
+               "shear": captured["shear_pass"],
+               "warp_ye": captured["warp_ye"][0]}
+    emit("capture", planes=list(args_of["warp_x"][0].shape),
+         px=args_of["warp_x"][3], py=args_of["warp_y"][3],
+         k=args_of["elastic"][4], ye_py=args_of["warp_ye"][5],
+         shear_lines=[list(a[0].shape) for a in args_of["shear"]])
+    return args_of
+
+
+def _measure(name, kernel, plain, args) -> dict:
+    """One kernel launch against its plain version on the same arguments,
+    both timed, with the launch's memory and operation bound."""
+    got = kernel(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    flags = args[2] if name == "shear" else args[1]
+    image = (flags == 0).view(1, -1, 1, 1).expand_as(got)
+    err = float((got - want)[image].abs().max())
+    mis = mask_mismatch(got[~image], want[~image])
+    ms = cuda_ms(lambda: kernel(*args), 50)
+    plain_ms = cuda_ms(lambda: plain(*args), 10)
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    nbytes = (sum(t.numel() * t.element_size() for t in tensors)
+              + got.numel() * got.element_size())
+    ops = OPS_PER_PIXEL[name] * got.numel()
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / F32_FLOPS * 1e3
+    return dict(max_abs_err=err, mask_mismatch=mis, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                shape=list(got.shape), bytes=nbytes)
 
 
 def phase_kernels(args_of) -> dict:
@@ -235,48 +333,87 @@ def phase_kernels(args_of) -> dict:
         "warp_x": (FW.warp_x, FW.warp_x_plain),
         "warp_y": (FW.warp_y, FW.warp_y_plain),
         "elastic": (EL.elastic_resample, EL.elastic_resample_plain),
+        "shear": (SH.shear_pass, SH.shear_pass_plain),
+        "warp_ye": (FW.warp_ye, FW.warp_ye_plain),
     }
     rows = {}
     for name, (kernel, plain) in calls.items():
-        args = args_of[name]
-        planes, flags = args[0], args[1]
-        got = kernel(*args)
-        want = plain(*args)
-        torch.cuda.synchronize()
-        image = (flags == 0).view(1, -1, 1, 1).expand_as(got)
-        err = float((got - want)[image].abs().max())
-        mis = mask_mismatch(got[~image], want[~image])
-        ms = cuda_ms(lambda: kernel(*args), 50)
-        plain_ms = cuda_ms(lambda: plain(*args), 10)
-        tensors = [a for a in args if isinstance(a, torch.Tensor)]
-        nbytes = (sum(t.numel() * t.element_size() for t in tensors)
-                  + got.numel() * got.element_size())
-        ops = OPS_PER_PIXEL[name] * got.numel()
-        t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / F32_FLOPS * 1e3
-        rows[name] = dict(
-            name=name, route="cuda", source=SOURCES[name],
-            replaces=K.KERNELS[name].replaces, launches=None,
-            max_abs_err=err, mask_mismatch=mis, ms=ms, plain_ms=plain_ms,
-            bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=None, shape=list(planes.shape), bytes=nbytes)
+        if name == "shear":
+            # the x-pass and the y-pass of one warp; the row reports their
+            # mean per launch and the worst error
+            passes = [_measure(name, kernel, plain, a)
+                      for a in args_of[name]]
+            m = {k: statistics.mean(p[k] for p in passes)
+                 for k in ("ms", "plain_ms", "bound_ms", "bytes")}
+            m.update(max_abs_err=max(p["max_abs_err"] for p in passes),
+                     mask_mismatch=max(p["mask_mismatch"] for p in passes),
+                     bound_by=passes[0]["bound_by"],
+                     shape=passes[0]["shape"], passes=passes)
+        else:
+            m = _measure(name, kernel, plain, args_of[name])
+        rows[name] = dict(name=name, route="cuda", source=SOURCES[name],
+                          replaces=K.KERNELS[name].replaces, launches=None,
+                          library_ms=None, **m)
         emit("kernel", **rows[name])
-        check(err <= IMG_ATOL, (name, "image error", err))
-        check(mis <= MASK_SHARE, (name, "mask mismatch", mis))
+        check(m["max_abs_err"] <= IMG_ATOL,
+              (name, "image error", m["max_abs_err"]))
+        check(m["mask_mismatch"] <= MASK_SHARE,
+              (name, "mask mismatch", m["mask_mismatch"]))
     return rows
 
 
-def phase_train(aug, imgs, masks, steps: int, seed: int,
-                profile: str = "") -> dict:
+def phase_warp_paths(aug, imgs, masks, draws) -> dict:
+    """The block through ``Augmentation.apply`` on each path: launches of
+    one run (counts reset just before, read just after), median time, and
+    the paths against each other."""
+    outs, out = {}, {}
+    for path, values in PATHS.items():
+        with env(values):
+            K.reset_launches()
+            res = aug.apply(draws, imgs, masks)
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in K.launch_counts().items() if v}
+            ms = cuda_ms(lambda: aug.apply(draws, imgs, masks), 10)
+        outs[path] = res
+        out[path] = dict(ms=ms, launches=launches)
+    want = {"default": {"warp_x": 1, "warp_y": 1, "elastic": 1},
+            "fuse_elastic": {"warp_x": 1, "warp_ye": 1},
+            "unfused": {"shear": 2, "elastic": 1}}
+    (di, dm), (fi, fm), (ui, um) = (outs[p] for p in PATHS)
+    cmp = dict(
+        ye_vs_default=dict(max_abs_err=float((fi - di).abs().max()),
+                           mask_mismatch=mask_mismatch(fm, dm)),
+        unfused_vs_default=dict(max_abs_err=float((ui - di).abs().max()),
+                                mask_mismatch=mask_mismatch(um, dm)))
+    emit("warp_paths", batch=list(imgs.shape), paths=out, compare=cmp,
+         tolerance=dict(ye_img_atol=IMG_ATOL, ye_mask_share=MASK_SHARE,
+                        unfused_img_atol=PATH_IMG_ATOL,
+                        unfused_mask_share=PATH_MASK_SHARE))
+    for path in PATHS:
+        check(out[path]["launches"] == want[path],
+              (path, "launches", out[path]["launches"]))
+    check(cmp["ye_vs_default"]["max_abs_err"] <= IMG_ATOL, cmp)
+    check(cmp["ye_vs_default"]["mask_mismatch"] <= MASK_SHARE, cmp)
+    check(cmp["unfused_vs_default"]["max_abs_err"] <= PATH_IMG_ATOL, cmp)
+    check(cmp["unfused_vs_default"]["mask_mismatch"] <= PATH_MASK_SHARE, cmp)
+    return out
+
+
+def phase_train(name: str, cfg, imgs, masks, steps: int, seed: int,
+                expect: dict, profile: str = "") -> dict:
+    """``steps`` train steps of ``cfg``'s model, loss, optimizer, lr and
+    augmentation on the fixed batch; the launch counts of the run must be
+    ``expect`` times ``steps`` (every other kernel 0)."""
     dev = imgs.device
-    model = MF.init_model(MF.create_model("Unet", "resnet34", 1,
-                                          dtype="bfloat16"), seed, dev)
-    tx = OP.build_optimizer("Adam")
+    model = MF.init_model(MF.create_model(cfg.architecture, cfg.backbone,
+                                          cfg.classes, dtype=cfg.dtype),
+                          seed, dev)
+    tx = OP.build_optimizer(cfg.optimizer)
     state = ST.create_train_state(model, tx, dev)
     step = ST.build_train_step(
-        model, tx, LO.build_loss(LOSS, "sigmoid"),
-        {"dice": ME.get("dice"), "iou": ME.get("iou")}, "sigmoid", None,
-        aug=aug)
+        model, tx, LO.build_loss(cfg.loss, cfg.activation),
+        {m: ME.get(m) for m in cfg.metrics}, cfg.activation, None,
+        aug=LW.build_augmentation(cfg.augmentation))
     batch = {"image": imgs, "mask": masks}
     gen = torch.Generator(device=dev).manual_seed(seed + 2)
     torch.cuda.reset_peak_memory_stats()
@@ -284,7 +421,7 @@ def phase_train(aug, imgs, masks, steps: int, seed: int,
     K.reset_launches()
     for _ in range(steps):
         t0 = time.perf_counter()
-        state, logs = step(state, batch, LR, gen=gen)
+        state, logs = step(state, batch, cfg.lr, gen=gen)
         loss = float(logs["loss"])
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
@@ -292,25 +429,31 @@ def phase_train(aug, imgs, masks, steps: int, seed: int,
     launches = K.launch_counts()
     b = imgs.shape[0]
     steady = times[1:] or times
-    out = dict(steps=steps, batch=b, size=list(imgs.shape[1:3]),
+    out = dict(model=f"{cfg.architecture}-{cfg.backbone}", dtype=cfg.dtype,
+               steps=steps, batch=b, size=list(imgs.shape[1:3]),
                loss=losses, step_ms=times,
                img_per_s=b / (statistics.mean(steady) / 1e3),
                launches=launches, dice=float(logs["dice"]),
                iou=float(logs["iou"]),
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
-    emit("train", **out)
+    emit(name, **out)
     check(all(math.isfinite(v) for v in losses), ("finite loss", losses))
     check(statistics.mean(losses[-3:]) < losses[0], ("falling loss", losses))
-    check(launches == {n: steps for n in K.KERNELS},
-          ("one launch per kernel and step", launches))
+    check(launches == {n: steps * expect.get(n, 0) for n in K.KERNELS},
+          (name, "launches per step", launches))
     if profile:
-        phase_profile(lambda: step(state, batch, LR, gen=gen), profile)
+        phase_profile(lambda: step(state, batch, cfg.lr, gen=gen), profile,
+                      name)
     return out
 
 
 # kernel-name fragments → the layer they belong to, first match wins
 _LAYERS = [("aug kernels", ("warp_x_kernel", "warp_y_kernel",
-                            "elastic_kernel")),
+                            "warp_ye_kernel", "elastic_kernel",
+                            "shear_kernel")),
+           # cuDNN's grouped kernels with one channel per group
+           ("depthwise convolution", ("depthwise", "dwconv", "c1_k1_nhwc",
+                                      "grouped_direct")),
            ("convolution", ("conv", "xmma", "gemm", "cutlass", "sm90_",
                             "winograd", "implicit")),
            ("batch norm", ("bn_", "batch_norm", "batchnorm", "welford")),
@@ -320,7 +463,7 @@ _LAYERS = [("aug kernels", ("warp_x_kernel", "warp_y_kernel",
            ("other", ("",))]
 
 
-def phase_profile(run_step, path: str, steps: int = 3) -> None:
+def phase_profile(run_step, path: str, name: str, steps: int = 3) -> None:
     """Three more steps under torch.profiler: device time by layer and
     by kernel, and the device's idle share of the window's wall time.
     The table of the top kernels goes to ``path``."""
@@ -351,7 +494,7 @@ def phase_profile(run_step, path: str, steps: int = 3) -> None:
         for e in top:
             f.write(f"{e.self_device_time_total / 1e3 / steps:10.4f} ms/step"
                     f" {e.count // steps:6d} calls/step  {e.key[:150]}\n")
-    emit("profile", steps=steps, step_wall_ms=wall_ms / steps,
+    emit("profile", train=name, steps=steps, step_wall_ms=wall_ms / steps,
          device_busy_ms=busy_ms, idle_share=(1.0 - busy_ms * steps / wall_ms
                                              if busy_ms else None),
          by_layer_ms=by_layer, kernels_per_step=sum(e.count for e in kernels)
@@ -361,7 +504,8 @@ def phase_profile(run_step, path: str, steps: int = 3) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", default="",
-                    help="also profile 3 steps; write the kernel table here")
+                    help="also profile 3 steps of each train phase; write "
+                         "the kernel tables here")
     a = ap.parse_args(argv)
 
     info = phase_device()
@@ -372,11 +516,32 @@ def main(argv=None) -> int:
     imgs, masks = synthetic_batch(BATCH, SIZE, SIZE, SEED)
     imgs, masks = torch.from_numpy(imgs).cuda(), torch.from_numpy(masks).cuda()
     gen = torch.Generator(device=imgs.device).manual_seed(SEED)
-    args_of = phase_capture(aug, imgs, masks, gen)
-    rows = phase_kernels(args_of)
-    train = phase_train(aug, imgs, masks, STEPS, SEED, a.profile)
+    draws = aug.sample(gen, BATCH, SIZE, SIZE)
+    rows = phase_kernels(phase_capture(aug, imgs, masks, draws))
+    paths = phase_warp_paths(aug, imgs, masks, draws)
+
+    unet = CF.parse_dict({"architecture": "Unet", "backbone": "resnet34",
+                          "loss": LOSS, "optimizer": "Adam", "lr": LR,
+                          "batch": BATCH, "augmentation": CONFIG2_BLOCK,
+                          "metrics": ["dice", "iou"]})
+    train = phase_train("train", unet, imgs, masks, STEPS, SEED,
+                        {"warp_x": 1, "warp_y": 1, "elastic": 1}, a.profile)
+    torch.cuda.empty_cache()
+    fpn = CF.parse(FPN_YAML)
+    check(fpn.shape[:2] == (SIZE, SIZE) and fpn.batch == BATCH,
+          ("config 2 shape and batch", fpn.shape, fpn.batch))
+    stem, dot, suffix = a.profile.rpartition(".")
+    fpn_profile = (f"{stem}_fpn.{suffix}" if dot else f"{a.profile}_fpn"
+                   ) if a.profile else ""
+    with env({"STP_FUSE_ELASTIC": "1"}):
+        train_fpn = phase_train("train_fpn", fpn, imgs, masks, STEPS, SEED,
+                                {"warp_x": 1, "warp_ye": 1}, fpn_profile)
+    # launches on each kernel's main path: X, Y and elastic in the Unet
+    # step, YE in the FPN step, the shear in the unfused warp path
+    launches = dict(train["launches"], warp_ye=train_fpn["launches"][
+        "warp_ye"], shear=paths["unfused"]["launches"]["shear"])
     for name, row in rows.items():
-        row["launches"] = train["launches"][name]
+        row["launches"] = launches[name]
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}),

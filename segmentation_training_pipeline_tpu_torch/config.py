@@ -93,8 +93,8 @@ for _entry in (
     _name, *_aliases = _entry.split("|")
     AUGMENTERS.register(_name, _name, aliases=_aliases)
 
-PORTED_ARCHITECTURES = {"Unet"}
-PORTED_BACKBONES = {"resnet34"}
+PORTED_ARCHITECTURES = {"Unet", "FPN"}
+PORTED_BACKBONES = {"resnet34"} | {f"efficientnetb{i}" for i in range(8)}
 PORTED_OPTIMIZERS = {"Adam"}
 
 _TOP_LEVEL_KEYS = {

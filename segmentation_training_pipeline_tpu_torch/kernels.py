@@ -139,6 +139,14 @@ KERNELS: Dict[str, Kernel] = {
                [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
                "segmentation_training_pipeline_tpu/ops/aug/"
                "pallas_elastic.py:155"),
+        Kernel("shear", "shear.cu", "stp_shear",
+               [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+               "segmentation_training_pipeline_tpu/ops/aug/"
+               "pallas_shear.py:98"),
+        Kernel("warp_ye", "warp_xy.cu", "stp_warp_ye",
+               [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+               "segmentation_training_pipeline_tpu/ops/aug/"
+               "pallas_warp.py:312"),
     )
 }
 

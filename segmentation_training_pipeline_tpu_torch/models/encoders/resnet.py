@@ -72,7 +72,3 @@ class ResNetEncoder(nn.Module):
                 y = getattr(self, name)(y, train)
             feats.append(y)                           # C2..C5
         return feats
-
-
-# name → constructor kwargs of the backbones ported so far
-SPECS = {"resnet34": dict(stage_sizes=(3, 4, 6, 3))}

@@ -1,12 +1,15 @@
 """architecture + backbone → SegmentationModel (PyTorch).
 
 Counterpart of ``segmentation_training_pipeline_tpu/models/factory.py`` for
-the Unet + resnet34 pairing.  The model takes NHWC input and returns NHWC
-float32 **logits**; losses and metrics apply the activation themselves.
-Inside, it runs NCHW with channels-last strides, under autocast in the
-compute dtype (bfloat16 by default), and the 1×1 logits head runs in f32
-on an f32 cast of the decoder output (a matmul, which PyTorch keeps in full
-f32 unless TF32 is switched on for matmuls).
+the ported decoders (Unet, FPN) and encoders (``encoders.ENCODERS``).  The
+model takes NHWC input and returns NHWC float32 **logits**; losses and
+metrics apply the activation themselves.  Inside, it runs NCHW with
+channels-last strides, under autocast in the compute dtype (bfloat16 by
+default), and the 1×1 logits head runs in f32 on an f32 cast of the decoder
+output (a matmul, which PyTorch keeps in full f32 unless TF32 is switched
+on for matmuls).  A decoder that stops short of the input resolution (FPN,
+stride 4) gets its f32 logits resized bilinearly to the input size, as the
+reference does.
 
 Parameter names follow the flax tree: ``encoder.*``, ``decoder.*``,
 ``logits_conv.*`` (see ``models.bridge``).
@@ -14,23 +17,24 @@ Parameter names follow the flax tree: ``encoder.*``, ``decoder.*``,
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.func import functional_call
 
+from .decoders.fpn import FPNDecoder
 from .decoders.unet import UnetDecoder
-from .encoders.resnet import SPECS, ResNetEncoder
-from .layers import BatchNorm, Conv
+from .encoders import ENCODERS, build_encoder
+from .layers import BatchNorm, Conv, DropPath, resize_to
 
 Tensor = torch.Tensor
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
 _AUTOCAST = (torch.bfloat16, torch.float16)   # float32/64 run as they are
-ARCHITECTURES = {"unet"}
+DECODERS = {"unet": UnetDecoder, "fpn": FPNDecoder}
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -45,17 +49,18 @@ class SegmentationModel(nn.Module):
                  classes: int = 1, dropout: float = 0.0,
                  dtype: torch.dtype = torch.bfloat16, in_channels: int = 3):
         super().__init__()
-        if architecture.lower() not in ARCHITECTURES:
+        if architecture.lower() not in DECODERS:
             raise _not_ported(f"architecture {architecture!r}")
-        if backbone.lower() not in SPECS:
+        if backbone.lower() not in ENCODERS:
             raise _not_ported(f"backbone {backbone!r}")
         self.architecture = architecture
         self.backbone = backbone
         self.classes = classes
         self.dropout = dropout
         self.dtype = dtype
-        self.encoder = ResNetEncoder(in_channels, **SPECS[backbone.lower()])
-        self.decoder = UnetDecoder(self.encoder.out_channels)
+        self.encoder = build_encoder(backbone, in_channels)
+        self.decoder = DECODERS[architecture.lower()](
+            self.encoder.out_channels)
         self.logits_conv = Conv(self.decoder.out_channels, classes, 1,
                                 bias=True)
 
@@ -69,7 +74,27 @@ class SegmentationModel(nn.Module):
                 y = F.dropout(y, self.dropout, training=train)
         y = y.float().permute(0, 2, 3, 1)
         w = self.logits_conv.weight[:, :, 0, 0]
-        return F.linear(y, w.float(), self.logits_conv.bias.float())
+        logits = F.linear(y, w.float(), self.logits_conv.bias.float())
+        if logits.shape[1:3] != x.shape[2:]:
+            # a sub-resolution decoder: resize the f32 LOGITS (it commutes
+            # with the 1×1 head and moves classes, not 128, channels)
+            logits = resize_to(logits.permute(0, 3, 1, 2), x.shape[2],
+                               x.shape[3], "bilinear").permute(0, 2, 3, 1)
+        return logits
+
+    def drop_paths(self) -> Dict[str, float]:
+        """Module name → drop rate of every stochastic-depth layer that
+        drops in training (rate > 0)."""
+        return {n: m.rate for n, m in self.named_modules()
+                if isinstance(m, DropPath) and m.rate > 0.0}
+
+    def sample_drop_masks(self, gen: torch.Generator,
+                          b: int) -> Dict[str, Tensor]:
+        """Per-example keep masks ((B,) bool, kept with probability
+        1 − rate) of every layer in :meth:`drop_paths`, drawn from ``gen``
+        in module order."""
+        return {n: torch.rand(b, generator=gen, device=gen.device)
+                < 1.0 - rate for n, rate in self.drop_paths().items()}
 
 
 def create_model(architecture: str, backbone: str, classes: int = 1,
@@ -106,11 +131,26 @@ def model_variables(model: SegmentationModel
 
 def apply_model(model: SegmentationModel, params: Dict[str, Tensor],
                 batch_stats: Dict[str, Tensor], x: Tensor,
-                train: bool = False):
+                train: bool = False,
+                drop_masks: Optional[Dict[str, Tensor]] = None):
     """Functional forward with explicit variables.  Eval mode → logits;
-    train mode → (logits, updated batch_stats) with flax's BN rule."""
-    logits = functional_call(model, (params, batch_stats), (x,),
-                             {"train": train})
+    train mode → (logits, updated batch_stats) with flax's BN rule.  In
+    train mode every layer of ``model.drop_paths()`` takes its keep mask
+    from ``drop_masks`` (name → (B,) bool)."""
+    layers = dict(model.named_modules())
+    names = list(model.drop_paths()) if train else []
+    missing = [n for n in names if n not in (drop_masks or {})]
+    if missing:
+        raise ValueError(f"train mode needs the drop-path keep masks of "
+                         f"{missing}")
+    for n in names:
+        layers[n].keep_mask = drop_masks[n]
+    try:
+        logits = functional_call(model, (params, batch_stats), (x,),
+                                 {"train": train})
+    finally:
+        for n in names:
+            layers[n].keep_mask = None
     if not train:
         return logits
     new_stats = dict(batch_stats)

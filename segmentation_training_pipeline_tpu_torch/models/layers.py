@@ -10,8 +10,9 @@ inside).  Three conventions of the flax reference are kept exactly:
     conv pads asymmetrically (the 7×7/2 stem pads (2, 3), a 3×3/2 conv
     (0, 1)), which a symmetric ``padding=k//2`` gets wrong.
   * BatchNorm with flax's running-statistics rule: running = m·running +
-    (1 − m)·batch with m = 0.9 (PyTorch's momentum 0.1), and the BIASED
-    batch variance (PyTorch folds in the unbiased one).  In training mode
+    (1 − m)·batch with m = 0.9 (PyTorch's momentum 0.1; EfficientNet uses
+    0.99 and eps 1e-3), and the BIASED batch variance (PyTorch folds in
+    the unbiased one).  In training mode
     the layer leaves its updated statistics in ``updated``; the caller
     collects them (``models.factory.apply_model``).
   * Initialisation as flax's defaults: conv kernels from
@@ -56,15 +57,17 @@ class Conv(nn.Module):
     """k×k convolution with XLA SAME padding (flax ``nn.Conv``)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int = 3,
-                 stride: int = 1, bias: bool = False):
+                 stride: int = 1, bias: bool = False, groups: int = 1):
         super().__init__()
         self.kernel = kernel
         self.stride = stride
-        self.weight = nn.Parameter(torch.empty(out_channels, in_channels,
-                                               kernel, kernel))
+        self.groups = groups
+        self.weight = nn.Parameter(torch.empty(
+            out_channels, in_channels // groups, kernel, kernel))
         self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
 
     def reset_parameters(self, gen: torch.Generator) -> None:
+        # flax's fan_in of a grouped conv: in/groups · k · k
         fan_in = self.weight.shape[1] * self.kernel * self.kernel
         std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
         with torch.no_grad():
@@ -74,10 +77,11 @@ class Conv(nn.Module):
                 self.bias.zero_()
 
     def forward(self, x: Tensor) -> Tensor:
-        k, s = self.kernel, self.stride
+        k, s, g = self.kernel, self.stride, self.groups
         if s == 1 and k % 2 == 1:
-            return F.conv2d(x, self.weight, self.bias, 1, k // 2)
-        return F.conv2d(pad_same(x, k, s), self.weight, self.bias, s)
+            return F.conv2d(x, self.weight, self.bias, 1, k // 2, 1, g)
+        return F.conv2d(pad_same(x, k, s), self.weight, self.bias, s, 0, 1,
+                        g)
 
 
 class BatchNorm(nn.Module):
@@ -137,9 +141,77 @@ def max_pool_same(x: Tensor, k: int = 3, s: int = 2) -> Tensor:
     return F.max_pool2d(pad_same(x, k, s, value=float("-inf")), k, s)
 
 
+def resize_to(x: Tensor, h: int, w: int, method: str = "nearest") -> Tensor:
+    """Resize an NCHW batch to (h, w) in its dtype, as ``jax.image.resize``
+    does.  Nearest takes source index floor((i + 0.5)·n/h) (PyTorch's
+    "nearest-exact") with autocast off: CUDA autocast would run it in f32,
+    which is no more exact for a copy and doubles its bytes.  Bilinear is
+    the half-pixel triangle filter with clamped edges, which is
+    ``align_corners=False``; it equals JAX's for upsampling only (JAX
+    antialiases a downsample)."""
+    if tuple(x.shape[2:]) == (h, w):
+        return x
+    if method == "nearest":
+        with torch.autocast(x.device.type, enabled=False):
+            return F.interpolate(x, size=(h, w), mode="nearest-exact")
+    if method == "bilinear":
+        return F.interpolate(x, size=(h, w), mode="bilinear",
+                             align_corners=False)
+    raise ValueError(f"resize_to: unknown method {method!r}")
+
+
 def upsample2x(x: Tensor) -> Tensor:
     """Nearest 2× upsample (``jax.image.resize`` nearest: dst i ← src i//2)
-    in the input's dtype: CUDA autocast would run it in f32, which is no
-    more exact for a copy and doubles its bytes and the concat's after."""
-    with torch.autocast(x.device.type, enabled=False):
-        return F.interpolate(x, scale_factor=2, mode="nearest")
+    in the input's dtype."""
+    return resize_to(x, x.shape[2] * 2, x.shape[3] * 2)
+
+
+class SEBlock(nn.Module):
+    """Squeeze-and-excitation (Hu et al. 2018) with EfficientNet's swish
+    hidden activation: spatial mean → 1×1 ``reduce`` (bias) → swish → 1×1
+    ``expand`` (bias) → sigmoid gate on the input."""
+
+    def __init__(self, channels: int, reduced: int):
+        super().__init__()
+        self.reduce = Conv(channels, reduced, 1, bias=True)
+        self.expand = Conv(reduced, channels, 1, bias=True)
+
+    def forward(self, x: Tensor) -> Tensor:
+        s = x.mean(dim=(2, 3), keepdim=True)
+        s = self.expand(F.silu(self.reduce(s)))
+        return x * torch.sigmoid(s)
+
+
+class DropPath(nn.Module):
+    """Stochastic depth: in training each example's residual branch is
+    kept (scaled by 1/keep) or dropped.  The per-example keep mask is a
+    draw, not sampled here: the caller sets ``keep_mask`` ((B,) bool) for
+    the forward (``models.factory.apply_model``)."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+        self.keep_mask: Optional[Tensor] = None
+
+    def forward(self, x: Tensor, train: bool = False) -> Tensor:
+        if self.rate == 0.0 or not train:
+            return x
+        if self.keep_mask is None:
+            raise ValueError("DropPath in training needs its keep mask (a "
+                             "draw of the step)")
+        keep = 1.0 - self.rate
+        m = self.keep_mask.to(x.dtype).view(-1, 1, 1, 1)
+        return x * m / keep
+
+
+def round_filters(filters: float, multiplier: float, divisor: int = 8) -> int:
+    """EfficientNet's width scaling to multiples of ``divisor``."""
+    f = filters * multiplier
+    new_f = max(divisor, int(f + divisor / 2) // divisor * divisor)
+    if new_f < 0.9 * f:
+        new_f += divisor
+    return int(new_f)
+
+
+def round_repeats(repeats: int, multiplier: float) -> int:
+    return int(math.ceil(repeats * multiplier))

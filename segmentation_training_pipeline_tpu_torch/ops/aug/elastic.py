@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ... import kernels as K
-from .fused_warp import joint_planes, split_planes
+from .fused_warp import elastic_tail_plain, joint_planes, split_planes
 
 Tensor = torch.Tensor
 
@@ -37,41 +37,9 @@ def elastic_resample_plain(planes: Tensor, flags: Tensor, dy: Tensor,
                            dx: Tensor, k: int, fill: float = 0.0) -> Tensor:
     """Plain PyTorch elastic resample: planes (B, C, H, W) f32, flags (C,)
     i32 (non-zero = nearest channel), dy/dx (B, H, W) f32 → (B, C, H, W)."""
-    b, c, h, w = planes.shape
-    dev = planes.device
-    near = (flags != 0).view(1, c, 1, 1)
-    yy = torch.arange(h, device=dev, dtype=torch.float32)[:, None]
-    xx = torch.arange(w, device=dev, dtype=torch.float32)[None, :]
-
-    # y taps at every (y, x'), from the dy of column x'
-    d = torch.clamp(yy + dy, 0.0, h - 1.0) - yy                    # (B,H,W)
-    iy = torch.floor(d)
-    fy = torch.where(near, torch.floor((d - iy)[:, None] + 0.5),
-                     (d - iy)[:, None])
-    r0 = (yy.long() + iy.long()).clamp(0, h)
-    padded = F.pad(planes, (0, 0, 0, 1), value=fill)   # row h reads fill
-    g0 = torch.gather(padded, 2, r0[:, None].expand(b, c, h, w))
-    g1 = torch.gather(padded, 2, (r0 + 1).clamp(max=h)[:, None].expand(
-        b, c, h, w))
-    row = (1.0 - fy) * g0 + fy * g1
-    row = torch.where(((iy >= -k) & (iy <= k))[:, None], row, 0.0)
-
-    # x taps at (y, x), read from row at the shifted columns (mod W: the
-    # wrapped tap only ever carries weight 0)
-    d = torch.clamp(xx + dx, 0.0, w - 1.0) - xx
-    ix = torch.floor(d)
-    fx = torch.where(near, torch.floor((d - ix)[:, None] + 0.5),
-                     (d - ix)[:, None])
-    x0 = torch.remainder(xx.long() + ix.long(), w)
-    x1 = torch.remainder(x0 + 1, w)
-    out = ((1.0 - fx) * torch.gather(row, 3, x0[:, None].expand(b, c, h, w))
-           + fx * torch.gather(row, 3, x1[:, None].expand(b, c, h, w)))
-    out = torch.where(((ix >= -k) & (ix <= k))[:, None], out, 0.0)
-
-    sy = yy + dy
-    sx = xx + dx
-    oob = (sy < -0.5) | (sy > h - 0.5) | (sx < -0.5) | (sx > w - 0.5)
-    return torch.where(oob[:, None], fill, out)
+    padded = F.pad(planes, (0, 0, 0, 1), value=fill)   # row H reads fill
+    near = (flags != 0).view(1, -1, 1, 1)
+    return elastic_tail_plain(padded, 0, near, dy, dx, k, fill)
 
 
 def elastic_resample(planes: Tensor, flags: Tensor, dy: Tensor, dx: Tensor,

@@ -19,8 +19,14 @@ Paths, as on the TPU:
   * flips only → reverse + select (``_apply_cheap_geo``);
   * affine → ``fast_warp.warp_joint_multipass`` (kernels X and Y);
   * affine + elastic → the multipass warp, then the elastic kernel on the
-    residual field D' = A⁻¹·D clipped to ±K;
+    residual field D' = A⁻¹·D clipped to ±K; with ``STP_FUSE_ELASTIC`` set
+    (default off, read as the JAX lowering reads it) the field rides the
+    multipass warp instead, and kernel YE replaces Y and the elastic kernel;
   * elastic only → the elastic kernel on the raw field.
+``STP_PALLAS_WARP=0`` sends the multipass warp down its unfused path (the
+shear kernel twice around two f32 matmuls, see ``fast_warp``).  Neither
+switch routes a CUDA tensor to a plain version: each picks between
+hand-written kernels, as the JAX switches pick between Pallas kernels.
 Configurations the JAX package sends to its exact footprint gather (K > 64,
 a shear bound beyond the canvas, non-square frames with rotations of 60° or
 more) raise ``NotImplementedError``, as does every augmenter not yet ported.
@@ -33,6 +39,7 @@ uniform per image; [a, b, c, ...] → uniform choice per image;
 from __future__ import annotations
 
 import math
+import os
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -379,6 +386,10 @@ class _GeoRun:
         dxf, dyf = disp
         dxp = ((a11 * dxf - a01 * dyf) / det).clamp(-k, k)
         dyp = ((-a10 * dxf + a00 * dyf) / det).clamp(-k, k)
+        if os.environ.get("STP_FUSE_ELASTIC", "0") not in ("0", "false"):
+            return FW.warp_joint_multipass(images, masks, mats,
+                                           pad_frac=pad_frac,
+                                           disp=(dxp, dyp), disp_k=k)
         images, masks = FW.warp_joint_multipass(images, masks, mats,
                                                 pad_frac=pad_frac)
         return EL.warp_elastic_joint(images, masks, dyp, dxp, k)

@@ -6,8 +6,9 @@ Counterpart of ``segmentation_training_pipeline_tpu/train/step.py``
 the reference: a step returns a new ``TrainState`` and leaves its input
 untouched.  The loss is per example and weighted by ``batch["weight"]``
 (wrap-padded duplicates weigh 0); logs carry the weighted loss and
-metrics and ``_wsum``, the real-example count.  The augmentation's random
-draws arrive as an argument (``draws``), or are sampled from ``gen``.
+metrics and ``_wsum``, the real-example count.  The step's random draws
+(the augmentation's and the stochastic-depth keep masks) arrive as
+arguments (``draws``, ``drop_masks``), or are sampled from ``gen``.
 Eager PyTorch has no counterpart of ``jax.jit``; nothing is compiled.
 """
 
@@ -51,18 +52,21 @@ def create_train_state(model, tx, device="cuda") -> TrainState:
 def build_train_step(model, tx, loss_fn, metric_fns: Dict[str, Callable],
                      activation: str, preprocessing: Optional[str],
                      aug=None):
-    """→ ``train_step(state, batch, lr, gen=None, draws=None) ->
-    (state, logs)``.
+    """→ ``train_step(state, batch, lr, gen=None, draws=None,
+    drop_masks=None) -> (state, logs)``.
 
     ``batch``: {"image": (B, H, W, C) uint8 or 0..255 float, "mask":
     (B, H, W, M), optional "weight": (B,)}.  ``loss_fn`` is a
     ``losses.CompositeLoss``; ``metric_fns`` map names to per-example
     metric functions of (y_true, probs, activation).  ``aug`` is a
     ``lowering.Augmentation``; its draws are ``draws`` if given, else
-    sampled from ``gen``."""
+    sampled from ``gen``.  The keep masks of the model's stochastic-depth
+    layers (``model.drop_paths()``) are ``drop_masks`` if given, else
+    sampled from ``gen`` after the augmentation's draws."""
 
     def train_step(state: TrainState, batch, lr: float,
-                   gen: Optional[torch.Generator] = None, draws=None):
+                   gen: Optional[torch.Generator] = None, draws=None,
+                   drop_masks=None):
         images, masks = batch["image"], batch["mask"]
         b = images.shape[0]
         w = batch.get("weight")
@@ -77,13 +81,18 @@ def build_train_step(model, tx, loss_fn, metric_fns: Dict[str, Callable],
                 draws = aug.sample(gen, b, images.shape[1], images.shape[2],
                                    images.shape[3])
             images, masks = aug.apply(draws, images, masks)
+        if drop_masks is None and model.drop_paths():
+            if gen is None:
+                raise ValueError("stochastic depth needs keep masks or a "
+                                 "generator")
+            drop_masks = model.sample_drop_masks(gen, b)
         x = preprocess(images, preprocessing or "tf", model.dtype)
         masks = masks.float()
 
         params = {k: p.detach().requires_grad_(True)
                   for k, p in state.params.items()}
         logits, new_stats = apply_model(model, params, state.batch_stats, x,
-                                        train=True)
+                                        train=True, drop_masks=drop_masks)
         loss = (loss_fn.per_example(masks, logits) * w).sum() / wsum
         grads = torch.autograd.grad(loss, list(params.values()))
         updates, new_opt = tx.update(grads, state.opt_state)

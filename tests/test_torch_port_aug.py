@@ -47,7 +47,7 @@ def test_config2_block_matches_jax(h, seed, monkeypatch):
     np.testing.assert_allclose(ti, ji, atol=1e-2, rtol=0)
     np.testing.assert_array_equal(tm, jm)
     assert ti.min() >= 0.0 and ti.max() <= 255.0
-    assert K.launch_counts() == {"warp_x": 0, "warp_y": 0, "elastic": 0}
+    assert K.launch_counts() == {n: 0 for n in K.KERNELS}
 
 
 @pytest.mark.parametrize("spec", [

@@ -9,7 +9,9 @@ They import nothing of JAX, so they also run on a machine without it:
 ``chip_smoke.py`` holds the kernels to their plain versions at the train
 shapes; these cover the edges the train shapes do not reach: non-square
 frames, a non-zero fill, mask ties, displacements beyond K, argument
-checks and the launch counts.  Tolerances: images within 1e-3 (both sides
+checks, the shear kernel's negative offsets (the sign of the modulo) and
+mostly out-of-bounds lines, kernel YE's band check, the three warp paths
+and the launch counts.  Tolerances: images within 1e-3 (both sides
 run the same f32 operations in the same order; the kernel is built with
 ``-fmad=false``), masks equal.
 """
@@ -24,6 +26,7 @@ from segmentation_training_pipeline_tpu_torch import kernels as K
 from segmentation_training_pipeline_tpu_torch.ops.aug import elastic as EL
 from segmentation_training_pipeline_tpu_torch.ops.aug import fused_warp as FW
 from segmentation_training_pipeline_tpu_torch.ops.aug import lowering as LW
+from segmentation_training_pipeline_tpu_torch.ops.aug import shear as SH
 
 
 @pytest.fixture(scope="module")
@@ -129,7 +132,8 @@ def test_config2_block_on_card_matches_cpu(card):
     ci, cm = aug.apply(draws, imgs, masks)
     K.reset_launches()
     gi, gm = aug.apply(to(draws), imgs.to(card), masks.to(card))
-    assert K.launch_counts() == {"warp_x": 1, "warp_y": 1, "elastic": 1}
+    assert K.launch_counts() == {"warp_x": 1, "warp_y": 1, "elastic": 1,
+                                 "shear": 0, "warp_ye": 0}
     assert float((gi.cpu() - ci).abs().max()) <= 0.05
     assert float((gm.cpu() != cm).float().mean()) <= 1e-3
 
@@ -156,3 +160,88 @@ def test_wrappers_check_arguments(card):
     FW.warp_x(planes, kinds, scal, 4)
     torch.cuda.synchronize()
     assert K.launch_counts()["warp_x"] == before["warp_x"] + 1
+
+
+@pytest.mark.parametrize("lo,hi,shift,norig,n", [
+    (-20.0, 20.0, 5, 50, 64), (-9.7, -0.1, 0, 96, 96),    # negative offsets
+    (-300.0, 300.0, 16, 32, 64),                          # mostly off-frame
+    (-40.0, 40.0, 128, 512, 768)])
+def test_shear_kernel_matches_plain(card, lo, hi, shift, norig, n):
+    planes, kinds = _planes(2, 4, 48, n, n)
+    r = np.random.RandomState(n)
+    offs = torch.from_numpy(r.uniform(lo, hi, (2, 48)).astype(np.float32))
+    offs[0, :4] = torch.tensor([-1.0, -0.5, -64.0, -65.5])
+    for fill in (0.0, 3.0):
+        want = SH.shear_pass_plain(planes, offs, kinds, norig, shift, fill)
+        got = SH.shear_pass(planes.to(card), offs.to(card), kinds.to(card),
+                            norig, shift, fill)
+        _check(got.cpu(), want, kinds)
+
+
+@pytest.mark.parametrize("h,w,py,k,fill", [(64, 64, 24, 19, 0.0),
+                                           (48, 80, 12, 6, 5.0),
+                                           (33, 47, 4, 3, 0.0)])
+def test_warp_ye_kernel_matches_plain(card, h, w, py, k, fill):
+    planes, kinds = _planes(2, 4, h, w, h + k)
+    scal = _scalars(2, h, k)
+    r = np.random.RandomState(k)
+    dy, dx = (torch.from_numpy(r.uniform(-k - 2, k + 2, (2, h, w)).astype(
+        np.float32)) for _ in range(2))
+    want = FW.warp_ye_plain(planes, kinds, scal, dy, dx, py, k, fill)
+    got = FW.warp_ye(planes.to(card), kinds.to(card), scal.to(card),
+                     dy.to(card), dx.to(card), py, k, fill)
+    _check(got.cpu(), want, kinds)
+    # kernel YE equals kernel Y then the elastic kernel on the card
+    two = EL.elastic_resample(FW.warp_y(planes.to(card), kinds.to(card),
+                                        scal.to(card), py, fill),
+                              kinds.to(card), dy.to(card), dx.to(card), k,
+                              fill)
+    _check(got.cpu(), two.cpu(), kinds)
+
+
+def test_warp_ye_refuses_a_short_band(card):
+    planes, kinds = _planes(1, 2, 16, 16, 0)
+    d = torch.zeros(1, 16, 16, device=card)
+    before = K.launch_counts()
+    with pytest.raises(ValueError, match="K\\+1"):
+        FW.warp_ye(planes.to(card), kinds.to(card),
+                   _scalars(1, 16, 0).to(card), d, d, 8, 8)
+    with pytest.raises(ValueError, match="offsets"):
+        SH.shear_pass(planes.to(card), torch.zeros(1, 15, device=card),
+                      kinds.to(card), 16, 0, 0.0)
+    assert K.launch_counts() == before
+
+
+@pytest.mark.parametrize("env,expect", [
+    ({}, {"warp_x": 1, "warp_y": 1, "elastic": 1}),
+    ({"STP_FUSE_ELASTIC": "1"}, {"warp_x": 1, "warp_ye": 1}),
+    ({"STP_PALLAS_WARP": "0"}, {"shear": 2, "elastic": 1})])
+def test_warp_paths_launch_their_kernels(card, env, expect, monkeypatch):
+    """Each switch picks kernels; the card's result stays within the CPU's
+    plain result (0.05 and 1e-3 of the mask pixels, see above)."""
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    aug = LW.build_augmentation({
+        "Fliplr": 0.5,
+        "Affine": {"rotate": [-15, 15], "scale": [0.85, 1.15],
+                   "translate_percent": {"x": [-0.1, 0.1], "y": [-0.1, 0.1]}},
+        "ElasticTransformation": {"alpha": [0, 40], "sigma": 6}})
+    r = np.random.RandomState(3)
+    imgs = torch.from_numpy((r.rand(2, 128, 128, 3) * 255).astype(np.uint8))
+    masks = torch.from_numpy((r.rand(2, 128, 128, 1) > 0.5).astype(
+        np.float32))
+    draws = aug.sample(torch.Generator().manual_seed(2), 2, 128, 128)
+    ci, cm = aug.apply(draws, imgs, masks)
+
+    def to(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(card)
+        if isinstance(x, dict):
+            return {k: to(v) for k, v in x.items()}
+        return [to(v) for v in x]
+
+    K.reset_launches()
+    gi, gm = aug.apply(to(draws), imgs.to(card), masks.to(card))
+    assert K.launch_counts() == {n: expect.get(n, 0) for n in K.KERNELS}
+    assert float((gi.cpu() - ci).abs().max()) <= 0.05
+    assert float((gm.cpu() != cm).float().mean()) <= 1e-3

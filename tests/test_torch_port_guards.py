@@ -96,7 +96,9 @@ def test_entry_points_default_to_the_card():
         TS.create_train_state(model, TO.build_optimizer("Adam"))
     with pytest.raises(RuntimeError):
         torch.Generator(device="cuda")
-    assert K.launch_counts() == {"warp_x": 0, "warp_y": 0, "elastic": 0}
+    assert K.launch_counts() == {n: 0 for n in K.KERNELS}
+    assert set(K.KERNELS) == {"warp_x", "warp_y", "elastic", "shear",
+                              "warp_ye"}
 
 
 def test_config_parses_the_slice_experiment():
@@ -108,10 +110,29 @@ def test_config_parses_the_slice_experiment():
     assert cfg.shape == (512, 512, 3) and cfg.dtype == "bfloat16"
 
 
+def test_config_parses_the_fpn_example():
+    """BASELINE config 2 as written: FPN + efficientnetb0 with the
+    config-2 block; the fit loop itself is not ported."""
+    cfg = TC.parse(str(ROOT / "examples" / "fpn_augmented_512.yaml"))
+    assert (cfg.architecture, cfg.backbone, cfg.classes, cfg.batch) == (
+        "FPN", "efficientnetb0", 1, 16)
+    assert [a["name"] for a in cfg.augmentation] == [
+        "Fliplr", "Affine", "ElasticTransformation", "Multiply"]
+    assert [c["name"] for c in cfg.callbacks] == ["ReduceLROnPlateau",
+                                                 "EarlyStopping"]
+    with pytest.raises(NotImplementedError, match="fit loop"):
+        cfg.fit(None)
+    for b in range(8):
+        TC.parse_dict({**EXPERIMENT, "architecture": "FPN",
+                       "backbone": f"efficientnetb{b}"})
+
+
 @pytest.mark.parametrize("patch,exc,match", [
     ({"archtecture": "Unet"}, TC.ConfigError, "Did you mean 'architecture'"),
-    ({"architecture": "FPN"}, NotImplementedError, "not yet ported"),
-    ({"backbone": "efficientnetb0"}, NotImplementedError, "not yet ported"),
+    ({"architecture": "FPN", "backbone": "resnet50"}, NotImplementedError,
+     "backbone 'resnet50' is not yet ported"),
+    ({"backbone": "efficientnetb0", "architecture": "Linknet"},
+     NotImplementedError, "architecture 'Linknet' is not yet ported"),
     ({"backbone": "resnet43"}, TC.ConfigError, "Did you mean"),
     ({"optimizer": "SGD"}, NotImplementedError, "not yet ported"),
     ({"loss": "jaccard_loss"}, NotImplementedError, "not yet ported"),

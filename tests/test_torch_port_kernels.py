@@ -25,6 +25,7 @@ from segmentation_training_pipeline_tpu_torch import kernels as K
 from segmentation_training_pipeline_tpu_torch.ops.aug import elastic as TE
 from segmentation_training_pipeline_tpu_torch.ops.aug import fast_warp as TFW
 from segmentation_training_pipeline_tpu_torch.ops.aug import fused_warp as TW
+from segmentation_training_pipeline_tpu_torch.ops.aug import shear as TS
 
 
 def _batch(b, h, w, seed):
@@ -138,10 +139,13 @@ def test_cpu_wrappers_launch_nothing():
     TW.warp_y(TW.warp_x(planes, kinds, scal, 8), kinds, scal, 8)
     d = torch.zeros(1, 32, 32)
     TE.elastic_resample(planes, kinds, d, d, 4)
-    assert K.launch_counts() == {"warp_x": 0, "warp_y": 0, "elastic": 0}
+    TW.warp_ye(planes, kinds, scal, d, d, 8, 4)
+    TS.shear_pass(planes, torch.zeros(1, 32), kinds, 32, 0, 0.0)
+    assert K.launch_counts() == {n: 0 for n in K.KERNELS}
 
 
-@pytest.mark.parametrize("fn", ["warp_x", "warp_y", "elastic"])
+@pytest.mark.parametrize("fn", ["warp_x", "warp_y", "elastic", "shear",
+                                "warp_ye"])
 def test_non_cpu_tensor_launches_or_raises(fn):
     """A tensor that is not on the CPU never takes the plain version: it
     goes to the CUDA launch path, which refuses a non-CUDA device."""
@@ -151,6 +155,13 @@ def test_non_cpu_tensor_launches_or_raises(fn):
         if fn == "elastic":
             d = torch.empty(1, 8, 8, device="meta")
             TE.elastic_resample(planes, kinds, d, d, 2)
+        elif fn == "shear":
+            TS.shear_pass(planes, torch.empty(1, 8, device="meta"), kinds,
+                          8, 0, 0.0)
+        elif fn == "warp_ye":
+            d = torch.empty(1, 8, 8, device="meta")
+            TW.warp_ye(planes, kinds, torch.empty(1, 6, device="meta"), d, d,
+                       4, 2)
         else:
             scal = torch.empty(1, 6, device="meta")
             getattr(TW, fn)(planes, kinds, scal, 4)
@@ -171,6 +182,16 @@ def test_kernel_sources_are_hopper_cuda():
         # round-half-to-even conversions would break the tie rule
         assert not re.search(r"\b(rintf|nearbyintf|__float2int_rn)\s*\(",
                              src)
-        assert "floorf(f + 0.5f)" in src or "floorf(fy + 0.5f)" in src
+        if k.name == "shear":
+            # masks take the upper tap at a fraction of 0.5 or more
+            assert "frac >= 0.5f ? vn : vo" in src
+            assert "((int)kfloor % n + n) % n" in src   # floor modulo
+        else:
+            assert ("floorf(f + 0.5f)" in src or "floorf(fy + 0.5f)" in src)
+        assert k.replaces.startswith(
+            "segmentation_training_pipeline_tpu/ops/aug/pallas_")
+    assert {k.replaces.split("/")[-1] for k in K.KERNELS.values()} == {
+        "pallas_warp.py:279", "pallas_warp.py:296", "pallas_elastic.py:155",
+        "pallas_shear.py:98", "pallas_warp.py:312"}
     assert "arch=compute_90a,code=sm_90a" in K.NVCC_FLAGS
     assert "-fmad=false" in K.NVCC_FLAGS

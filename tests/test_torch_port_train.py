@@ -127,7 +127,7 @@ def test_loss_and_logs_match(both_steps):
     for k in ("dice", "iou"):
         np.testing.assert_allclose(float(t[k]), float(j[k]), rtol=1e-5)
     assert float(t["_wsum"]) == float(j["_wsum"]) == B
-    assert both_steps["launches"] == {"warp_x": 0, "warp_y": 0, "elastic": 0}
+    assert both_steps["launches"] == {n: 0 for n in K.KERNELS}
     assert both_steps["tnew"].step == 1
 
 

@@ -116,3 +116,35 @@ def blob_batch(b, h, w, seed=0):
         (yy - h * (0.4 + 0.05 * i)) ** 2 + (xx - w * 0.35) ** 2
         < (min(h, w) / 4.0) ** 2 for i in range(b)])
     return imgs, masks[..., None].astype(np.float32)
+
+
+def capture_drop_masks(store):
+    """A ``flax.linen.intercept_methods`` context under which every
+    training-mode ``DropPath`` of the JAX models draws its keep mask as
+    the module itself does (one ``make_rng("dropout")``, a bernoulli) and
+    records it in ``store`` under the port's module name, as a (B,) bool
+    array.  Works inside ``jit`` (the mask leaves through
+    ``jax.debug.callback``); call ``jax.effects_barrier()`` before
+    reading."""
+    import flax.linen as fnn
+    from segmentation_training_pipeline_tpu.models import layers as JLY
+
+    def put(name, m):
+        store[name] = np.asarray(m).reshape(-1).astype(bool)
+
+    def intercept(next_fun, args, kwargs, context):
+        mod = context.module
+        if (not isinstance(mod, JLY.DropPath)
+                or context.method_name != "__call__"):
+            return next_fun(*args, **kwargs)
+        x = args[0]
+        det = kwargs.get("deterministic", args[1] if len(args) > 1 else True)
+        if mod.rate == 0.0 or det:
+            return next_fun(*args, **kwargs)
+        keep = 1.0 - mod.rate
+        mask = jax.random.bernoulli(mod.make_rng("dropout"), keep,
+                                    (x.shape[0], 1, 1, 1))
+        jax.debug.callback(lambda m, n=".".join(mod.path): put(n, m), mask)
+        return x * mask.astype(x.dtype) / keep
+
+    return fnn.intercept_methods(intercept)
