@@ -11,9 +11,15 @@ shapes; these cover the edges the train shapes do not reach: non-square
 frames, a non-zero fill, mask ties, displacements beyond K, argument
 checks, the shear kernel's negative offsets (the sign of the modulo) and
 mostly out-of-bounds lines, kernel YE's band check, the three warp paths
-and the launch counts.  Tolerances: images within 1e-3 (both sides
-run the same f32 operations in the same order; the kernel is built with
-``-fmad=false``), masks equal.
+and the launch counts.  Kernels X and YE tile rows in shared memory, so
+their cases also take widths that are no multiple of 4 or 32, heights
+that are no multiple of YE's row tile, one and five channels, one image,
+``py = K + 1``, elastic offsets of ±K at the frame's edges (the mod-W
+wrap), mask ties in dy, a 2048-wide frame and the widest row each
+wrapper accepts.  Tolerances: images within 1e-3 (both sides run the same
+f32 operations in the same order; the kernel is built with
+``-fmad=false``), masks equal; kernels X and YE equal throughout (their
+redesign moved no f32 operation).
 """
 
 import math
@@ -59,15 +65,21 @@ def _scalars(b, h, seed):
     return torch.from_numpy(np.stack(cols, 1).astype(np.float32))
 
 
-def _check(got, want, kinds):
+def _check(got, want, kinds, exact=False):
+    """Images within 1e-3, masks equal; ``exact``: equal throughout."""
     image = (kinds == 0).view(1, -1, 1, 1).expand_as(got)
-    assert float((got - want)[image].abs().max()) <= 1e-3
+    if exact:
+        assert torch.equal(got, want)
+    elif image.any():
+        assert float((got - want)[image].abs().max()) <= 1e-3
     assert torch.equal(got[~image], want[~image])
 
 
 @pytest.mark.parametrize("b,c,h,w,pad,fill", [
     (2, 4, 64, 64, 24, 0.0), (3, 4, 64, 96, 32, 7.0), (1, 2, 128, 128, 64, 0.0),
-    (2, 4, 33, 47, 12, 0.0)])
+    (2, 4, 33, 47, 12, 0.0), (1, 4, 37, 100, 20, 5.0), (2, 1, 24, 64, 16, 0.0),
+    (2, 5, 32, 64, 16, 0.0), (1, 2, 16, 2048, 64, 0.0),
+    (1, 2, 3, 29056, 0, 0.0)])   # kernel X's widest row at pad 0
 def test_warp_kernels_match_plain(card, b, c, h, w, pad, fill):
     planes, kinds = _planes(b, c, h, w, h + w)
     scal = _scalars(b, h, b + c)
@@ -75,7 +87,7 @@ def test_warp_kernels_match_plain(card, b, c, h, w, pad, fill):
     want_y = FW.warp_y_plain(want_x, kinds, scal, pad, fill)
     gp, gk, gs = planes.to(card), kinds.to(card), scal.to(card)
     got_x = FW.warp_x(gp, gk, gs, pad, fill)
-    _check(got_x.cpu(), want_x, kinds)
+    _check(got_x.cpu(), want_x, kinds, exact=True)
     _check(FW.warp_y(got_x, gk, gs, pad, fill).cpu(), want_y, kinds)
 
 
@@ -178,25 +190,47 @@ def test_shear_kernel_matches_plain(card, lo, hi, shift, norig, n):
         _check(got.cpu(), want, kinds)
 
 
-@pytest.mark.parametrize("h,w,py,k,fill", [(64, 64, 24, 19, 0.0),
-                                           (48, 80, 12, 6, 5.0),
-                                           (33, 47, 4, 3, 0.0)])
-def test_warp_ye_kernel_matches_plain(card, h, w, py, k, fill):
-    planes, kinds = _planes(2, 4, h, w, h + k)
-    scal = _scalars(2, h, k)
-    r = np.random.RandomState(k)
-    dy, dx = (torch.from_numpy(r.uniform(-k - 2, k + 2, (2, h, w)).astype(
-        np.float32)) for _ in range(2))
+def _edge_disp(b, h, w, k, seed):
+    """dy, dx within ±(K + 2), with integer offsets of exactly ±K at the
+    frame's edges: column K reads column 0 and column W − 1 − K reads
+    column W − 1 and its wrapped neighbour 0 (weight 0); rows likewise.
+    Every fifth column of dy has a fraction of .5 (a mask tie)."""
+    r = np.random.RandomState(seed)
+    dy, dx = (r.uniform(-k - 2, k + 2, (b, h, w)).astype(np.float32)
+              for _ in range(2))
+    dy[..., ::5] = np.floor(dy[..., ::5]) + 0.5
+    if w > 2 * k + 1:
+        dx[:, ::2, k] = -k - 0.25
+        dx[:, ::2, w - 1 - k] = k + 0.25
+        dx[:, 1::2, k] = -k
+        dx[:, 1::2, w - 1 - k] = k
+    if h > 2 * k + 1:
+        dy[:, k, ::2] = -k - 0.25
+        dy[:, h - 1 - k, ::2] = k + 0.25
+    return torch.from_numpy(dy), torch.from_numpy(dx)
+
+
+@pytest.mark.parametrize("b,c,h,w,py,k,fill", [
+    (2, 4, 64, 64, 24, 19, 0.0), (2, 4, 48, 80, 12, 6, 5.0),
+    (2, 4, 33, 47, 4, 3, 0.0),
+    (1, 4, 37, 100, 20, 19, 0.0),         # py = K + 1, one image
+    (2, 1, 24, 47, 8, 7, 3.0), (2, 5, 40, 64, 12, 11, 0.0),
+    (1, 2, 16, 2048, 20, 19, 0.0),
+    (1, 2, 5, 19370, 4, 3, 0.0)])         # kernel YE's widest row
+def test_warp_ye_kernel_matches_plain(card, b, c, h, w, py, k, fill):
+    planes, kinds = _planes(b, c, h, w, h + k)
+    scal = _scalars(b, h, k)
+    dy, dx = _edge_disp(b, h, w, k, k)
     want = FW.warp_ye_plain(planes, kinds, scal, dy, dx, py, k, fill)
     got = FW.warp_ye(planes.to(card), kinds.to(card), scal.to(card),
                      dy.to(card), dx.to(card), py, k, fill)
-    _check(got.cpu(), want, kinds)
+    _check(got.cpu(), want, kinds, exact=True)
     # kernel YE equals kernel Y then the elastic kernel on the card
     two = EL.elastic_resample(FW.warp_y(planes.to(card), kinds.to(card),
                                         scal.to(card), py, fill),
                               kinds.to(card), dy.to(card), dx.to(card), k,
                               fill)
-    _check(got.cpu(), two.cpu(), kinds)
+    _check(got.cpu(), two.cpu(), kinds, exact=True)
 
 
 def test_warp_ye_refuses_a_short_band(card):

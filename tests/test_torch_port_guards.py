@@ -1,8 +1,9 @@
 """The port's boundaries: what it imports, where it runs, what it refuses,
 and its small pure functions against the JAX package's.
 
-  * the package and ``chip_smoke.py`` import neither ``jax`` nor the JAX
-    package (a subprocess import and an AST scan);
+  * the package, ``chip_smoke.py`` and ``compare_kernels.py`` import
+    neither ``jax`` nor the JAX package (a subprocess import and an AST
+    scan);
   * entry points default to the card and raise on a host without one;
   * the config parser takes the slice's experiment and refuses what is
     not ported with a pointed ``NotImplementedError``;
@@ -35,7 +36,8 @@ from segmentation_training_pipeline_tpu_torch.train import step as TS
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "segmentation_training_pipeline_tpu_torch"
-SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                       ROOT / "compare_kernels.py"]
 PORT_MODULES = sorted(
     ".".join(p.relative_to(ROOT).with_suffix("").parts).replace(
         ".__init__", "") for p in PKG.rglob("*.py"))
