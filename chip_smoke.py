@@ -20,10 +20,10 @@ and the script exits non-zero:
      the tensors the path hands each kernel;
   5. kernel: per kernel, on those tensors, the kernel against its plain
      PyTorch version on the card (images within 1e-3, mask pixels
-     mismatching in at most 1e-4 of the mask entries; kernels X and YE
-     bit for bit) and both timed with CUDA events, the launches queued
-     behind a 20 ms hold of the stream, beside the kernel's memory bound
-     (``bound_share`` = bound / kernel time);
+     mismatching in at most 1e-4 of the mask entries; kernels X, Y, YE
+     and elastic bit for bit) and both timed with CUDA events, the
+     launches queued behind a 20 ms hold of the stream, beside the
+     kernel's memory bound (``bound_share`` = bound / kernel time);
   6. warp_paths: the config-2 block at B16 512² through
      ``Augmentation.apply`` on one set of draws, the three paths timed
      (CUDA events, median), their launch counts read, and held against
@@ -86,7 +86,7 @@ IMG_ATOL = 1e-3
 MASK_SHARE = 1e-4
 # kernels that change only index math, data movement and reuse against
 # their plain versions: every f32 operation in the same order, so equal
-EXACT = ("warp_x", "warp_ye")
+EXACT = ("warp_x", "warp_y", "elastic", "warp_ye")
 # unfused against fused warp with an elastic field: the JAX test's own
 # tolerances for that comparison (tests/test_pallas_warp.py,
 # test_unfused_disp_fallback: images 1e-2 on 0..255, masks 2e-3).  The two
@@ -107,8 +107,10 @@ HBM_BYTES_S = 3.35e12
 F32_FLOPS = 67e12
 # the SM clock at full boost, for torch.cuda._sleep's cycle count
 HOLD_CLOCK_HZ = 1.98e9
-# f32 operations per output pixel, counted from the kernel sources
-OPS_PER_PIXEL = {"warp_x": 25, "warp_y": 27, "elastic": 32, "shear": 15,
+# f32 operations per output pixel, counted from the kernel sources (Y: one
+# y-scaled value and one y-shear blend; elastic: one row blend and one
+# x-blend)
+OPS_PER_PIXEL = {"warp_x": 25, "warp_y": 28, "elastic": 34, "shear": 15,
                  "warp_ye": 150}
 _CSRC = "segmentation_training_pipeline_tpu_torch/csrc/"
 SOURCES = {"warp_x": _CSRC + "warp_xy.cu", "warp_y": _CSRC + "warp_xy.cu",

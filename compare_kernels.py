@@ -13,7 +13,10 @@ train shapes.  Each kernel is timed and held against its plain version
 as in ``chip_smoke.py``'s kernel phase; a version that disagrees is
 reported, not refused.  The versions run in turns, first to last and back
 (A B … B A), one JSON line per version and kernel, so that versions are
-compared within one call on one card.  Needs one CUDA card and ``nvcc``.
+compared within one call on one card.  A first line times one device copy
+of the planes kernels X and Y take (``copy_``, the same bytes read and
+written once): the streaming rate the card reaches on them, beside the
+bound.  Needs one CUDA card and ``nvcc``.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ import json
 import subprocess
 import sys
 from pathlib import Path
+
+import torch
 
 import chip_smoke as CS
 from segmentation_training_pipeline_tpu_torch import kernels as K
@@ -75,6 +80,12 @@ def main(argv=None) -> int:
     CS.phase_device()
     fns = [entry_points(lib) for lib in build(sources)]
     args_of = CS.phase_capture(*CS.train_shapes())
+    planes = args_of["warp_y"][0]
+    copy = torch.empty_like(planes)
+    print(json.dumps({"yardstick": "copy_", "shape": list(planes.shape),
+                      "bytes": 2 * planes.numel() * planes.element_size(),
+                      "ms": CS.cuda_ms(lambda: copy.copy_(planes), 50,
+                                       hold=True)}), flush=True)
     turns = list(range(len(sources)))
     for i in turns + turns[::-1]:
         for name, fn in fns[i].items():

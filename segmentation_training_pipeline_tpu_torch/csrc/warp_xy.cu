@@ -13,7 +13,7 @@
 // Bound on an H100: memory.  X and Y read the (B, C, H, W) f32 planes once
 // and write them once (at B16 C4 512^2: 64 MiB + 64 MiB, 40 us at
 // 3.35 TB/s); YE also reads the (B, H, W) dy and dx fields (50 us in all).
-// What stands between a kernel and that bound is instructions and reuse,
+// What stands between X or YE and that bound is instructions and reuse,
 // not bytes: each output needs tens of f32 operations and, for YE, six
 // plane reads from a band of rows.
 //
@@ -48,8 +48,26 @@
 // (canvas row, column) in a per-warp band of shared memory cut that count
 // but not the time: the band left room for 2 blocks an SM, not 3.
 //
-// Kernel Y keeps its first design (one thread per output, 64-bit index
-// math, neighbour reuse left to L1/L2).
+// Kernel Y: a thread per (plane, column, tile of 8 output rows) on a 3-D
+// grid (blockIdx.z = b*C + c, blockIdx.y = the row tile, blockIdx.x = a
+// block of 128 columns) with 32-bit index math; the column's y-shear
+// offset, fraction and modulo are computed once per thread, e2 and ty read
+// once.  Output rows i and i + 1 of a column share a y-scaled value (the
+// upper one of row i is the lower one of row i + 1), so the thread walks
+// its column and carries it over: one y-scaled value (two plane loads) and
+// one y-shear blend per output, where the first version computed two
+// values from four loads and divided 64-bit indices.  The walk is unrolled
+// over its 8 rows and its y-scaled value is branch-free (both rows load
+// from clamped indices, the edge cases are selected after the blend), so a
+// thread has its loads in flight together.  Loads and stores coalesce
+// along the columns of a warp; adjacent columns differ in kmod by
+// |s2| <= 0.36 rows, so a warp's load touches up to 12 rows and L1 serves
+// the rest of the walk.  What is left to the bound is the rate of the
+// read-then-write stream itself: with every kmod forced to 0, so that a
+// warp reads one row, the kernel is only some 4% faster, and it takes
+// 1.3 times a device copy of the same planes.  Keeping the last two
+// plane rows in registers, keyed by row index, was slower (10 more
+// registers and divergent branches), and so were taller row tiles.
 //
 // No tensor cores: the work is exact f32 interpolation with data-dependent
 // taps, and a wgmma product would round its inputs to TF32 or bf16, which
@@ -59,9 +77,9 @@
 // nearest rounding (floorf(f + 0.5f), never rintf) for mask channels, the
 // same left-to-right evaluation order, and the build passes -fmad=false so
 // no multiply-add is contracted into an FMA (a contraction can move a
-// coordinate across a .5 tie and flip a mask pixel).  The redesign changed
-// only index math, data movement and reuse, so X and YE stay bit for bit
-// equal to their plain versions.
+// coordinate across a .5 tie and flip a mask pixel).  The redesigns changed
+// only index math, data movement and reuse, so X, Y and YE stay bit for
+// bit equal to their plain versions.
 //
 // Layout: planes (B, C, H, W) f32 contiguous; kinds (C,) i32 (0 bilinear
 // image channel, 1 nearest mask channel); scal (B, 6) f32 per image =
@@ -227,45 +245,78 @@ __device__ __forceinline__ YShear y_shear(float s2, int j, int w, int hp,
   return t;
 }
 
-// Value of the y-sheared canvas (H + 2py rows) at canvas row r, column j
-// of one plane: the y-scaled canvas at (r + kmod) mod hp blended with the
-// next row, edge-clamped, fill outside the canvas.
-__device__ __forceinline__ float sheared_y(const float* plane, int r, int j,
-                                           int h, int w, int py, float e2,
-                                           float ty, YShear t, bool is_mask,
-                                           float fill) {
-  int hp = h + 2 * py;
-  float src = (float)r + t.offs;
-  if (src < -0.5f || src > (float)hp - 0.5f) return fill;
-  int a = floor_mod(r + t.kmod, hp);
-  int a1 = floor_mod(a + 1, hp);
-  float o = scaled_y(plane, a, j, h, w, py, e2, ty, is_mask, fill);
-  float n = scaled_y(plane, a1, j, h, w, py, e2, ty, is_mask, fill);
-  float res = (1.0f - t.frac) * o + t.frac * n;
-  if (src >= (float)hp - 1.0f) res = o;
-  if (src < 0.0f) res = n;
-  return res;
+// scaled_y without branches, for kernel Y's walk: both rows load from
+// clamped indices and the edge cases are selected after the blend, so the
+// unrolled walk issues its loads ahead.  The same f32 operations in the
+// same order give the value: row q0 is row 0 when srcy lies in [-0.5, 0)
+// and row h - 1 when it lies in [h - 1, h - 0.5].  Outside [-0.5, h - 0.5]
+// the clamp keeps the loads in the plane and the value is fill.
+__device__ __forceinline__ float scaled_y_sel(const float* plane, int r,
+                                              int j, int h, int w, int py,
+                                              float e2, float ty,
+                                              bool is_mask, float fill) {
+  float srcy = e2 * ((float)r - (float)py) + ty;
+  float s0 = floorf(srcy);
+  float f = srcy - s0;
+  if (is_mask) f = floorf(f + 0.5f);
+  int q0 = min(max((int)s0, 0), h - 1);
+  int q1 = min(q0 + 1, h - 1);
+  float a = plane[(size_t)q0 * w + j];
+  float b = plane[(size_t)q1 * w + j];
+  float v = (1.0f - f) * a + f * b;
+  if (srcy < 0.0f || srcy >= (float)h - 1.0f) v = a;
+  if (!(srcy >= -0.5f && srcy <= (float)h - 0.5f)) v = fill;
+  return v;
 }
 
-__global__ void warp_y_kernel(const float* __restrict__ planes,
-                              const int* __restrict__ kinds,
-                              const float* __restrict__ scal,
-                              float* __restrict__ out, int nb, int nc,
-                              int h, int w, int py, float fill) {
-  long long total = (long long)nb * nc * h * w;
-  long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  int j = (int)(idx % w);
-  int i = (int)((idx / w) % h);
-  int c = (int)((idx / ((long long)w * h)) % nc);
-  int b = (int)(idx / ((long long)w * h * nc));
+constexpr int kYRows = 8;       // output rows a thread walks
+constexpr int kYThreads = 128;  // columns a block
+
+// Kernel Y: a thread per (plane, column, tile of kYRows output rows).
+// Output row i is the y-sheared canvas at row r = py + i (step 6): the
+// blend of the y-scaled values at a = (r + kmod) mod hp and a + 1 (mod hp),
+// edge-clamped, fill outside the canvas.  The next row's a is this row's
+// a + 1, so the walk carries the upper value over as the next lower one
+// and computes one y-scaled value a row.
+__global__ void __launch_bounds__(kYThreads)
+    warp_y_kernel(const float* __restrict__ planes,
+                  const int* __restrict__ kinds,
+                  const float* __restrict__ scal, float* __restrict__ out,
+                  int nc, int h, int w, int py, float fill) {
+  int j = blockIdx.x * kYThreads + threadIdx.x;
+  if (j >= w) return;
+  int p = blockIdx.z;
+  int b = p / nc;
+  int c = p - b * nc;
+  int i0 = blockIdx.y * kYRows;
+  int rows = min(kYRows, h - i0);
   bool is_mask = kinds[c] == 1;
   float e2 = scal[b * 6 + 3];
   float ty = scal[b * 6 + 4];
-  YShear t = y_shear(scal[b * 6 + 5], j, w, h + 2 * py, is_mask);
-  const float* plane = planes + ((long long)b * nc + c) * h * w;
-  // output row i is canvas row py + i (step 6)
-  out[idx] = sheared_y(plane, i + py, j, h, w, py, e2, ty, t, is_mask, fill);
+  int hp = h + 2 * py;
+  YShear t = y_shear(scal[b * 6 + 5], j, w, hp, is_mask);
+  const float* plane = planes + (size_t)p * h * w;
+  float* dst = out + ((size_t)p * h + i0) * w + j;
+  // r = py + i0 lies in [py, py + h - 1], inside [0, hp), and kmod in
+  // [0, hp): their sum wraps at most once, and so does each a + 1
+  int r = py + i0;
+  int a = wrap_once(r + t.kmod, hp);
+  float lo = scaled_y_sel(plane, a, j, h, w, py, e2, ty, is_mask, fill);
+#pragma unroll
+  for (int n = 0; n < kYRows; ++n, ++r) {
+    if (n >= rows) break;
+    a = wrap_once(a + 1, hp);
+    float hi = scaled_y_sel(plane, a, j, h, w, py, e2, ty, is_mask, fill);
+    float src = (float)r + t.offs;
+    float res = fill;
+    if (!(src < -0.5f || src > (float)hp - 0.5f)) {
+      res = (1.0f - t.frac) * lo + t.frac * hi;
+      if (src >= (float)hp - 1.0f) res = lo;
+      if (src < 0.0f) res = hi;
+    }
+    dst[(size_t)n * w] = res;
+    lo = hi;
+  }
 }
 
 // The elastic tap along one axis at index i of n from the raw displacement
@@ -401,12 +452,6 @@ __global__ void __launch_bounds__(kYEMaxThreads)
   }
 }
 
-constexpr int kThreads = 256;
-
-unsigned int blocks_for(long long total) {
-  return (unsigned int)((total + kThreads - 1) / kThreads);
-}
-
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
@@ -449,12 +494,13 @@ extern "C" int stp_warp_x(const float* planes, const int* kinds,
 extern "C" int stp_warp_y(const float* planes, const int* kinds,
                           const float* scal, float* out, int nb, int nc,
                           int h, int w, int py, float fill, void* stream) {
-  long long total = (long long)nb * nc * h * w;
-  if (total > 0) {
-    warp_y_kernel<<<blocks_for(total), kThreads, 0,
-                    (cudaStream_t)stream>>>(planes, kinds, scal, out, nb, nc,
-                                            h, w, py, fill);
-  }
+  if ((long long)nb * nc * h * w == 0) return (int)cudaGetLastError();
+  int tiles = (h + kYRows - 1) / kYRows;
+  if (tiles > 65535 || (long long)nb * nc > 65535)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((w + kYThreads - 1) / kYThreads, tiles, nb * nc);
+  warp_y_kernel<<<grid, kYThreads, 0, (cudaStream_t)stream>>>(
+      planes, kinds, scal, out, nc, h, w, py, fill);
   return (int)cudaGetLastError();
 }
 

@@ -17,7 +17,8 @@ channels take the rounded tap (floor(f + 0.5)) from the same blends.
 
 The CUDA kernel lives in ``csrc/elastic.cu``; its plain PyTorch version
 below runs for CPU tensors only, and a CUDA tensor launches the kernel or
-raises.
+raises.  The kernel keeps full-width rows of dy, dx and the row blends in
+one block's shared memory, so the wrapper refuses a row too wide for it.
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ import torch
 import torch.nn.functional as F
 
 from ... import kernels as K
-from .fused_warp import elastic_tail_plain, joint_planes, split_planes
+from .fused_warp import (_check_block, elastic_tail_plain, joint_planes,
+                         split_planes)
 
 Tensor = torch.Tensor
 
@@ -47,8 +49,10 @@ def elastic_resample(planes: Tensor, flags: Tensor, dy: Tensor, dx: Tensor,
     """The elastic kernel on CUDA tensors; its plain version on CPU ones."""
     if planes.device.type == "cpu":
         return elastic_resample_plain(planes, flags, dy, dx, k, fill)
-    K.check_plane_args("elastic", planes, flags, (dy, dx))
     b, c, h, w = planes.shape
+    # at least one row each of dy, dx and the row blends
+    _check_block("elastic", planes, 12 * w, b)
+    K.check_plane_args("elastic", planes, flags, (dy, dx))
     for t in (dy, dx):
         if t.dtype != torch.float32 or t.shape != (b, h, w):
             raise ValueError(f"elastic: displacements must be ({b}, {h}, {w})"

@@ -25,7 +25,9 @@ The CUDA kernels live in ``csrc/warp_xy.cu``.  Beside each is its plain
 PyTorch version (gather and index ops in f32), which the wrapper runs for
 CPU tensors only; a CUDA tensor launches the kernel or raises.  Kernels X
 and YE keep rows of the frame in one block's shared memory, so their
-wrappers refuse a row too wide for it (:func:`_check_block`).
+wrappers refuse a row too wide for it, and every kernel runs on a 3-D
+grid, so its wrapper refuses what a grid axis cannot hold
+(:func:`_check_block`).
 """
 
 from __future__ import annotations
@@ -210,9 +212,10 @@ _GRID_AXIS = 65535
 
 
 def _check_block(kernel: str, planes: Tensor, smem: int, on_z: int) -> None:
-    """Kernels X and YE take ``smem`` bytes of shared memory a block, one
-    block per row or tile of rows along the grid's y axis and ``on_z``
-    along its z axis; refuse what one block or one axis cannot take."""
+    """A kernel that takes ``smem`` bytes of shared memory a block, one
+    block per row or tile of rows along the grid's y axis (at most H) and
+    ``on_z`` along its z axis; refuse what one block or one axis cannot
+    take."""
     h, w = planes.shape[2:]
     if smem > _SMEM_BYTES:
         raise ValueError(f"{kernel}: a row of width {w} needs {smem} bytes "
@@ -259,6 +262,8 @@ def warp_y(planes: Tensor, kinds: Tensor, scalars: Tensor, py: int,
     """Kernel Y on CUDA tensors; its plain version on CPU tensors."""
     if planes.device.type == "cpu":
         return warp_y_plain(planes, kinds, scalars, py, fill)
+    # no shared memory: a thread walks a tile of rows of one column
+    _check_block("warp_y", planes, 0, planes.shape[0] * planes.shape[1])
     return _launch("warp_y", planes, kinds, scalars, py, fill)
 
 

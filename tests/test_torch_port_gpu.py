@@ -11,15 +11,15 @@ shapes; these cover the edges the train shapes do not reach: non-square
 frames, a non-zero fill, mask ties, displacements beyond K, argument
 checks, the shear kernel's negative offsets (the sign of the modulo) and
 mostly out-of-bounds lines, kernel YE's band check, the three warp paths
-and the launch counts.  Kernels X and YE tile rows in shared memory, so
-their cases also take widths that are no multiple of 4 or 32, heights
-that are no multiple of YE's row tile, one and five channels, one image,
-``py = K + 1``, elastic offsets of ±K at the frame's edges (the mod-W
-wrap), mask ties in dy, a 2048-wide frame and the widest row each
-wrapper accepts.  Tolerances: images within 1e-3 (both sides run the same
-f32 operations in the same order; the kernel is built with
-``-fmad=false``), masks equal; kernels X and YE equal throughout (their
-redesign moved no f32 operation).
+and the launch counts.  Kernels X, Y, YE and elastic tile rows and
+columns, so their cases also take widths that are no multiple of 4, 32
+or 128, heights that are no multiple of a row tile, one and five
+channels, one image, ``py = K + 1``, elastic offsets of ±K at the frame's
+edges (the mod-W wrap), mask ties in dy, a 2048-wide frame and the widest
+row or grid each wrapper accepts.  Tolerances: images within 1e-3 (both
+sides run the same f32 operations in the same order; the kernel is built
+with ``-fmad=false``), masks equal; kernels X, Y, YE and elastic equal
+throughout (their redesigns moved no f32 operation).
 """
 
 import math
@@ -79,7 +79,10 @@ def _check(got, want, kinds, exact=False):
     (2, 4, 64, 64, 24, 0.0), (3, 4, 64, 96, 32, 7.0), (1, 2, 128, 128, 64, 0.0),
     (2, 4, 33, 47, 12, 0.0), (1, 4, 37, 100, 20, 5.0), (2, 1, 24, 64, 16, 0.0),
     (2, 5, 32, 64, 16, 0.0), (1, 2, 16, 2048, 64, 0.0),
-    (1, 2, 3, 29056, 0, 0.0)])   # kernel X's widest row at pad 0
+    (1, 2, 3, 29056, 0, 0.0),    # kernel X's widest row at pad 0
+    (2, 3, 50, 130, 8, 2.0),     # 16-row tiles and 128-column blocks, ragged
+    (1, 65535, 1, 4, 2, 0.0),    # the most planes a grid axis takes
+    (1, 2, 65535, 5, 3, 0.0)])   # the tallest frame
 def test_warp_kernels_match_plain(card, b, c, h, w, pad, fill):
     planes, kinds = _planes(b, c, h, w, h + w)
     scal = _scalars(b, h, b + c)
@@ -88,7 +91,8 @@ def test_warp_kernels_match_plain(card, b, c, h, w, pad, fill):
     gp, gk, gs = planes.to(card), kinds.to(card), scal.to(card)
     got_x = FW.warp_x(gp, gk, gs, pad, fill)
     _check(got_x.cpu(), want_x, kinds, exact=True)
-    _check(FW.warp_y(got_x, gk, gs, pad, fill).cpu(), want_y, kinds)
+    _check(FW.warp_y(got_x, gk, gs, pad, fill).cpu(), want_y, kinds,
+           exact=True)
 
 
 @pytest.mark.parametrize("w,k,d", [(64, 19, 18.0), (128, 19, 18.0),
@@ -101,7 +105,7 @@ def test_elastic_kernel_matches_plain(card, w, k, d):
     want = EL.elastic_resample_plain(planes, flags, dy, dx, k, 3.0)
     got = EL.elastic_resample(planes.to(card), flags.to(card), dy.to(card),
                               dx.to(card), k, 3.0)
-    _check(got.cpu(), want, flags)
+    _check(got.cpu(), want, flags, exact=True)
 
 
 def test_elastic_half_ties_round_up_on_card(card):
@@ -114,7 +118,7 @@ def test_elastic_half_ties_round_up_on_card(card):
         want = EL.elastic_resample_plain(planes, flags, dy, dx, 6)
         got = EL.elastic_resample(planes.to(card), flags.to(card),
                                   dy.to(card), dx.to(card), 6)
-        _check(got.cpu(), want, flags)
+        _check(got.cpu(), want, flags, exact=True)
 
 
 def test_config2_block_on_card_matches_cpu(card):
@@ -208,6 +212,43 @@ def _edge_disp(b, h, w, k, seed):
         dy[:, k, ::2] = -k - 0.25
         dy[:, h - 1 - k, ::2] = k + 0.25
     return torch.from_numpy(dy), torch.from_numpy(dx)
+
+
+@pytest.mark.parametrize("b,c,h,w,k,fill", [
+    (2, 4, 33, 47, 6, 0.0), (1, 5, 37, 100, 19, 3.0),
+    (2, 1, 24, 47, 7, 3.0), (2, 5, 41, 64, 11, 0.0),
+    (2, 4, 65, 130, 19, 5.0),
+    (1, 2, 16, 2048, 19, 0.0),
+    (1, 1, 3, 4097, 2, 0.0),              # one row a tile, dynamic memory
+    (1, 2, 5, 19370, 3, 0.0),             # the widest row
+    (65535, 1, 1, 4, 1, 0.0)])            # the most images a grid axis takes
+def test_elastic_kernel_edges_match_plain(card, b, c, h, w, k, fill):
+    """Row tiles of the elastic kernel at ragged heights and widths, with
+    ±K offsets at the frame's edges, the mod-W wrap and .5 ties in dy."""
+    planes, flags = _planes(b, c, h, w, h + w + k)
+    dy, dx = _edge_disp(b, h, w, k, k + 1)
+    want = EL.elastic_resample_plain(planes, flags, dy, dx, k, fill)
+    got = EL.elastic_resample(planes.to(card), flags.to(card), dy.to(card),
+                              dx.to(card), k, fill)
+    _check(got.cpu(), want, flags, exact=True)
+
+
+def test_elastic_kernel_reads_misaligned_fields(card):
+    """dy and dx that start 4 bytes past a 16-byte boundary take the
+    kernel's scalar staging instead of its 16-byte loads."""
+    b, c, h, w, k = 2, 3, 20, 64, 5
+    planes, flags = _planes(b, c, h, w, 9)
+    dy, dx = _edge_disp(b, h, w, k, 3)
+    want = EL.elastic_resample_plain(planes, flags, dy, dx, k, 1.0)
+    n = b * h * w
+    buf = torch.zeros(2 * n + 1, device=card)
+    gdy, gdx = buf[1:n + 1].view(b, h, w), buf[n + 1:].view(b, h, w)
+    gdy.copy_(dy)
+    gdx.copy_(dx)
+    assert gdy.data_ptr() % 16 == 4 and gdy.is_contiguous()
+    got = EL.elastic_resample(planes.to(card), flags.to(card), gdy, gdx, k,
+                              1.0)
+    _check(got.cpu(), want, flags, exact=True)
 
 
 @pytest.mark.parametrize("b,c,h,w,py,k,fill", [

@@ -175,21 +175,31 @@ def test_non_cpu_tensor_launches_or_raises(fn):
     ("warp_x", (1, 65536, 2, 8), 4, "grid axis"),
     ("warp_ye", (1, 1, 2, 19370), 4, "CUDA"),      # the widest row
     ("warp_ye", (1, 1, 2, 19371), 4, "shared memory"),
-    ("warp_ye", (65536, 1, 2, 8), 4, "grid axis")])
+    ("warp_ye", (65536, 1, 2, 8), 4, "grid axis"),
+    ("warp_y", (1, 1, 2, 29057), 4, "CUDA"),       # no shared memory
+    ("warp_y", (1, 65536, 2, 8), 4, "grid axis"),
+    ("warp_y", (1, 1, 65536, 8), 4, "grid axis"),
+    ("elastic", (1, 1, 2, 19370), 3, "CUDA"),      # the widest row
+    ("elastic", (1, 1, 2, 19371), 3, "shared memory"),
+    ("elastic", (65536, 1, 2, 8), 3, "grid axis"),
+    ("elastic", (1, 1, 65536, 8), 3, "grid axis")])
 def test_rows_wider_than_a_block_are_refused(fn, shape, pad, match):
-    """Kernels X and YE keep rows in one block's shared memory (227 KB on
-    the H100) and run on a 3-D grid; the wrapper names either limit before
-    it reaches the device.  A row that fits goes on to the CUDA checks."""
+    """Kernels X, YE and elastic keep rows in one block's shared memory
+    (227 KB on the H100), and every kernel runs on a 3-D grid; the wrapper
+    names either limit before it reaches the device.  A row that fits goes
+    on to the CUDA checks.  ``pad`` is the elastic kernel's K."""
     b, c, h, w = shape
     planes = torch.empty(shape, device="meta")
     kinds = torch.zeros(c, dtype=torch.int32, device="meta")
     scal = torch.empty(b, 6, device="meta")
+    d = torch.empty(b, h, w, device="meta")
     with pytest.raises(ValueError, match=match):
         if fn == "warp_ye":
-            d = torch.empty(b, h, w, device="meta")
             TW.warp_ye(planes, kinds, scal, d, d, pad, 3)
+        elif fn == "elastic":
+            TE.elastic_resample(planes, kinds, d, d, pad)
         else:
-            TW.warp_x(planes, kinds, scal, pad)
+            getattr(TW, fn)(planes, kinds, scal, pad)
     assert K.KERNELS[fn].launches == 0
 
 
