@@ -19,11 +19,12 @@ and the script exits non-zero:
      kernel twice around the f32 scale matmuls, then elastic), recording
      the tensors the path hands each kernel;
   5. kernel: per kernel, on those tensors, the kernel against its plain
-     PyTorch version on the card (images within 1e-3, mask pixels
-     mismatching in at most 1e-4 of the mask entries; kernels X, Y, YE
-     and elastic bit for bit) and both timed with CUDA events, the
+     PyTorch version on the card (the kernels in ``EXACT``, now all five,
+     bit for bit; any other with images within 1e-3 and at most 1e-4 of
+     the mask entries mismatching) and both timed with CUDA events, the
      launches queued behind a 20 ms hold of the stream, beside the
-     kernel's memory bound (``bound_share`` = bound / kernel time);
+     kernel's memory bound (``bound_share`` = bound / kernel time; the
+     shear's counts only the source columns its outputs use);
   6. warp_paths: the config-2 block at B16 512² through
      ``Augmentation.apply`` on one set of draws, the three paths timed
      (CUDA events, median), their launch counts read, and held against
@@ -86,7 +87,7 @@ IMG_ATOL = 1e-3
 MASK_SHARE = 1e-4
 # kernels that change only index math, data movement and reuse against
 # their plain versions: every f32 operation in the same order, so equal
-EXACT = ("warp_x", "warp_y", "elastic", "warp_ye")
+EXACT = ("warp_x", "warp_y", "elastic", "shear", "warp_ye")
 # unfused against fused warp with an elastic field: the JAX test's own
 # tolerances for that comparison (tests/test_pallas_warp.py,
 # test_unfused_disp_fallback: images 1e-2 on 0..255, masks 2e-3).  The two
@@ -109,8 +110,9 @@ F32_FLOPS = 67e12
 HOLD_CLOCK_HZ = 1.98e9
 # f32 operations per output pixel, counted from the kernel sources (Y: one
 # y-scaled value and one y-shear blend; elastic: one row blend and one
-# x-blend)
-OPS_PER_PIXEL = {"warp_x": 25, "warp_y": 28, "elastic": 34, "shear": 15,
+# x-blend; shear: the source coordinate, its two frame tests, the blend
+# and its two edge clamps, the line's floor and fraction counted once)
+OPS_PER_PIXEL = {"warp_x": 25, "warp_y": 28, "elastic": 34, "shear": 9,
                  "warp_ye": 150}
 _CSRC = "segmentation_training_pipeline_tpu_torch/csrc/"
 SOURCES = {"warp_x": _CSRC + "warp_xy.cu", "warp_y": _CSRC + "warp_xy.cu",
@@ -328,6 +330,39 @@ def phase_capture(aug, imgs, masks, draws):
     return args_of
 
 
+def shear_bytes(x, offs, kinds, norig: int, src_shift: int, fill) -> int:
+    """The bytes one shear pass must move on these inputs: its offsets,
+    kinds and every output, and of each line only the source columns its
+    in-frame outputs use.  An output whose source lies outside the frame
+    takes fill and reads nothing; an image output uses both taps, only the
+    upper one left of the frame and only the lower one at its right edge;
+    a mask output uses the one tap it takes.  The columns a line uses are
+    consecutive (mod N), so their count is the span of its taps."""
+    n = x.shape[3]
+    q = torch.arange(n, device=x.device, dtype=torch.float32)
+    src = (q + offs[..., None]) - float(src_shift)       # (B, L, N), as run
+    inside = ~((src < -0.5) | (src > norig - 0.5))
+    kfloor = torch.floor(offs)[..., None]
+    lower = q + kfloor                                   # unwrapped tap
+    upper = lower + 1.0
+
+    def columns(first, last):
+        lo = torch.where(inside, first, math.inf).amin(-1)
+        hi = torch.where(inside, last, -math.inf).amax(-1)
+        return torch.where(inside.any(-1), (hi - lo + 1.0).clamp(max=n),
+                           0.0).sum()
+
+    near = torch.where(offs[..., None] - kfloor >= 0.5, upper, lower)
+    per_image = columns(torch.where(src < 0.0, upper, lower),
+                        torch.where(src >= norig - 1.0, lower, upper))
+    n_mask = int((kinds == 1).sum())
+    read = ((kinds.numel() - n_mask) * float(per_image)
+            + n_mask * float(columns(near, near))) * x.element_size()
+    return (int(read) + offs.numel() * offs.element_size()
+            + kinds.numel() * kinds.element_size()
+            + x.numel() * x.element_size())
+
+
 def _measure(name, kernel, plain, args) -> dict:
     """One kernel launch against its plain version on the same arguments,
     both timed, with the launch's memory and operation bound."""
@@ -341,8 +376,10 @@ def _measure(name, kernel, plain, args) -> dict:
     ms = cuda_ms(lambda: kernel(*args), 50, hold=True)
     plain_ms = cuda_ms(lambda: plain(*args), 10, hold=True)
     tensors = [a for a in args if isinstance(a, torch.Tensor)]
-    nbytes = (sum(t.numel() * t.element_size() for t in tensors)
-              + got.numel() * got.element_size())
+    # the shear's fill outputs read nothing: count what its data uses
+    nbytes = shear_bytes(*args) if name == "shear" else (
+        sum(t.numel() * t.element_size() for t in tensors)
+        + got.numel() * got.element_size())
     ops = OPS_PER_PIXEL[name] * got.numel()
     t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / F32_FLOPS * 1e3
     bound = max(t_bytes, t_ops)

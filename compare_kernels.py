@@ -13,10 +13,12 @@ train shapes.  Each kernel is timed and held against its plain version
 as in ``chip_smoke.py``'s kernel phase; a version that disagrees is
 reported, not refused.  The versions run in turns, first to last and back
 (A B … B A), one JSON line per version and kernel, so that versions are
-compared within one call on one card.  A first line times one device copy
-of the planes kernels X and Y take (``copy_``, the same bytes read and
-written once): the streaming rate the card reaches on them, beside the
-bound.  Needs one CUDA card and ``nvcc``.
+compared within one call on one card; the shear's rows also give the time
+and the bound of each of its two passes (``pass_ms``, ``pass_bound_ms``).  The first two lines time one
+device copy (``copy_``, the same bytes read and written once) of the
+planes kernels X and Y take and of the lines the shear's x-pass takes: the
+streaming rate the card reaches on them, beside the bound.  Needs one CUDA
+card and ``nvcc``.
 """
 
 from __future__ import annotations
@@ -45,7 +47,8 @@ def build(sources: list[str]) -> list[ctypes.CDLL]:
     for i, src in enumerate(sources):
         lib = out_dir / f"{i}-{Path(src).stem}.so"
         procs.append((src, lib, subprocess.Popen(
-            [nvcc, *K.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(lib), src],
+            [nvcc, *K.NVCC_FLAGS, "-Xptxas", "-v", "-I", str(K.CSRC_DIR),
+             "-o", str(lib), src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
     libs = []
     for src, lib, p in procs:
@@ -80,12 +83,13 @@ def main(argv=None) -> int:
     CS.phase_device()
     fns = [entry_points(lib) for lib in build(sources)]
     args_of = CS.phase_capture(*CS.train_shapes())
-    planes = args_of["warp_y"][0]
-    copy = torch.empty_like(planes)
-    print(json.dumps({"yardstick": "copy_", "shape": list(planes.shape),
-                      "bytes": 2 * planes.numel() * planes.element_size(),
-                      "ms": CS.cuda_ms(lambda: copy.copy_(planes), 50,
-                                       hold=True)}), flush=True)
+    # kernel Y's planes and the shear's x-pass lines
+    for planes in (args_of["warp_y"][0], args_of["shear"][0][0]):
+        copy = torch.empty_like(planes)
+        print(json.dumps({"yardstick": "copy_", "shape": list(planes.shape),
+                          "bytes": 2 * planes.numel() * planes.element_size(),
+                          "ms": CS.cuda_ms(lambda: copy.copy_(planes), 50,
+                                           hold=True)}), flush=True)
     turns = list(range(len(sources)))
     for i in turns + turns[::-1]:
         for name, fn in fns[i].items():
@@ -95,8 +99,12 @@ def main(argv=None) -> int:
                 m = CS.measure_kernel(name, args_of)
             finally:
                 kernel._fn = saved
-            print(json.dumps({"source": sources[i], "kernel": name,
-                              **{f: m[f] for f in FIELDS}}), flush=True)
+            row = {"source": sources[i], "kernel": name,
+                   **{f: m[f] for f in FIELDS}}
+            if "passes" in m:
+                row["pass_ms"] = [p["ms"] for p in m["passes"]]
+                row["pass_bound_ms"] = [p["bound_ms"] for p in m["passes"]]
+            print(json.dumps(row), flush=True)
     return 0
 
 

@@ -52,7 +52,8 @@
 #include <cuda_runtime.h>
 
 #include <algorithm>
-#include <cstdint>
+
+#include "common.cuh"
 
 namespace {
 
@@ -60,11 +61,6 @@ constexpr int kMaxSmem = 232448;      // a block's shared-memory ceiling
 constexpr int kStaticSmem = 48 * 1024;
 constexpr int kMaxRows = 2;
 constexpr int kMaxThreads = 256;
-
-// a in [0, 2n) -> a mod n: exact for the sum of two indices in [0, n)
-__device__ __forceinline__ int wrap_once(int a, int n) {
-  return a >= n ? a - n : a;
-}
 
 // The tap along one axis at index i of n from the raw displacement v: the
 // integer offset, and in f its fraction, rounded for nearest channels.

@@ -89,7 +89,8 @@
 #include <cuda_runtime.h>
 
 #include <algorithm>
-#include <cstdint>
+
+#include "common.cuh"
 
 namespace {
 
@@ -99,11 +100,6 @@ constexpr int kStaticSmem = 48 * 1024;
 __device__ __forceinline__ int floor_mod(int a, int n) {
   int r = a % n;
   return r < 0 ? r + n : r;
-}
-
-// a in [0, 2n) -> a mod n: exact for the sum of two indices in [0, n)
-__device__ __forceinline__ int wrap_once(int a, int n) {
-  return a >= n ? a - n : a;
 }
 
 // x-padded row value at canvas column q (fill outside the original frame)
@@ -450,10 +446,6 @@ __global__ void __launch_bounds__(kYEMaxThreads)
     }
     __syncthreads();
   }
-}
-
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 // Lets `kernel` take `smem` bytes of dynamic shared memory: above the

@@ -52,7 +52,10 @@ def find_nvcc() -> str:
 
 
 def _library_path(source: str) -> Path:
-    text = (CSRC_DIR / source).read_bytes() + " ".join(NVCC_FLAGS).encode()
+    # the headers every source may include count as part of each source
+    text = b"".join(p.read_bytes() for p in [CSRC_DIR / source,
+                                              *sorted(CSRC_DIR.glob("*.cuh"))])
+    text += " ".join(NVCC_FLAGS).encode()
     digest = hashlib.sha256(text).hexdigest()[:12]
     return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
 
@@ -163,6 +166,28 @@ def launch_counts() -> Dict[str, int]:
 def stream_of(t: torch.Tensor) -> int:
     """The current CUDA stream of ``t``'s device, as a pointer value."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# the shared memory one block may take on the H100, in bytes, and the
+# largest count of blocks along a grid's y or z axis
+SMEM_BYTES = 232448
+GRID_AXIS = 65535
+
+
+def check_block(kernel: str, planes: torch.Tensor, smem: int,
+                on_z: int) -> None:
+    """A kernel that takes ``smem`` bytes of shared memory a block, one
+    block per row or tile of rows along the grid's y axis (at most H) and
+    ``on_z`` along its z axis; refuse what one block or one axis cannot
+    take."""
+    h, w = planes.shape[2:]
+    if smem > SMEM_BYTES:
+        raise ValueError(f"{kernel}: a row of width {w} needs {smem} bytes "
+                         f"of shared memory, more than the {SMEM_BYTES} a "
+                         f"block may take")
+    if on_z > GRID_AXIS or h > GRID_AXIS:
+        raise ValueError(f"{kernel}: {on_z} blocks or {h} rows exceed a "
+                         f"grid axis of {GRID_AXIS}")
 
 
 def check_plane_args(kernel: str, planes: torch.Tensor,

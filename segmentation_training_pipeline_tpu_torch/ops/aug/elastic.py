@@ -29,8 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ... import kernels as K
-from .fused_warp import (_check_block, elastic_tail_plain, joint_planes,
-                         split_planes)
+from .fused_warp import elastic_tail_plain, joint_planes, split_planes
 
 Tensor = torch.Tensor
 
@@ -51,7 +50,7 @@ def elastic_resample(planes: Tensor, flags: Tensor, dy: Tensor, dx: Tensor,
         return elastic_resample_plain(planes, flags, dy, dx, k, fill)
     b, c, h, w = planes.shape
     # at least one row each of dy, dx and the row blends
-    _check_block("elastic", planes, 12 * w, b)
+    K.check_block("elastic", planes, 12 * w, b)
     K.check_plane_args("elastic", planes, flags, (dy, dx))
     for t in (dy, dx):
         if t.dtype != torch.float32 or t.shape != (b, h, w):

@@ -27,7 +27,7 @@ CPU tensors only; a CUDA tensor launches the kernel or raises.  Kernels X
 and YE keep rows of the frame in one block's shared memory, so their
 wrappers refuse a row too wide for it, and every kernel runs on a 3-D
 grid, so its wrapper refuses what a grid axis cannot hold
-(:func:`_check_block`).
+(:func:`..kernels.check_block`).
 """
 
 from __future__ import annotations
@@ -205,27 +205,6 @@ def _check_band(py: int, k: int) -> None:
                          f"least K+1, got {py}")
 
 
-# the shared memory one block may take on the H100, in bytes, and the
-# largest count of blocks along a grid's y or z axis
-_SMEM_BYTES = 232448
-_GRID_AXIS = 65535
-
-
-def _check_block(kernel: str, planes: Tensor, smem: int, on_z: int) -> None:
-    """A kernel that takes ``smem`` bytes of shared memory a block, one
-    block per row or tile of rows along the grid's y axis (at most H) and
-    ``on_z`` along its z axis; refuse what one block or one axis cannot
-    take."""
-    h, w = planes.shape[2:]
-    if smem > _SMEM_BYTES:
-        raise ValueError(f"{kernel}: a row of width {w} needs {smem} bytes "
-                         f"of shared memory, more than the {_SMEM_BYTES} a "
-                         f"block may take")
-    if on_z > _GRID_AXIS or h > _GRID_AXIS:
-        raise ValueError(f"{kernel}: {on_z} blocks or {h} rows exceed a "
-                         f"grid axis of {_GRID_AXIS}")
-
-
 def _check_scalars(kernel: str, planes: Tensor, scalars: Tensor) -> None:
     if (scalars.dtype != torch.float32
             or scalars.shape != (planes.shape[0], 6)):
@@ -253,7 +232,8 @@ def warp_x(planes: Tensor, kinds: Tensor, scalars: Tensor, px: int,
         return warp_x_plain(planes, kinds, scalars, px, fill)
     b, c, _, w = planes.shape
     # the input row (padded to 4 floats) and its x-sheared canvas row
-    _check_block("warp_x", planes, 4 * ((w + 3) // 4 * 4 + w + 2 * px), b * c)
+    K.check_block("warp_x", planes, 4 * ((w + 3) // 4 * 4 + w + 2 * px),
+                  b * c)
     return _launch("warp_x", planes, kinds, scalars, px, fill)
 
 
@@ -263,7 +243,7 @@ def warp_y(planes: Tensor, kinds: Tensor, scalars: Tensor, py: int,
     if planes.device.type == "cpu":
         return warp_y_plain(planes, kinds, scalars, py, fill)
     # no shared memory: a thread walks a tile of rows of one column
-    _check_block("warp_y", planes, 0, planes.shape[0] * planes.shape[1])
+    K.check_block("warp_y", planes, 0, planes.shape[0] * planes.shape[1])
     return _launch("warp_y", planes, kinds, scalars, py, fill)
 
 
@@ -275,7 +255,7 @@ def warp_ye(planes: Tensor, kinds: Tensor, scalars: Tensor, dy: Tensor,
     _check_band(py, k)
     b, c, h, w = planes.shape
     # at least one row each of dy, dx and the row blends
-    _check_block("warp_ye", planes, 12 * w, b)
+    K.check_block("warp_ye", planes, 12 * w, b)
     K.check_plane_args("warp_ye", planes, kinds, (scalars, dy, dx))
     _check_scalars("warp_ye", planes, scalars)
     for t in (dy, dx):

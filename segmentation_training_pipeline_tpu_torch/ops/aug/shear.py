@@ -11,7 +11,10 @@ take ``fill`` where the source lies outside the original frame.
 
 The CUDA kernel lives in ``csrc/shear.cu``.  Beside it is its plain PyTorch
 version, which the wrapper runs for CPU tensors only; a CUDA tensor
-launches the kernel or raises.
+launches the kernel or raises.  The kernel runs on a 3-D grid (planes B·C
+on one axis, tiles of lines on another), so the wrapper refuses what a
+grid axis cannot hold before any launch; it keeps no line in shared
+memory, so a line may be as wide as memory allows.
 """
 
 from __future__ import annotations
@@ -52,6 +55,8 @@ def shear_pass(x_bcln: Tensor, offs: Tensor, kinds: Tensor, norig: int,
     """The shear kernel on CUDA tensors; its plain version on CPU ones."""
     if x_bcln.device.type == "cpu":
         return shear_pass_plain(x_bcln, offs, kinds, norig, src_shift, fill)
+    # no shared memory: a block walks a tile of lines of one plane
+    K.check_block("shear", x_bcln, 0, x_bcln.shape[0] * x_bcln.shape[1])
     K.check_plane_args("shear", x_bcln, kinds, (offs,))
     b, c, l, n = x_bcln.shape
     if offs.dtype != torch.float32 or offs.shape != (b, l):

@@ -11,8 +11,10 @@ blend order only); masks exactly equal.  On the CPU the wrappers run the
 plain versions and no kernel launches.
 """
 
+import importlib.util
 import math
 import re
+from pathlib import Path
 
 import numpy as np
 import jax.numpy as jnp
@@ -182,12 +184,16 @@ def test_non_cpu_tensor_launches_or_raises(fn):
     ("elastic", (1, 1, 2, 19370), 3, "CUDA"),      # the widest row
     ("elastic", (1, 1, 2, 19371), 3, "shared memory"),
     ("elastic", (65536, 1, 2, 8), 3, "grid axis"),
-    ("elastic", (1, 1, 65536, 8), 3, "grid axis")])
+    ("elastic", (1, 1, 65536, 8), 3, "grid axis"),
+    ("shear", (1, 65535, 65535, 8), 0, "CUDA"),    # the largest grid
+    ("shear", (1, 65536, 2, 8), 0, "grid axis"),
+    ("shear", (1, 1, 65536, 8), 0, "grid axis")])
 def test_rows_wider_than_a_block_are_refused(fn, shape, pad, match):
     """Kernels X, YE and elastic keep rows in one block's shared memory
     (227 KB on the H100), and every kernel runs on a 3-D grid; the wrapper
     names either limit before it reaches the device.  A row that fits goes
-    on to the CUDA checks.  ``pad`` is the elastic kernel's K."""
+    on to the CUDA checks.  ``pad`` is the elastic kernel's K and the
+    shear's ``src_shift``; the shear's lines are (B, C, L, N)."""
     b, c, h, w = shape
     planes = torch.empty(shape, device="meta")
     kinds = torch.zeros(c, dtype=torch.int32, device="meta")
@@ -198,9 +204,42 @@ def test_rows_wider_than_a_block_are_refused(fn, shape, pad, match):
             TW.warp_ye(planes, kinds, scal, d, d, pad, 3)
         elif fn == "elastic":
             TE.elastic_resample(planes, kinds, d, d, pad)
+        elif fn == "shear":
+            TS.shear_pass(planes, torch.empty(b, h, device="meta"), kinds, w,
+                          pad, 0.0)
         else:
             getattr(TW, fn)(planes, kinds, scal, pad)
     assert K.KERNELS[fn].launches == 0
+
+
+@pytest.mark.parametrize("n,norig,shift,lo,hi", [
+    (20, 12, 4, -3.0, 3.0),        # the x-pass: a third of a line is fill
+    (16, 16, 0, -4.0, 4.0),        # the y-pass: the frame is the line
+    (16, 16, 0, -9.5, 9.5),        # .5 ties, lines shifted half out
+    (13, 7, 3, -30.0, 30.0)])      # lines shifted out of the frame whole
+def test_shear_bound_counts_the_columns_outputs_use(n, norig, shift, lo, hi):
+    """``chip_smoke.shear_bytes`` counts, of each line, only the source
+    columns that change an output: the same count as poisoning each column
+    with NaN in turn and seeing which lines' outputs take it up."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    r = np.random.RandomState(n)
+    b, c, l = 2, 3, 5
+    x = torch.from_numpy(r.rand(b, c, l, n).astype(np.float32))
+    offs = torch.from_numpy(r.uniform(lo, hi, (b, l)).astype(np.float32))
+    offs[0, :2] = torch.tensor([lo + 0.5, 0.5])    # fraction exactly .5
+    kinds = torch.tensor([0, 1, 0], dtype=torch.int32)
+    used = 0
+    for j in range(n):
+        poisoned = x.clone()
+        poisoned[..., j] = float("nan")
+        out = TS.shear_pass_plain(poisoned, offs, kinds, norig, shift, 0.0)
+        used += int(out.isnan().any(-1).sum())
+    fixed = offs.numel() * 4 + kinds.numel() * 4 + x.numel() * 4
+    assert cs.shear_bytes(x, offs, kinds, norig, shift, 0.0) == (
+        used * 4 + fixed)
 
 
 def test_build_needs_nvcc(monkeypatch):
