@@ -7,7 +7,9 @@ Needs a CUDA card (sm_90a), PyTorch built for CUDA and ``nvcc``; imports
 nothing of JAX.  Phases, each printing one JSON line; any failure raises
 and the script exits non-zero:
 
-  1. device: ``nvidia-smi`` name and power limit, torch, capability;
+  1. device: ``nvidia-smi`` name and power limit, torch, capability,
+     and whether ``cv2`` and ``msgpack`` import (the serve phase needs
+     neither);
   2. build: compile the CUDA kernels from ``csrc/`` (parallel ``nvcc``);
   3. reference: on a small input, the augmentation with the kernels on
      the card against the plain versions on the CPU (same draws), and the
@@ -38,22 +40,37 @@ and the script exits non-zero:
      (FPN + efficientnetb0 at full width, 512², B16, bf16, its loss,
      optimizer, lr and augmentation) for 10 steps with
      ``STP_FUSE_ELASTIC=1``: X and YE once per step, nothing else;
-  9. the ``kernels`` summary line, then the last line
+  9. serve: BASELINE config 5, ``examples/tta_ensemble_predict.yaml``
+     parsed by the port (Unet-resnet34 at 256², B16, bf16, flip TTA, 5
+     folds) in a temporary directory: 5 fold checkpoints written with the
+     port's ``save_checkpoint`` (``init_model`` at seeds 0-4) and read back
+     bit for bit; ``cfg.load`` of all 5 folds and flip-TTA img/s of
+     ``predict_probs`` on a fixed uint8 batch (median of 20 calls after 3
+     warm-up calls, each ending in a synchronise) with the peak memory;
+     ``cfg.predict_on_dataset`` over 40 images (the last chunk partial)
+     equal to ``predict_probs``; a float32 bundle on the card against the
+     same on the CPU at B2 (TF32 off), and the bf16 probabilities against
+     the float32 ones; no hand-written kernel launched;
+  10. the ``kernels`` summary line, then the last line
      ``{"ok": true, "device": {...}}``.
 
-``--profile FILE`` profiles three more steps of each train phase
-(``FILE`` for Unet, ``FILE`` with ``_fpn`` before its suffix for FPN).
+``--profile FILE`` profiles three more steps of each train phase and
+three more ``predict_probs`` calls of the serve phase (``FILE`` for Unet,
+``FILE`` with ``_fpn`` or ``_serve`` before its suffix for FPN and serve).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import math
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -61,6 +78,8 @@ import torch
 
 from segmentation_training_pipeline_tpu_torch import config as CF
 from segmentation_training_pipeline_tpu_torch import kernels as K
+from segmentation_training_pipeline_tpu_torch.data.datasets import (
+    LambdaDataSet)
 from segmentation_training_pipeline_tpu_torch.models import factory as MF
 from segmentation_training_pipeline_tpu_torch.ops import losses as LO
 from segmentation_training_pipeline_tpu_torch.ops import metrics as ME
@@ -69,8 +88,10 @@ from segmentation_training_pipeline_tpu_torch.ops.aug import fast_warp as MP
 from segmentation_training_pipeline_tpu_torch.ops.aug import fused_warp as FW
 from segmentation_training_pipeline_tpu_torch.ops.aug import lowering as LW
 from segmentation_training_pipeline_tpu_torch.ops.aug import shear as SH
+from segmentation_training_pipeline_tpu_torch.train import checkpoint as CK
 from segmentation_training_pipeline_tpu_torch.train import optimizers as OP
 from segmentation_training_pipeline_tpu_torch.train import step as ST
+from segmentation_training_pipeline_tpu_torch.utils import msgpack_tree as MT
 
 CONFIG2_BLOCK = {
     "Fliplr": 0.5,
@@ -83,6 +104,9 @@ LOSS = "binary_crossentropy + 0.25*dice_loss"
 LR = 5e-4
 STEPS, BATCH, SIZE, SEED = 10, 16, 512, 0   # the config-2 batch at 512²
 FPN_YAML = "examples/fpn_augmented_512.yaml"
+SERVE_YAML = "examples/tta_ensemble_predict.yaml"
+SERVE_CALLS, SERVE_WARMUP, SERVE_IMAGES, SERVE_REF_BATCH = 20, 3, 40, 2
+FORWARD_REL = 1e-3   # f32 on the card (TF32 off) against the CPU
 IMG_ATOL = 1e-3
 MASK_SHARE = 1e-4
 # kernels that change only index math, data movement and reuse against
@@ -181,6 +205,13 @@ def mask_mismatch(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a != b).float().mean())
 
 
+def _imports(module: str) -> bool:
+    """Whether ``module`` imports here (in a child process, so that this
+    one stays without it: the serve phase needs neither)."""
+    return subprocess.run([sys.executable, "-c", f"import {module}"],
+                          capture_output=True, timeout=120).returncode == 0
+
+
 def phase_device() -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device (torch.cuda."
@@ -194,7 +225,8 @@ def phase_device() -> dict:
     info = dict(nvidia_smi=smi.splitlines()[0],
                 name=torch.cuda.get_device_name(0),
                 count=torch.cuda.device_count(), torch=torch.__version__,
-                cuda=torch.version.cuda, capability=list(cap))
+                cuda=torch.version.cuda, capability=list(cap),
+                imports={m: _imports(m) for m in ("cv2", "msgpack")})
     emit("device", **info)
     if cap != (9, 0):
         raise SystemExit(f"chip_smoke.py: the kernels are built for sm_90a, "
@@ -227,6 +259,20 @@ class env:
                 os.environ[k] = v
 
 
+@contextlib.contextmanager
+def no_tf32():
+    """Full f32 convolutions and matmuls on the card for a block."""
+    conv_tf32 = torch.backends.cudnn.allow_tf32
+    mm = torch.get_float32_matmul_precision()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = conv_tf32
+        torch.set_float32_matmul_precision(mm)
+
+
 def _forward_err(arch: str, backbone: str, x, seed: int) -> float:
     """Relative error of the f32 forward on the card against the CPU,
     with TF32 off for convolutions and matmuls."""
@@ -234,17 +280,10 @@ def _forward_err(arch: str, backbone: str, x, seed: int) -> float:
                                           dtype="float32"), seed, "cpu")
     params, stats = MF.model_variables(model)
     want = MF.apply_model(model, params, stats, x)
-    conv_tf32 = torch.backends.cudnn.allow_tf32
-    mm = torch.get_float32_matmul_precision()
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
-    try:
+    with no_tf32():
         model.cuda()
         params, stats = MF.model_variables(model)
         got = MF.apply_model(model, params, stats, x.cuda()).cpu()
-    finally:
-        torch.backends.cudnn.allow_tf32 = conv_tf32
-        torch.set_float32_matmul_precision(mm)
     return float((got - want).abs().max() / want.abs().max())
 
 
@@ -266,12 +305,13 @@ def phase_reference(seed: int) -> None:
          forward_rel_err=fwd_err, fpn_forward_rel_err=fpn_err,
          shape=[2, 128, 128],
          tolerance=dict(aug_img_atol=REF_IMG_ATOL,
-                        aug_mask_share=REF_MASK_SHARE, forward_rel=1e-3))
+                        aug_mask_share=REF_MASK_SHARE,
+                        forward_rel=FORWARD_REL))
     check(aug_err <= REF_IMG_ATOL, ("aug image error", aug_err))
     check(aug_mis <= REF_MASK_SHARE, ("aug mask mismatch", aug_mis))
     # cuDNN's f32 algorithms against the CPU's
-    check(fwd_err <= 1e-3, ("forward error", fwd_err))
-    check(fpn_err <= 1e-3, ("FPN forward error", fpn_err))
+    check(fwd_err <= FORWARD_REL, ("forward error", fwd_err))
+    check(fpn_err <= FORWARD_REL, ("FPN forward error", fpn_err))
 
 
 def _to(draws, device):
@@ -565,18 +605,131 @@ def phase_profile(run_step, path: str, name: str, steps: int = 3) -> None:
         for e in top:
             f.write(f"{e.self_device_time_total / 1e3 / steps:10.4f} ms/step"
                     f" {e.count // steps:6d} calls/step  {e.key[:150]}\n")
-    emit("profile", train=name, steps=steps, step_wall_ms=wall_ms / steps,
+    emit("profile", of=name, steps=steps, step_wall_ms=wall_ms / steps,
          device_busy_ms=busy_ms, idle_share=(1.0 - busy_ms * steps / wall_ms
                                              if busy_ms else None),
          by_layer_ms=by_layer, kernels_per_step=sum(e.count for e in kernels)
          // steps, table=path)
 
 
+def _fold_checkpoints(cfg, seed: int) -> None:
+    """One checkpoint per fold at stage 0 from ``init_model`` at seeds
+    ``seed``, ``seed + 1``, …, each read back and held to what was
+    written: the port's own codec, on a machine where ``msgpack`` may be
+    absent."""
+    for f in range(cfg.folds_count):
+        model = MF.init_model(MF.model_from_config(cfg), seed + f, "cpu")
+        path = cfg.weights_path(f, 0)
+        CK.save_checkpoint(path, model.state_dict(), {
+            "architecture": cfg.architecture, "backbone": cfg.backbone,
+            "fold": f, "stage": 0, "seed": seed + f, "encoder_variant": ""})
+        back = CK.load_checkpoint(path, MF.model_from_config(cfg))
+        check(all(torch.equal(back[k], v)
+                  for k, v in model.state_dict().items()),
+              ("checkpoint read back", path))
+        with open(path, "rb") as fh:
+            raw = fh.read()
+        check(MT.packb(MT.unpackb(raw)) == raw, ("codec round trip", path))
+        check(CK.checkpoint_meta(path)["fold"] == f, ("sidecar", path))
+
+
+def phase_serve(seed: int, profile: str = "") -> dict:
+    """BASELINE config 5 through the port's serving entry points."""
+    cfg = CF.parse(SERVE_YAML)
+    folds = list(range(cfg.folds_count))
+    check((cfg.shape, cfg.batch, cfg.flipPred, cfg.folds_count, cfg.dtype)
+          == ((256, 256, 3), 16, True, 5, "bfloat16"),
+          ("config 5", cfg.shape, cfg.batch, cfg.folds_count, cfg.dtype))
+    h, w, _ = cfg.shape
+    imgs = synthetic_batch(SERVE_IMAGES, h, w, seed + 5)[0]
+    batch = imgs[:cfg.batch]
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg.directory = tmp
+        _fold_checkpoints(cfg, seed)
+        K.reset_launches()
+        bundle = cfg.load(folds, 0)
+        check(bundle.tta == "flip" and len(bundle.fold_vars) == 5,
+              ("bundle", bundle.tta, len(bundle.fold_vars)))
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 2 ** 30
+        for _ in range(SERVE_WARMUP):
+            probs = bundle.predict_probs(batch)
+        times = []
+        for _ in range(SERVE_CALLS):
+            t0 = time.perf_counter()
+            probs = bundle.predict_probs(batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        # the normal entry point, 40 images in chunks of 16 (the last padded)
+        items = list(cfg.predict_on_dataset(LambdaDataSet(list(imgs)),
+                                            folds=folds, stage=0))
+        direct = []
+        for i in range(0, SERVE_IMAGES, cfg.batch):
+            chunk = imgs[i:i + cfg.batch]
+            pad = np.zeros((cfg.batch - len(chunk), *chunk.shape[1:]),
+                           chunk.dtype)
+            direct.append(bundle.predict_probs(
+                np.concatenate([chunk, pad]))[:len(chunk)])
+        direct = np.concatenate(direct)
+        dataset_err = max(float(np.abs(it.prediction - d).max())
+                          for it, d in zip(items, direct))
+        # float32 on the card (TF32 off) against the CPU, and bf16 against
+        # float32 on the card
+        f32 = dataclasses.replace(cfg, dtype="float32")
+        with no_tf32():
+            card32 = f32.load(folds, 0)
+            ref = batch[:SERVE_REF_BATCH]
+            want = f32.load(folds, 0, device="cpu").predict_probs(ref)
+            got = card32.predict_probs(ref)
+            probs32 = card32.predict_probs(batch)
+        launches = K.launch_counts()
+        if profile:
+            phase_profile(lambda: bundle.predict_probs(batch), profile,
+                          "serve")
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    thr = cfg.threshold
+    out = dict(config=SERVE_YAML, model=f"{cfg.architecture}-{cfg.backbone}",
+               dtype=cfg.dtype, batch=cfg.batch, size=[h, w], folds=5,
+               tta=bundle.tta, forwards_per_call=2 * len(folds),
+               call_ms=times, img_per_s=cfg.batch / (
+                   statistics.median(times) / 1e3),
+               peak_mem_gib=peak, held_mem_gib=held, launches=launches,
+               probs=dict(min=float(probs.min()), max=float(probs.max()),
+                          mean=float(probs.mean())),
+               dataset_items=len(items), dataset_max_abs_err=dataset_err,
+               f32_card_vs_cpu_rel_err=rel, f32_ref_batch=SERVE_REF_BATCH,
+               bf16_vs_f32_max_abs=float(np.abs(probs - probs32).max()),
+               bf16_vs_f32_mask_agree=float(
+                   ((probs >= thr) == (probs32 >= thr)).mean()),
+               tolerance=dict(dataset=0.0, f32_card_vs_cpu_rel=FORWARD_REL))
+    emit("serve", **out)
+    check(probs.shape == (cfg.batch, h, w, 1) and bool(np.isfinite(
+        probs).all()) and 0.0 <= probs.min() and probs.max() <= 1.0,
+        ("serve probs", probs.shape))
+    check(len(items) == SERVE_IMAGES and all(
+        it.prediction.shape == (h, w, 1) for it in items), "dataset items")
+    check(dataset_err == 0.0, ("predict_on_dataset vs predict_probs",
+                               dataset_err))
+    check(rel <= FORWARD_REL, ("f32 serve card vs CPU", rel))
+    check(not any(launches.values()), ("serve launched kernels", launches))
+    return out
+
+
+def _profile_path(base: str, tag: str) -> str:
+    """``base`` with ``_tag`` before its suffix ("" when not profiling)."""
+    if not base:
+        return ""
+    stem, dot, suffix = base.rpartition(".")
+    return f"{stem}_{tag}.{suffix}" if dot else f"{base}_{tag}"
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", default="",
-                    help="also profile 3 steps of each train phase; write "
-                         "the kernel tables here")
+                    help="also profile 3 steps of each train phase and 3 "
+                         "calls of the serve phase; write the kernel tables "
+                         "here")
     a = ap.parse_args(argv)
 
     info = phase_device()
@@ -597,12 +750,12 @@ def main(argv=None) -> int:
     fpn = CF.parse(FPN_YAML)
     check(fpn.shape[:2] == (SIZE, SIZE) and fpn.batch == BATCH,
           ("config 2 shape and batch", fpn.shape, fpn.batch))
-    stem, dot, suffix = a.profile.rpartition(".")
-    fpn_profile = (f"{stem}_fpn.{suffix}" if dot else f"{a.profile}_fpn"
-                   ) if a.profile else ""
     with env({"STP_FUSE_ELASTIC": "1"}):
         train_fpn = phase_train("train_fpn", fpn, imgs, masks, STEPS, SEED,
-                                {"warp_x": 1, "warp_ye": 1}, fpn_profile)
+                                {"warp_x": 1, "warp_ye": 1},
+                                _profile_path(a.profile, "fpn"))
+    torch.cuda.empty_cache()
+    phase_serve(SEED, _profile_path(a.profile, "serve"))
     # launches on each kernel's main path: X, Y and elastic in the Unet
     # step, YE in the FPN step, the shear in the unfused warp path
     launches = dict(train["launches"], warp_ye=train_fpn["launches"][

@@ -5,8 +5,9 @@ Counterpart of ``segmentation_training_pipeline_tpu/config.py``
 same per-stage overrides, and unknown keys or names error out with a
 suggestion.  Names the reference knows but this package has not ported yet
 (architectures, backbones, optimizers, augmenters, losses, metrics) raise
-``NotImplementedError`` saying so; the training loop, checkpoints and
-inference of the reference are not ported yet either.
+``NotImplementedError`` saying so, and so does ``fit``: the training loop
+is not ported yet.  ``load`` and the predict/evaluate methods serve
+checkpoints from ``weights/`` (``infer.py``).
 """
 
 from __future__ import annotations
@@ -418,12 +419,62 @@ class PipelineConfig:
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
 
+    @property
+    def weights_dir(self) -> str:
+        return os.path.join(self.directory, "weights")
+
+    @property
+    def metrics_dir(self) -> str:
+        return os.path.join(self.directory, "metrics")
+
+    def weights_path(self, fold: int, stage: int) -> str:
+        # reference contract: weights/best-{fold}.{stage}.weights
+        return os.path.join(self.weights_dir, f"best-{fold}.{stage}.weights")
+
+    def metrics_path(self, fold: int, stage: int) -> str:
+        # reference contract: metrics/metrics-{fold}.{stage}.csv
+        return os.path.join(self.metrics_dir, f"metrics-{fold}.{stage}.csv")
+
     def fit(self, *args, **kw):
         raise _not_ported("the fit loop (folds × stages, checkpoints, "
                           "callbacks)")
 
-    def load(self, *args, **kw):
-        raise _not_ported("inference (load / predict)")
+    # the serving surface (``infer.py``); each takes ``device="cuda"``
+    def load(self, fold=0, stage: int = -1, device="cuda"):
+        """Load trained weights for (fold or folds, stage) → an
+        ``InferenceBundle`` on ``device``."""
+        from .infer import load_model
+
+        return load_model(self, fold, stage, device)
+
+    def predict_all_to_dir(self, src, dst, **kw):
+        from .infer import predict_all_to_dir
+
+        return predict_all_to_dir(self, src, dst, **kw)
+
+    def predict_in_directory(self, src, dst, **kw):  # reference alias
+        return self.predict_all_to_dir(src, dst, **kw)
+
+    def predict_to_directory(self, src, dst, **kw):  # reference alias
+        return self.predict_all_to_dir(src, dst, **kw)
+
+    def predict_on_dataset(self, dataset, **kw):
+        from .infer import predict_on_dataset
+
+        return predict_on_dataset(self, dataset, **kw)
+
+    def predict_to_csv(self, src, csv_path, **kw):
+        from .infer import predict_to_csv
+
+        return predict_to_csv(self, src, csv_path, **kw)
+
+    def evaluate(self, dataset, **kw):
+        from .infer import evaluate
+
+        return evaluate(self, dataset, **kw)
+
+    def evaluateAll(self, dataset, **kw):  # reference alias
+        return self.evaluate(dataset, **kw)
 
 
 def parse(path: str) -> PipelineConfig:

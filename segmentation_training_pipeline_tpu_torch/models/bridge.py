@@ -25,59 +25,74 @@ import torch
 Tensor = torch.Tensor
 
 
-def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+def flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+    """Nested dicts → ``{"a/b/leaf": leaf}``."""
     out: Dict[str, Any] = {}
     for k, v in tree.items():
         path = f"{prefix}/{k}" if prefix else k
         if isinstance(v, dict) or hasattr(v, "items"):
-            out.update(_flatten(dict(v.items()), path))
+            out.update(flatten(dict(v.items()), path))
         else:
             out[path] = v
     return out
 
 
+def _tensor(v) -> Tensor:
+    """A leaf as a CPU tensor (tensor leaves, as the checkpoint reader
+    gives them, keep bfloat16, which numpy lacks)."""
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu()
+    return torch.from_numpy(np.array(v))
+
+
 def state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, Tensor]:
-    """flax variables (numpy or array-like leaves) → PyTorch state dict."""
+    """flax variables (tensor, numpy or array-like leaves) → PyTorch state
+    dict."""
     sd: Dict[str, Tensor] = {}
-    for path, v in _flatten(dict(variables.get("params", {}))).items():
+    for path, v in flatten(dict(variables.get("params", {}))).items():
         mod, leaf = path.rsplit("/", 1)
-        arr = np.asarray(v)
+        t = _tensor(v)
         if leaf == "kernel":
-            arr, leaf = arr.transpose(3, 2, 0, 1), "weight"
+            t, leaf = t.permute(3, 2, 0, 1).contiguous(), "weight"
         elif leaf == "scale":
             leaf = "weight"
         elif leaf != "bias":
             raise KeyError(f"unexpected flax parameter {path!r}")
-        sd[f"{mod.replace('/', '.')}.{leaf}"] = torch.from_numpy(
-            np.array(arr, order="C"))
+        sd[f"{mod.replace('/', '.')}.{leaf}"] = t
     names = {"mean": "running_mean", "var": "running_var"}
-    for path, v in _flatten(dict(variables.get("batch_stats", {}))).items():
+    for path, v in flatten(dict(variables.get("batch_stats", {}))).items():
         mod, leaf = path.rsplit("/", 1)
-        sd[f"{mod.replace('/', '.')}.{names[leaf]}"] = torch.from_numpy(
-            np.array(v))
+        if leaf not in names:
+            raise KeyError(f"unexpected flax batch statistic {path!r}")
+        sd[f"{mod.replace('/', '.')}.{names[leaf]}"] = _tensor(v)
     return sd
+
+
+def flax_path(name: str, ndim: int) -> str:
+    """The flax leaf path (``collection/module/…/leaf``) of state-dict
+    entry ``name`` holding a tensor of ``ndim`` dimensions."""
+    mod, leaf = name.rsplit(".", 1)
+    if leaf in ("running_mean", "running_var"):
+        coll, leaf = "batch_stats", leaf[len("running_"):]
+    elif leaf == "weight":
+        coll, leaf = "params", "kernel" if ndim == 4 else "scale"
+    elif leaf == "bias":
+        coll = "params"
+    else:
+        raise KeyError(f"unexpected state-dict entry {name!r}")
+    return "/".join([coll, *mod.split("."), leaf])
 
 
 def jax_from_state_dict(state_dict: Dict[str, Tensor]) -> Dict[str, Any]:
     """PyTorch state dict → flax variables with numpy leaves."""
     out: Dict[str, Any] = {"params": {}, "batch_stats": {}}
     for name, t in state_dict.items():
-        mod, leaf = name.rsplit(".", 1)
         arr = t.detach().cpu().numpy()
-        if leaf in ("running_mean", "running_var"):
-            coll, leaf = "batch_stats", leaf[len("running_"):]
-        elif leaf == "weight":
-            coll = "params"
-            if arr.ndim == 4:
-                arr, leaf = arr.transpose(2, 3, 1, 0), "kernel"
-            else:
-                leaf = "scale"
-        elif leaf == "bias":
-            coll = "params"
-        else:
-            raise KeyError(f"unexpected state-dict entry {name!r}")
-        node = out[coll]
-        for part in mod.split("."):
+        *parts, leaf = flax_path(name, arr.ndim).split("/")
+        if leaf == "kernel":
+            arr = arr.transpose(2, 3, 1, 0)
+        node = out
+        for part in parts:
             node = node.setdefault(part, {})
         node[leaf] = np.ascontiguousarray(arr)
     return out

@@ -109,6 +109,52 @@ def create_model(architecture: str, backbone: str, classes: int = 1,
                              _DTYPES[dtype], in_channels)
 
 
+# classification_models builds these from the PRE-ACTIVATION graph, so
+# their reference-era .h5 checkpoints only ingest into that variant
+_PREACT_BACKBONES = frozenset({
+    "resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
+    "seresnet18", "seresnet34",
+})
+
+
+def _variant_for_config(cfg) -> str:
+    """The encoder variant the config's weights imply: the JAX package
+    picks ``keras-preact`` when ``encoder_weights`` resolves to a Keras
+    ``.h5`` for a pre-activation backbone (``models/pretrained.py``, not
+    ported), so that case raises; every other config is ``""``."""
+    if cfg.encoder_weights and cfg.backbone.lower() in _PREACT_BACKBONES:
+        raise _not_ported(f"encoder_weights {cfg.encoder_weights!r} for "
+                          f"{cfg.backbone} (models/pretrained.py)")
+    return ""
+
+
+def model_from_config(cfg, encoder_variant: Optional[str] = None
+                      ) -> SegmentationModel:
+    """``encoder_variant=None`` derives the variant from the config; a
+    string (possibly "") pins it, as the checkpoint sidecar does at load
+    time (``variant_from_checkpoint``)."""
+    return create_model(
+        cfg.architecture, cfg.backbone, cfg.classes, cfg.dropout, cfg.dtype,
+        cfg.remat, encoder_variant=(_variant_for_config(cfg)
+                                    if encoder_variant is None
+                                    else encoder_variant))
+
+
+def variant_from_checkpoint(cfg, ckpt_paths) -> str:
+    """The encoder variant to restore ``cfg`` from checkpoints with: the
+    first sidecar (in order) that records ``encoder_variant`` wins, the
+    graph the weights were trained with; else the config decides."""
+    from ..train.checkpoint import checkpoint_meta
+
+    if isinstance(ckpt_paths, str):
+        ckpt_paths = [ckpt_paths]
+    for p in ckpt_paths:
+        meta = checkpoint_meta(p)
+        if meta is not None and "encoder_variant" in meta:
+            return str(meta["encoder_variant"])
+    return _variant_for_config(cfg)
+
+
 def init_model(model: SegmentationModel, seed: int = 0,
                device="cuda") -> SegmentationModel:
     """Initialise every parameter from ``seed`` with flax's default

@@ -2,8 +2,10 @@
 and its small pure functions against the JAX package's.
 
   * the package, ``chip_smoke.py`` and ``compare_kernels.py`` import
-    neither ``jax`` nor the JAX package (a subprocess import and an AST
-    scan);
+    neither ``jax`` nor the JAX package, nor ``flax`` or ``msgpack`` (the
+    port reads checkpoints with its own codec), and ``cv2`` only inside the
+    functions that decode, encode or resize (a subprocess import and an
+    AST scan);
   * entry points default to the card and raise on a host without one;
   * the config parser takes the slice's experiment and refuses what is
     not ported with a pointed ``NotImplementedError``;
@@ -26,11 +28,13 @@ from segmentation_training_pipeline_tpu.ops import losses as JLo
 from segmentation_training_pipeline_tpu.ops import metrics as JM
 from segmentation_training_pipeline_tpu.ops import preprocess as JP
 from segmentation_training_pipeline_tpu_torch import config as TC
+from segmentation_training_pipeline_tpu_torch import infer as TI
 from segmentation_training_pipeline_tpu_torch import kernels as K
 from segmentation_training_pipeline_tpu_torch.models import factory as TF
 from segmentation_training_pipeline_tpu_torch.ops import losses as TLo
 from segmentation_training_pipeline_tpu_torch.ops import metrics as TM
 from segmentation_training_pipeline_tpu_torch.ops import preprocess as TP
+from segmentation_training_pipeline_tpu_torch.train import checkpoint as TCK
 from segmentation_training_pipeline_tpu_torch.train import optimizers as TO
 from segmentation_training_pipeline_tpu_torch.train import step as TS
 
@@ -63,7 +67,8 @@ def test_port_imports_no_jax():
             "    __import__(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'flax', 'optax')) or "
-            "m.split('.')[0] == 'segmentation_training_pipeline_tpu']\n"
+            "m.split('.')[0] in ('segmentation_training_pipeline_tpu', "
+            "'msgpack', 'cv2')]\n"
             "assert not bad, bad\n"
             "print(len(sys.modules))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -71,27 +76,39 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr[-2000:]
 
 
+def _imports(node, in_function=False):
+    """(top-level package, imported inside a function?) of every import
+    under ``node``."""
+    for child in ast.iter_child_nodes(node):
+        if isinstance(child, ast.Import):
+            for a in child.names:
+                yield a.name.split(".")[0], in_function
+        elif isinstance(child, ast.ImportFrom) and child.level == 0:
+            yield (child.module or "").split(".")[0], in_function
+        yield from _imports(child, in_function or isinstance(
+            child, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)))
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)
 def test_sources_import_no_jax(path):
-    tree = ast.parse(path.read_text())
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            names = [a.name for a in node.names]
-        elif isinstance(node, ast.ImportFrom):
-            names = [node.module or ""] if node.level == 0 else []
-        else:
-            continue
-        for n in names:
-            top = n.split(".")[0]
-            assert top not in ("jax", "jaxlib", "flax", "optax",
-                               "segmentation_training_pipeline_tpu"), n
+    for top, in_function in _imports(ast.parse(path.read_text())):
+        assert top not in ("jax", "jaxlib", "flax", "optax", "msgpack",
+                           "segmentation_training_pipeline_tpu"), top
+        assert top != "cv2" or in_function, f"{path.name}: cv2 at import"
 
 
-def test_entry_points_default_to_the_card():
+def test_entry_points_default_to_the_card(tmp_path):
     """On a host without CUDA the defaults raise; nothing continues on
     the CPU."""
     assert not torch.cuda.is_available()
     model = TF.create_model("Unet", "resnet34", 1, dtype="float32")
+    cfg = TC.parse_dict({"shape": [64, 64, 3], "dtype": "float32"},
+                        directory=str(tmp_path))
+    TCK.save_checkpoint(cfg.weights_path(0, 0), model.state_dict())
+    with pytest.raises((AssertionError, RuntimeError)):
+        TI.InferenceBundle(cfg, [0], 0)
+    with pytest.raises((AssertionError, RuntimeError)):
+        cfg.load(0, 0)
     with pytest.raises((AssertionError, RuntimeError)):
         TF.init_model(model, seed=0)
     with pytest.raises((AssertionError, RuntimeError)):

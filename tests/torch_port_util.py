@@ -14,7 +14,9 @@ hand the same values to the port:
   * Multiply: the segment key (lowering.py:1491-1494).
 
 It also runs the reference's Pallas kernels in interpret mode inside the
-full lowering (the pattern of tests/test_pallas_elastic.py:132-141).
+full lowering (the pattern of tests/test_pallas_elastic.py:132-141), and
+perturbs the BatchNorm statistics of a flax variables tree
+(``perturbed_batch_stats``) so that a swapped mean and variance would show.
 """
 
 import numpy as np
@@ -148,3 +150,17 @@ def capture_drop_masks(store):
         return x * mask.astype(x.dtype) / keep
 
     return fnn.intercept_methods(intercept)
+
+
+def perturbed_batch_stats(var, seed=1):
+    """Seeded noise on the means and a positive factor on the variances."""
+    r = np.random.RandomState(seed)
+
+    def f(path, a):
+        noise = r.randn(*a.shape).astype(np.float32)
+        if path[-1].key == "var":
+            return (a * np.exp(0.3 * noise)).astype(np.float32)
+        return (a + 0.2 * noise).astype(np.float32)
+
+    return {**var, "batch_stats": jax.tree_util.tree_map_with_path(
+        f, var["batch_stats"])}
