@@ -51,12 +51,33 @@ and the script exits non-zero:
      equal to ``predict_probs``; a float32 bundle on the card against the
      same on the CPU at B2 (TF32 off), and the bf16 probabilities against
      the float32 ones; no hand-written kernel launched;
-  10. the ``kernels`` summary line, then the last line
+  10. fit: BASELINE config 4, ``examples/kfold_multistage.yaml`` parsed by
+     the port (Unet-resnet34 at 256², B16, bf16, bce + 0.25·dice, Adam,
+     two stages: the encoder frozen at lr 1e-3 with ``negatives: none``,
+     then unfrozen at lr 1e-4 with ``negatives: real``, ReduceLROnPlateau
+     and EarlyStopping; Fliplr + Affine rotate ±10°) trained through
+     ``fit_pipeline`` (what ``cfg.fit`` calls, here with per-epoch
+     timings) on fold 0 of 320 synthetic PNGs (a quarter of the masks
+     empty) read by ``DirectoryDataSet``, the epochs cut to 2 and 3.
+     First the block once on the fit's first batch, with kernels X and Y
+     held bit for bit against their plain versions at those shapes and
+     draws; then the fit: X and Y once per train step and nothing else,
+     the encoder bit for bit after the frozen stage with its BatchNorm
+     statistics moved and every encoder parameter changed by the
+     unfrozen stage, ``done`` checkpoints that a second ``cfg.fit``
+     skips, and ``cfg.load`` serving the fit's checkpoint; train img/s
+     over the epochs after each stage's first (also without each epoch's
+     wait for its first batch), the epoch split into train, validation
+     and checkpoint, a batch's PNG decode on the host alone, and the peak
+     memory;
+  11. the ``kernels`` summary line, then the last line
      ``{"ok": true, "device": {...}}``.
 
 ``--profile FILE`` profiles three more steps of each train phase and
 three more ``predict_probs`` calls of the serve phase (``FILE`` for Unet,
-``FILE`` with ``_fpn`` or ``_serve`` before its suffix for FPN and serve).
+``FILE`` with ``_fpn`` or ``_serve`` before its suffix for FPN and serve),
+and traces epoch 1 of each fit stage (the fit's own ``profile:``) for its
+device busy time.
 """
 
 from __future__ import annotations
@@ -78,8 +99,10 @@ import torch
 
 from segmentation_training_pipeline_tpu_torch import config as CF
 from segmentation_training_pipeline_tpu_torch import kernels as K
+from segmentation_training_pipeline_tpu_torch.data import batcher as BA
+from segmentation_training_pipeline_tpu_torch.data import synthetic as SY
 from segmentation_training_pipeline_tpu_torch.data.datasets import (
-    LambdaDataSet)
+    DirectoryDataSet, LambdaDataSet)
 from segmentation_training_pipeline_tpu_torch.models import factory as MF
 from segmentation_training_pipeline_tpu_torch.ops import losses as LO
 from segmentation_training_pipeline_tpu_torch.ops import metrics as ME
@@ -90,6 +113,7 @@ from segmentation_training_pipeline_tpu_torch.ops.aug import lowering as LW
 from segmentation_training_pipeline_tpu_torch.ops.aug import shear as SH
 from segmentation_training_pipeline_tpu_torch.train import checkpoint as CK
 from segmentation_training_pipeline_tpu_torch.train import optimizers as OP
+from segmentation_training_pipeline_tpu_torch.train import stage as SG
 from segmentation_training_pipeline_tpu_torch.train import step as ST
 from segmentation_training_pipeline_tpu_torch.utils import msgpack_tree as MT
 
@@ -106,6 +130,12 @@ STEPS, BATCH, SIZE, SEED = 10, 16, 512, 0   # the config-2 batch at 512²
 FPN_YAML = "examples/fpn_augmented_512.yaml"
 SERVE_YAML = "examples/tta_ensemble_predict.yaml"
 SERVE_CALLS, SERVE_WARMUP, SERVE_IMAGES, SERVE_REF_BATCH = 20, 3, 40, 2
+FIT_YAML = "examples/kfold_multistage.yaml"
+# synthetic PNG set for the fit: images, share of empty masks, and the
+# epochs of the two stages (the YAML's 5 and 40 cut to fit the time limit)
+FIT_IMAGES, FIT_EMPTY, FIT_EPOCHS = 320, 0.25, (2, 3)
+FIT_CSV = ["epoch", "lr", "dice", "iou", "loss", "val_dice", "val_iou",
+           "val_loss", "time"]
 FORWARD_REL = 1e-3   # f32 on the card (TF32 off) against the CPU
 IMG_ATOL = 1e-3
 MASK_SHARE = 1e-4
@@ -403,16 +433,22 @@ def shear_bytes(x, offs, kinds, norig: int, src_shift: int, fill) -> int:
             + x.numel() * x.element_size())
 
 
-def _measure(name, kernel, plain, args) -> dict:
-    """One kernel launch against its plain version on the same arguments,
-    both timed, with the launch's memory and operation bound."""
+def _errors(name, kernel, plain, args):
+    """One kernel launch against its plain version on the same arguments:
+    the largest image error and the share of mask entries that differ."""
     got = kernel(*args)
     want = plain(*args)
     torch.cuda.synchronize()
     flags = args[2] if name == "shear" else args[1]
     image = (flags == 0).view(1, -1, 1, 1).expand_as(got)
-    err = float((got - want)[image].abs().max())
-    mis = mask_mismatch(got[~image], want[~image])
+    return (got, float((got - want)[image].abs().max()),
+            mask_mismatch(got[~image], want[~image]))
+
+
+def _measure(name, kernel, plain, args) -> dict:
+    """:func:`_errors`, both versions timed, with the launch's memory and
+    operation bound."""
+    got, err, mis = _errors(name, kernel, plain, args)
     ms = cuda_ms(lambda: kernel(*args), 50, hold=True)
     plain_ms = cuda_ms(lambda: plain(*args), 10, hold=True)
     tensors = [a for a in args if isinstance(a, torch.Tensor)]
@@ -519,7 +555,7 @@ def phase_train(name: str, cfg, imgs, masks, steps: int, seed: int,
     model = MF.init_model(MF.create_model(cfg.architecture, cfg.backbone,
                                           cfg.classes, dtype=cfg.dtype),
                           seed, dev)
-    tx = OP.build_optimizer(cfg.optimizer)
+    tx = OP.build_optimizer(cfg)
     state = ST.create_train_state(model, tx, dev)
     step = ST.build_train_step(
         model, tx, LO.build_loss(cfg.loss, cfg.activation),
@@ -716,6 +752,183 @@ def phase_serve(seed: int, profile: str = "") -> dict:
     return out
 
 
+def _trace_busy_s(trace_dir: str) -> float:
+    """Device seconds of the kernels, copies and fills in the chrome trace
+    that the fit's ``profile:`` wrote with ``torch.profiler``."""
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    return sum(e.get("dur", 0) for e in events
+               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")) / 1e6
+
+
+def _fit_block_vs_plain(aug, ds, cfg, seed: int) -> dict:
+    """Config 4's block once on the card on the fit's first batch (fold 0,
+    stage 0's plan) and draws from a generator seeded ``seed``, then kernels
+    X and Y against their plain versions on the arguments the block gave
+    them (``EXACT``: bit for bit)."""
+    b = next(iter(BA.make_batches(ds, cfg.kfold(ds).epoch_indices(
+        0, 0, cfg.stages[0].negatives), cfg.shape, cfg.classes,
+        cfg.activation, cfg.batch)))
+    imgs = torch.from_numpy(b["image"]).cuda()
+    masks = torch.from_numpy(b["mask"]).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    draws = aug.sample(gen, *imgs.shape)
+    names = ("warp_x", "warp_y")
+    originals = {n: getattr(FW, n) for n in names}
+    captured = {}
+
+    def hook(n):
+        def call(*args):
+            captured.setdefault(n, []).append(args)
+            return originals[n](*args)
+        return call
+
+    for n in names:
+        setattr(FW, n, hook(n))
+    try:
+        out_i, out_m = aug.apply(draws, imgs, masks)
+    finally:
+        for n in names:
+            setattr(FW, n, originals[n])
+    torch.cuda.synchronize()
+    _check_augmented(out_i, out_m, "fit block")
+    check({n: len(v) for n, v in captured.items()}
+          == {n: 1 for n in names}, ("fit block captures", captured.keys()))
+    out = {}
+    for n in names:
+        args = captured[n][0]
+        _, err, mis = _errors(n, *CALLS[n], args)
+        out[n] = dict(planes=list(args[0].shape), max_abs_err=err,
+                      mask_mismatch=mis)
+        check(err == 0.0 and mis == 0.0, ("fit block", n, out[n]))
+    return out
+
+
+def phase_fit(seed: int, profile: bool = False) -> dict:
+    """BASELINE config 4 through ``cfg.fit`` (the epochs cut), then a
+    second fit that skips every stage and ``cfg.load`` of the result."""
+    cfg = CF.parse(FIT_YAML)
+    st = cfg.stages
+    check((cfg.shape, cfg.batch, cfg.dtype, len(st), st[0].freeze_encoder,
+           st[1].unfreeze_encoder, [a["name"] for a in cfg.augmentation])
+          == ((256, 256, 3), 16, "bfloat16", 2, True, True,
+              ["Fliplr", "Affine"]), ("config 4", cfg.shape, cfg.batch))
+    reduced = {"epochs": [[s.epochs for s in st], list(FIT_EPOCHS)]}
+    cfg.stages = [dataclasses.replace(s, epochs=e)
+                  for s, e in zip(st, FIT_EPOCHS)]
+    cfg.verbose = 0
+    h, w, _ = cfg.shape
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg.directory = os.path.join(tmp, "exp")
+        if profile:
+            cfg.profile = os.path.join(tmp, "profile")
+        images, masks = SY.write_shapes_dataset(
+            os.path.join(tmp, "data"), FIT_IMAGES, h, seed, p_empty=FIT_EMPTY)
+        ds = DirectoryDataSet(images, masks)
+        aug, _ = LW.build_transform_fn(cfg.transforms, cfg.augmentation)
+        vs_plain = _fit_block_vs_plain(aug, ds, cfg, seed)
+        # the fit initialises fold 0 at random_state + 0, drawn on the CPU
+        start = MF.init_model(MF.model_from_config(cfg), cfg.random_state,
+                              "cpu").state_dict()
+        timings = []
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        summary = SG.fit_pipeline(cfg, ds, foldsToExecute=[0],
+                                  timings=timings)
+        fit_s = time.perf_counter() - t0
+        launches = K.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        busy = {s: _trace_busy_s(os.path.join(cfg.profile, f"fold0.stage{s}"))
+                for s in range(len(st))} if profile else {}
+        again = cfg.fit(ds, foldsToExecute=[0])
+        metas = [CK.checkpoint_meta(cfg.weights_path(0, s))
+                 for s in range(len(st))]
+        stage0, stage1 = (CK.load_checkpoint(cfg.weights_path(0, s),
+                                             MF.model_from_config(cfg))
+                          for s in range(2))
+        csvs = []
+        for s in range(len(st)):
+            with open(cfg.metrics_path(0, s)) as f:
+                csvs.append([r.split(",") for r in f.read().splitlines()])
+        items = list(cfg.predict_on_dataset(
+            LambdaDataSet([ds[i].x for i in range(cfg.batch)]), folds=[0],
+            stage=1))
+        probs = np.stack([it.prediction for it in items])
+        # the host's share of a train loop: stage 1's plan decoded and
+        # stacked alone, on this thread, with no step beside it
+        decode = {}
+        list(BA.make_batches(ds, cfg.kfold(ds).epoch_indices(0, 1),
+                             cfg.shape, cfg.classes, cfg.activation,
+                             cfg.batch, stats=decode))
+    steps = sum(t["steps"] for t in timings)
+    steady = [t for t in timings if t["epoch"] > 0]
+    enc = [k for k in start if k.startswith("encoder.")]
+    stats = ("running_mean", "running_var")
+    moved = [k for k in enc if k.endswith(stats)
+             and not torch.equal(stage0[k], start[k])]
+    # the unfrozen stage updates every encoder parameter
+    unmoved = [k for k in enc if not k.endswith(stats + ("num_batches_tracked",))
+               and torch.equal(stage1[k], stage0[k])]
+    # each epoch's train loop less the wait for its first batch (a new
+    # prefetch thread decodes it while nothing else runs)
+    fed_s = sum(t["train_s"] - t["first_batch_s"] for t in steady)
+    steady_steps = sum(t["steps"] for t in steady)
+    losses = [float(r[FIT_CSV.index(c)]) for rows in csvs for r in rows[1:]
+              for c in ("loss", "val_loss")]
+    epoch1 = {t["stage"]: t for t in timings if t["epoch"] == 1}
+    out = dict(
+        config=FIT_YAML, model=f"{cfg.architecture}-{cfg.backbone}",
+        dtype=cfg.dtype, batch=cfg.batch, size=[h, w], images=FIT_IMAGES,
+        empty_share=FIT_EMPTY, reduced=reduced, fit_s=fit_s,
+        train_steps_per_stage=[sum(t["steps"] for t in timings
+                                   if t["stage"] == s)
+                               for s in range(len(st))],
+        fit_train_img_per_s=(sum(t["images"] for t in steady)
+                             / sum(t["train_s"] for t in steady)),
+        steady_epochs=len(steady), steady_steps=steady_steps,
+        steady_step_ms_after_first_batch=fed_s / steady_steps * 1e3,
+        fit_train_img_per_s_after_first_batch=(
+            steady_steps * cfg.batch / fed_s),
+        epochs=[{k: t[k] for k in ("stage", "epoch", "steps", "images",
+                                   "train_s", "first_batch_s", "val_s",
+                                   "checkpoint_s")}
+                for t in timings],
+        decode_s_per_batch=decode["decode_s"] / decode["batches"],
+        traced_epoch1_device_busy_s=busy or None,
+        traced_epoch1_idle_share={
+            s: 1.0 - b / (epoch1[s]["train_s"] + epoch1[s]["val_s"])
+            for s, b in busy.items()} or None,
+        launches=launches, peak_mem_gib=peak,
+        csv=[dict(header=rows[0], rows=len(rows) - 1) for rows in csvs],
+        summary=summary, refit=again,
+        encoder_bit_identical=all(torch.equal(stage0[k], start[k])
+                                  for k in enc if not k.endswith(stats)),
+        encoder_bn_stats_moved=len(moved),
+        unfrozen_encoder_unchanged=unmoved,
+        block_vs_plain=vs_plain, block_vs_plain_tolerance=0.0,
+        probs=dict(min=float(probs.min()), max=float(probs.max()),
+                   mean=float(probs.mean())))
+    emit("fit", **out)
+    check(launches == {n: steps if n in ("warp_x", "warp_y") else 0
+                       for n in K.KERNELS}, ("fit launches", launches, steps))
+    check(all(math.isfinite(v) for v in losses), ("fit losses", losses))
+    check(out["encoder_bit_identical"], "frozen encoder changed")
+    check(len(moved) > 0, "encoder BatchNorm statistics did not move")
+    check(not unmoved, ("unfrozen stage left encoder parameters", unmoved))
+    check(all(m is not None and m["done"] is True for m in metas),
+          ("done markers", metas))
+    check(all(c["header"] == FIT_CSV for c in out["csv"]), out["csv"])
+    check([c["rows"] for c in out["csv"]] == [t["epochs"] for t in
+                                              summary.values()],
+          (out["csv"], summary))
+    check(list(again) == list(summary) and all(
+        v.get("skipped") is True for v in again.values()), ("refit", again))
+    check(probs.shape == (cfg.batch, h, w, 1) and bool(
+        np.isfinite(probs).all()) and 0.0 <= probs.min()
+        and probs.max() <= 1.0, ("served probs", probs.shape))
+    return out
+
 def _profile_path(base: str, tag: str) -> str:
     """``base`` with ``_tag`` before its suffix ("" when not profiling)."""
     if not base:
@@ -756,6 +969,8 @@ def main(argv=None) -> int:
                                 _profile_path(a.profile, "fpn"))
     torch.cuda.empty_cache()
     phase_serve(SEED, _profile_path(a.profile, "serve"))
+    torch.cuda.empty_cache()
+    phase_fit(SEED, bool(a.profile))
     # launches on each kernel's main path: X, Y and elastic in the Unet
     # step, YE in the FPN step, the shear in the unfused warp path
     launches = dict(train["launches"], warp_ye=train_fpn["launches"][

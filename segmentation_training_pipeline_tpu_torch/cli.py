@@ -7,12 +7,14 @@ Counterpart of ``segmentation_training_pipeline_tpu/cli.py``:
     python -m segmentation_training_pipeline_tpu_torch evaluate cfg.yaml \
         --images data/images (--masks data/masks | --rle-csv labels.csv)
     python -m segmentation_training_pipeline_tpu_torch fit cfg.yaml \
-        --images data/images --masks data/masks   # not yet ported: raises
+        --images data/images (--masks data/masks | --rle-csv labels.csv) \
+        [--folds 0 1] [--start-stage 0]
 
-``predict`` and ``evaluate`` run on the card unless ``--device`` names
-another.  There is no compilation cache to set up (eager PyTorch), and the
-multi-host bootstrap (the JAX package's ``parallel.distributed``) is not
-ported yet: this CLI runs one process on one device.
+Each command runs on the card unless ``--device`` names another; ``fit``
+prints its summary dict as JSON.  There is no compilation cache to set up
+(eager PyTorch), and the multi-host bootstrap (the JAX package's
+``parallel.distributed``) is not ported yet: this CLI runs one process on
+one device.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ def _build_parser():
                         "(alternative to --masks)")
     f.add_argument("--folds", type=int, nargs="*", default=None)
     f.add_argument("--start-stage", type=int, default=0)
+    f.add_argument("--device", default="cuda")
 
     pr = sub.add_parser("predict", help="predict masks for a directory")
     pr.add_argument("config")
@@ -76,7 +79,7 @@ def main(argv=None) -> int:
     if args.cmd == "fit":
         ds = _dataset(args)
         res = cfg.fit(ds, foldsToExecute=args.folds,
-                      start_from_stage=args.start_stage)
+                      start_from_stage=args.start_stage, device=args.device)
         print(json.dumps(res, indent=2, default=str))
     elif args.cmd == "predict":
         n = cfg.predict_all_to_dir(args.src, args.dst, folds=args.folds,

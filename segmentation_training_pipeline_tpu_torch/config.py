@@ -4,10 +4,11 @@ Counterpart of ``segmentation_training_pipeline_tpu/config.py``
 (``PipelineConfig``, ``parse``, ``parse_dict``): the same YAML keys, the
 same per-stage overrides, and unknown keys or names error out with a
 suggestion.  Names the reference knows but this package has not ported yet
-(architectures, backbones, optimizers, augmenters, losses, metrics) raise
-``NotImplementedError`` saying so, and so does ``fit``: the training loop
-is not ported yet.  ``load`` and the predict/evaluate methods serve
-checkpoints from ``weights/`` (``infer.py``).
+(architectures, backbones, augmenters, losses, metrics) raise
+``NotImplementedError`` saying so.  ``fit`` trains folds × stages
+(``train/stage.py``); ``load`` and the predict/evaluate methods serve
+checkpoints from ``weights/`` (``infer.py``).  Each of them runs on the
+card unless ``device`` names another.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import dataclasses
 import difflib
 import os
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import yaml
 
@@ -95,8 +96,9 @@ for _entry in (
     AUGMENTERS.register(_name, _name, aliases=_aliases)
 
 PORTED_ARCHITECTURES = {"Unet", "FPN"}
-PORTED_BACKBONES = {"resnet34"} | {f"efficientnetb{i}" for i in range(8)}
-PORTED_OPTIMIZERS = {"Adam"}
+PORTED_BACKBONES = {"resnet18", "resnet34"} | {f"efficientnetb{i}"
+                                                for i in range(8)}
+PORTED_OPTIMIZERS = set(OPTIMIZERS.names())
 
 _TOP_LEVEL_KEYS = {
     "architecture", "backbone", "encoder_weights", "shape", "classes",
@@ -435,9 +437,31 @@ class PipelineConfig:
         # reference contract: metrics/metrics-{fold}.{stage}.csv
         return os.path.join(self.metrics_dir, f"metrics-{fold}.{stage}.csv")
 
-    def fit(self, *args, **kw):
-        raise _not_ported("the fit loop (folds × stages, checkpoints, "
-                          "callbacks)")
+    def primary_mode(self) -> str:
+        """Resolve ``auto`` mode from the metric name, Keras-style."""
+        if self.primary_metric_mode != "auto":
+            return self.primary_metric_mode
+        name = self.primary_metric.replace("val_", "")
+        return "min" if ("loss" in name or "error" in name) else "max"
+
+    def kfold(self, dataset):
+        from .data.datasets import KFoldedDataSet
+
+        return KFoldedDataSet(dataset, folds_count=self.folds_count,
+                              random_state=self.random_state,
+                              test_split=self.testSplit,
+                              stratified=self.stratified)
+
+    def fit(self, dataset, foldsToExecute: Optional[Sequence[int]] = None,
+            start_from_stage: int = 0, verbose: Optional[int] = None,
+            device="cuda"):
+        """Train all requested folds through all stages on ``device``.
+        See ``train/stage.py``."""
+        from .train.stage import fit_pipeline
+
+        return fit_pipeline(self, dataset, foldsToExecute=foldsToExecute,
+                            start_from_stage=start_from_stage,
+                            verbose=verbose, device=device)
 
     # the serving surface (``infer.py``); each takes ``device="cuda"``
     def load(self, fold=0, stage: int = -1, device="cuda"):

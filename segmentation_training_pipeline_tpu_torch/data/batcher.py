@@ -1,18 +1,32 @@
-"""Host-side image and mask preparation at the config shape.
+"""Host-side batch assembly and the prefetch to the card.
 
-Counterpart of ``prepare_image`` and ``prepare_mask`` in
-``segmentation_training_pipeline_tpu/data/batcher.py``.  Resizes go
-through ``cv2`` (its fixed-point uint8 ``INTER_LINEAR`` is part of the
-byte contract), imported only where sizes differ: a resize to the same size
-is an exact copy in OpenCV, so skipping it changes no value.  ``make_batches``
-and ``Prefetcher`` are not ported yet.
+Counterpart of ``segmentation_training_pipeline_tpu/data/batcher.py``.
+The host decodes, resizes to the config shape and stacks **uint8** images
+and uint8 one-hot masks (a quarter of float32 on the wire); the step casts
+to float, augments and normalises on the device.  Resizes go through
+``cv2`` (its fixed-point uint8 ``INTER_LINEAR`` is part of the byte
+contract), imported only where sizes differ: a resize to the same size is an
+exact copy in OpenCV, so skipping it changes no value.
+
+``make_batches`` decodes item by item (``dataset[i]``); the JAX package's
+native C++ loader for file-backed datasets, which gives the same bytes, is
+not bound here yet.  ``Prefetcher`` runs the batch generator on a worker
+thread that pins each batch; the consumer copies it to the card with
+``non_blocking=True`` on its current stream, so the worker never touches a
+stream and the copy overlaps the previous step.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import queue
+import threading
+import time
+from typing import Callable, Dict, Iterator, Optional, Sequence
 
 import numpy as np
+import torch
+
+from .datasets import DataSet
 
 
 def prepare_image(x: np.ndarray, shape) -> np.ndarray:
@@ -78,3 +92,143 @@ def prepare_mask(y: Optional[np.ndarray], shape, classes: int,
     if y.shape[-1] != classes:
         raise ValueError(f"mask has {y.shape[-1]} channels, config classes={classes}")
     return (y > (127 if y.max() > 1.5 else 0.5)).astype(np.float32)
+
+
+def _masks_u8_to_onehot(masks_u8: np.ndarray, classes: int,
+                        activation: str) -> np.ndarray:
+    """(B, H, W) uint8 decoded masks → (B, H, W, classes) uint8 {0,1},
+    with prepare_mask's binary/{0,255}/class-index rules and PER-ITEM
+    thresholds (a batch may mix {0,1} and {0,255} masks)."""
+    per_max = masks_u8.reshape(masks_u8.shape[0], -1).max(axis=1)
+    if activation == "softmax" and classes > 1:
+        idx = masks_u8.astype(np.int64)
+        is_255 = (per_max > classes - 1) & (per_max > 1)
+        idx = np.where(is_255[:, None, None],
+                       (masks_u8 > 127).astype(np.int64), idx)
+        out = np.zeros((*masks_u8.shape, classes), np.uint8)
+        np.put_along_axis(out, idx[..., None], 1, axis=-1)
+        return out
+    m = np.where((per_max > 1.5)[:, None, None],
+                 masks_u8 > 127, masks_u8 > 0)
+    m = m[..., None].astype(np.uint8)
+    return np.repeat(m, classes, axis=-1) if classes > 1 else m
+
+
+def make_batches(dataset: DataSet, indices: Sequence[int], shape, classes: int,
+                 activation: str, batch_size: int,
+                 wrap_pad: bool = True,
+                 cache: Optional[dict] = None,
+                 stats: Optional[dict] = None) -> Iterator[Dict[str, np.ndarray]]:
+    """Yield batches of stacked uint8 images + uint8 one-hot masks + float32
+    weights, in plan order.
+
+    The final partial batch wraps around to the plan's start and its
+    padding rows get weight 0, so the steps can discount them.  ``cache``
+    (``cache: true`` in YAML): per-index dict of decoded ``(img_u8,
+    mask_u8)`` items, so epochs after the first skip the decode.
+    ``stats``: a dict accumulating ``decode_s`` (wall seconds spent
+    assembling batches), ``batches`` and ``native`` (always False here:
+    every item decodes through ``dataset[i]``).
+    """
+    idx = np.asarray(indices, dtype=np.int64)
+    n = len(idx)
+    if n == 0:
+        return
+    if stats is not None:
+        stats["native"] = False
+        stats.setdefault("decode_s", 0.0)
+        stats.setdefault("batches", 0)
+    for start in range(0, n, batch_size):
+        _t0 = time.perf_counter() if stats is not None else 0.0
+        sel = idx[start : start + batch_size]
+        n_real = len(sel)
+        if n_real < batch_size and wrap_pad:
+            extra = idx[np.arange(batch_size - n_real) % n]
+            sel = np.concatenate([sel, extra])
+        if cache is not None and all(int(i) in cache for i in sel):
+            imgs_arr = np.stack([cache[int(i)][0] for i in sel])
+            masks_arr = np.stack([cache[int(i)][1] for i in sel])
+        else:
+            imgs, masks = [], []
+            for i in sel:
+                item = dataset[int(i)]
+                imgs.append(prepare_image(item.x, shape))
+                masks.append(prepare_mask(item.y, shape, classes,
+                                          activation).astype(np.uint8))
+            imgs_arr = np.stack(imgs)
+            masks_arr = np.stack(masks)
+        if cache is not None:
+            for j in range(len(sel)):
+                ii = int(sel[j])
+                if ii not in cache:
+                    cache[ii] = (imgs_arr[j], masks_arr[j])
+        if stats is not None:
+            stats["decode_s"] += time.perf_counter() - _t0
+            stats["batches"] += 1
+        yield {
+            "image": imgs_arr,
+            "mask": masks_arr,
+            "weight": (np.arange(len(sel)) < n_real).astype(np.float32),
+        }
+
+
+class Prefetcher:
+    """Batches from ``gen_fn()`` built ``depth`` ahead on a worker thread
+    and yielded as tensors on ``device``.
+
+    The worker turns each numpy batch into tensors and, for a CUDA device,
+    pins them; the consumer (the caller's thread) copies them to the card
+    with ``non_blocking=True`` on its current stream.  An error in the
+    worker is re-raised in the consumer; leaving the loop early stops the
+    worker."""
+
+    def __init__(self, gen_fn: Callable[[], Iterator[Dict[str, np.ndarray]]],
+                 device="cuda", depth: int = 2):
+        self.gen_fn = gen_fn
+        self.device = torch.device(device)
+        self.depth = max(1, depth)
+
+    def __iter__(self):
+        q: "queue.Queue" = queue.Queue(maxsize=self.depth)
+        done = object()
+        err = []
+        stop = threading.Event()
+        pin = self.device.type == "cuda"
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    pass
+            return False
+
+        def worker():
+            try:
+                for batch in self.gen_fn():
+                    t = {k: torch.from_numpy(np.ascontiguousarray(v))
+                         for k, v in batch.items()}
+                    if pin:
+                        t = {k: v.pin_memory() for k, v in t.items()}
+                    if not put(t):
+                        return
+            except BaseException as e:  # surfaced in the consumer
+                err.append(e)
+            finally:
+                put(done)
+
+        th = threading.Thread(target=worker, daemon=True)
+        th.start()
+        try:
+            while True:
+                item = q.get()
+                if item is done:
+                    if err:
+                        raise err[0]
+                    return
+                yield {k: v.to(self.device, non_blocking=pin)
+                       for k, v in item.items()}
+        finally:
+            stop.set()
+            th.join()

@@ -1,13 +1,15 @@
-"""Datasets for serving: the protocol, wrappers and directory readers.
+"""Datasets: the protocol, wrappers, directory readers, K-fold splitting
+and negative sampling.
 
-Counterpart of the serving part of
-``segmentation_training_pipeline_tpu/data/datasets.py``:
+Counterpart of ``segmentation_training_pipeline_tpu/data/datasets.py``:
 ``PredictionItem(id, x, y)``, the ``DataSet`` protocol (``__len__`` +
-``__getitem__``), the composite/subset/lambda wrappers, and the readers of
-an image directory (``DirectoryDataSet``) and of a Kaggle-style RLE CSV
-(``CSVRLEDataSet``).  Host-side only; image files decode with ``cv2``,
-imported where a file is read.  K-fold splitting, ``CropAndSplitDataSet``
-and the negatives rule are not ported yet.
+``__getitem__``), the composite/subset/lambda wrappers, the ``crops:`` tile
+view, the readers of an image directory (``DirectoryDataSet``) and of a
+Kaggle-style RLE CSV (``CSVRLEDataSet``), and ``KFoldedDataSet`` with its
+seeded fold splits and per-epoch index plans (``negatives: none|real|N``),
+drawn with ``np.random.RandomState`` exactly as the JAX package draws them.
+Host-side only; image files decode with ``cv2``, imported where a file is
+read.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from __future__ import annotations
 import csv
 import os
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -110,6 +112,56 @@ class LambdaDataSet(DataSet):
         y = None if self.ys is None else self.ys[idx]
         i = idx if self.ids is None else self.ids[idx]
         return PredictionItem(i, np.asarray(x), None if y is None else np.asarray(y))
+
+
+class CropAndSplitDataSet(DataSet):
+    """N×N tile view for ``crops: N`` training.
+
+    Item ``i`` is tile ``(r, c) = divmod(i % N², N)`` of parent item
+    ``i // N²``, cut from the ORIGINAL image/mask with the same
+    ``np.linspace`` grid the predict-side stitcher uses (infer.py), so a
+    model trained on tiles sees exactly the tiles it will be asked to
+    predict.  Fold assignment stays at the parent level (expand parent
+    index plans with :func:`expand_tile_indices`): tiles of one image in
+    both train and val would leak.
+    """
+
+    def __init__(self, parent: DataSet, n: int):
+        if n < 2:
+            raise ValueError("crops must be >= 2")
+        self.parent = parent
+        self.n = int(n)
+
+    def __len__(self):
+        return len(self.parent) * self.n * self.n
+
+    def __getitem__(self, idx):
+        n2 = self.n * self.n
+        if idx < 0:
+            idx += len(self)
+        pi, t = divmod(int(idx), n2)
+        r, c = divmod(t, self.n)
+        item = self.parent[pi]
+        H, W = item.x.shape[:2]
+        hs = np.linspace(0, H, self.n + 1).astype(int)
+        ws = np.linspace(0, W, self.n + 1).astype(int)
+        y0, y1 = int(hs[r]), int(hs[r + 1])
+        x0, x1 = int(ws[c]), int(ws[c + 1])
+        x = item.x[y0:y1, x0:x1]
+        y = None if item.y is None else item.y[y0:y1, x0:x1]
+        return PredictionItem(f"{item.id}#t{r}_{c}", x, y)
+
+
+def expand_tile_indices(parent_indices: np.ndarray, n: int,
+                        shuffle_seed: Optional[int] = None) -> np.ndarray:
+    """Parent-level index plan → tile-level plan into a CropAndSplitDataSet
+    (each parent index becomes its N² tile indices; optionally shuffled)."""
+    n2 = n * n
+    base = np.asarray(parent_indices, dtype=np.int64)
+    tiles = (base[:, None] * n2 + np.arange(n2)[None, :]).ravel()
+    if shuffle_seed is not None:
+        np.random.RandomState(shuffle_seed % (2 ** 31)).shuffle(tiles)
+    return tiles
 
 
 _IMG_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".tif", ".tiff", ".webp")
@@ -270,3 +322,165 @@ class CSVRLEDataSet(DataSet):
         for rle in self._rles[stem]:
             mask |= rle_decode(rle, img.shape[:2])
         return PredictionItem(stem, img, mask * 255)
+
+
+# ---------------------------------------------------------------------------
+# K-fold index math (sklearn's KFold / StratifiedKFold with shuffling)
+# ---------------------------------------------------------------------------
+
+def kfold_indices(n: int, folds: int, random_state: int = 33,
+                  shuffle: bool = True) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """``sklearn.model_selection.KFold(folds, shuffle, random_state)``:
+    shuffle the indices with ``np.random.RandomState(seed)``, then take
+    consecutive chunks as test folds; the first ``n % folds`` folds get
+    one extra element."""
+    if folds < 2:
+        raise ValueError("folds_count must be >= 2 for k-fold splitting")
+    idx = np.arange(n)
+    if shuffle:
+        np.random.RandomState(random_state).shuffle(idx)
+    sizes = np.full(folds, n // folds, dtype=np.int64)
+    sizes[: n % folds] += 1
+    out = []
+    start = 0
+    for s in sizes:
+        test = idx[start : start + s]
+        train = np.concatenate([idx[:start], idx[start + s :]])
+        out.append((np.sort(train), np.sort(test)))
+        start += s
+    return out
+
+
+def stratified_kfold_indices(labels: np.ndarray, folds: int,
+                             random_state: int = 33):
+    """Stratified K-fold: per-class shuffled round-robin assignment, so
+    every fold keeps the global positive/negative ratio."""
+    n = len(labels)
+    assign = np.empty(n, dtype=np.int64)
+    rng = np.random.RandomState(random_state)
+    for cls in np.unique(labels):
+        members = np.flatnonzero(labels == cls)
+        rng.shuffle(members)
+        assign[members] = np.arange(len(members)) % folds
+    out = []
+    for f in range(folds):
+        test = np.flatnonzero(assign == f)
+        train = np.flatnonzero(assign != f)
+        out.append((train, test))
+    return out
+
+
+def _is_negative(item: PredictionItem) -> bool:
+    y = item.y
+    return y is None or not np.any(y)
+
+
+@dataclass
+class FoldSplit:
+    train: np.ndarray
+    val: np.ndarray
+
+
+class KFoldedDataSet:
+    """Seeded K-fold view over a dataset with negative-sampling plans.
+
+    ``negatives``/``validation_negatives`` ∈ {None/'real', 'none', number}:
+      * ``real`` / None — keep every empty-mask item (the real distribution);
+      * ``none`` — drop empty-mask items entirely;
+      * ``N`` — per epoch, sample ``N × n_positives`` negatives (with a
+        per-epoch seed).
+
+    ``epoch_indices(fold, epoch, negatives)`` returns the deterministic index
+    plan for that epoch: host-side numpy randomness only, the same plans as
+    the JAX package's for the same dataset and ``random_state``.
+    """
+
+    def __init__(self, dataset: DataSet, folds_count: int = 5,
+                 random_state: int = 33, test_split: float = 0.0,
+                 stratified: bool = False):
+        self.dataset = dataset
+        self.folds_count = folds_count
+        self.random_state = random_state
+        n = len(dataset)
+        all_idx = np.arange(n)
+        if test_split and test_split > 0:
+            rng = np.random.RandomState(random_state)
+            perm = rng.permutation(n)
+            n_test = int(round(n * test_split))
+            self.test_indices = np.sort(perm[:n_test])
+            work = np.sort(perm[n_test:])
+        else:
+            self.test_indices = np.empty(0, dtype=np.int64)
+            work = all_idx
+        self._work = work
+        self._neg_cache: Optional[np.ndarray] = None
+        if stratified:
+            # stratify on mask emptiness (positive/negative), the label that
+            # matters for segmentation fold balance
+            labels = self._negativity()[work].astype(np.int64)
+            rel_folds = stratified_kfold_indices(
+                labels, folds_count, random_state)
+        else:
+            rel_folds = kfold_indices(len(work), folds_count, random_state)
+        self.folds = [FoldSplit(work[tr], work[va]) for tr, va in rel_folds]
+
+    def __len__(self):
+        return self.folds_count
+
+    # -- negativity classification (cached; one pass over the dataset) ------
+    def _negativity(self) -> np.ndarray:
+        if self._neg_cache is None:
+            flags = np.zeros(len(self.dataset), dtype=bool)
+            # datasets that know emptiness without decoding (CSVRLEDataSet)
+            # expose item_is_negative: no image-decode sweep
+            cheap = getattr(self.dataset, "item_is_negative", None)
+            for i in range(len(self.dataset)):
+                flags[i] = (cheap(i) if cheap is not None
+                            else _is_negative(self.dataset[i]))
+            self._neg_cache = flags
+        return self._neg_cache
+
+    def _apply_negatives(self, indices: np.ndarray, negatives,
+                         epoch: int) -> np.ndarray:
+        if negatives in (None, "real"):
+            return indices
+        neg_flags = self._negativity()[indices]
+        pos = indices[~neg_flags]
+        neg = indices[neg_flags]
+        if negatives == "none":
+            return pos
+        try:
+            ratio = float(negatives)
+        except (TypeError, ValueError):
+            raise ValueError(
+                f"negatives must be 'none', 'real' or a number, got {negatives!r}"
+            )
+        want = int(round(ratio * len(pos)))
+        if want >= len(neg):
+            return indices
+        rng = np.random.RandomState((self.random_state * 1_000_003 + epoch) % (2**31))
+        chosen = rng.choice(neg, size=want, replace=False)
+        return np.concatenate([pos, chosen])
+
+    def epoch_indices(self, fold: int, epoch: int, negatives=None,
+                      shuffle: bool = True) -> np.ndarray:
+        """Deterministic training index plan for (fold, epoch)."""
+        base = self._apply_negatives(self.folds[fold].train, negatives, epoch)
+        if shuffle:
+            rng = np.random.RandomState(
+                (self.random_state * 7_654_321 + fold * 97 + epoch) % (2**31)
+            )
+            base = rng.permutation(base)
+        return base
+
+    def val_indices(self, fold: int, validation_negatives=None) -> np.ndarray:
+        return self._apply_negatives(self.folds[fold].val, validation_negatives, 0)
+
+    def train_subset(self, fold: int) -> SubDataSet:
+        return SubDataSet(self.dataset, self.folds[fold].train)
+
+    def val_subset(self, fold: int) -> SubDataSet:
+        return SubDataSet(self.dataset, self.folds[fold].val)
+
+    def test_subset(self) -> SubDataSet:
+        return SubDataSet(self.dataset, self.test_indices)

@@ -9,8 +9,9 @@ once, preprocessed once, run through every fold (every TTA view, un-flipped
 after the activation) under ``torch.inference_mode()``, summed on the card
 in fold order and brought back once.  The JAX package's multi-device mesh
 becomes one card.  No hand-written kernel is on this path (the TTA views
-are flips and rotations, the model is cuDNN), and ``transforms:`` at
-predict time is not ported yet.
+are flips and rotations, the model is cuDNN).  The config's deterministic
+``transforms:`` run on the uploaded batch before preprocessing, as in
+training (``lowering.build_transform_fn``).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from .data.datasets import DataSet, DirectoryDataSet, PredictionItem
 from .models.factory import (apply_activation, apply_model, model_from_config,
                              model_variables, variant_from_checkpoint)
 from .ops import metrics as _metrics
+from .ops.aug.lowering import build_transform_fn
 from .ops.preprocess import preprocess
 from .train.checkpoint import load_checkpoint
 from .utils.rle import rle_encode
@@ -48,10 +50,7 @@ class InferenceBundle:
             raise ValueError(
                 "testTimeAugmentation: d4 needs a square shape (rot90 "
                 f"members change H/W), got {cfg.shape[:2]} — use 'flips'")
-        if cfg.transforms:
-            raise NotImplementedError(
-                "`transforms:` at predict time is not yet ported to the "
-                "torch package (it comes with the fit loop)")
+        _, self.transform = build_transform_fn(cfg.transforms, [])
         self.stage = stage if stage >= 0 else len(cfg.stages) - 1
         self.folds = list(folds)
         paths = [cfg.weights_path(f, self.stage) for f in self.folds]
@@ -104,6 +103,11 @@ class InferenceBundle:
         with torch.inference_mode():
             images = torch.from_numpy(np.ascontiguousarray(images_u8)).to(
                 self.device)
+            if self.transform is not None:
+                # masks do not exist here: a dummy rides the joint transform
+                dummy = torch.zeros((*images.shape[:3], 1),
+                                    device=self.device)
+                images, _ = self.transform(images, dummy)
             x = preprocess(images, self.cfg.preprocessing or "tf",
                            self.model.dtype)
             acc = None

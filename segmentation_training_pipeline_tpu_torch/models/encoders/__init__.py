@@ -3,8 +3,8 @@
 Counterpart of ``segmentation_training_pipeline_tpu/models/encoders/
 __init__.py``: each encoder's ``forward(x, train)`` returns the feature
 maps [C1 … C5] at strides 2/4/8/16/32 and its ``out_channels`` lists their
-widths, the contract the decoders rely on.  Ported so far: resnet34 and
-efficientnetb0–b7.
+widths, the contract the decoders rely on.  Ported so far: resnet18,
+resnet34 and efficientnetb0–b7.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from .resnet import ResNetEncoder
 
 # name → (module class, constructor kwargs)
 ENCODERS: Dict[str, Tuple[Type, Dict[str, Any]]] = {
+    "resnet18": (ResNetEncoder, dict(stage_sizes=(2, 2, 2, 2))),
     "resnet34": (ResNetEncoder, dict(stage_sizes=(3, 4, 6, 3))),
 }
 # EfficientNet B0-B7: (width_mult, depth_mult)

@@ -1,7 +1,7 @@
 """ResNet encoders (He et al. 2016) — the post-activation BasicBlock graph.
 
 Counterpart of ``segmentation_training_pipeline_tpu/models/encoders/
-resnet.py`` (``BasicBlock``, ``ResNetEncoder``) for resnet34.  Feature
+resnet.py`` (``BasicBlock``, ``ResNetEncoder``) for resnet18 and resnet34.  Feature
 taps: C1 = post-stem ReLU (stride 2), C2..C5 = the four residual stages
 (strides 4/8/16/32).  Submodule names follow the flax tree
 (``stem_conv``, ``stage2_block1/conv1`` …) so ``models.bridge`` maps

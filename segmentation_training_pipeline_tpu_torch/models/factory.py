@@ -58,6 +58,7 @@ class SegmentationModel(nn.Module):
         self.classes = classes
         self.dropout = dropout
         self.dtype = dtype
+        self.encoder_variant = ""       # the only encoder graph ported
         self.encoder = build_encoder(backbone, in_channels)
         self.decoder = DECODERS[architecture.lower()](
             self.encoder.out_channels)

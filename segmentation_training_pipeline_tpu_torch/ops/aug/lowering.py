@@ -462,3 +462,27 @@ class Augmentation:
 def build_augmentation(specs) -> Augmentation:
     """specs: [{"name": ..., "args": ...}] or a raw YAML block."""
     return Augmentation(specs)
+
+
+def build_transform_fn(transforms, augmentation):
+    """→ (augmentation, transform_fn) for the fit loop and the predict
+    program; either is None when its block is empty.
+
+    ``transforms:`` is preprocessing applied first, to every split (train,
+    validation and predict): ``transform_fn(images, masks)`` draws its
+    values from a ``torch.Generator`` seeded with 0, made anew on the
+    images' device at every call, so a batch is always transformed the same
+    way.  ``augmentation:`` runs after it at train time only, with the
+    step's generator.  The JAX package draws its transforms from the fixed
+    ``PRNGKey(0)``; the two packages agree only where the spec leaves no
+    value random (probabilities 0 or 1, constant arguments)."""
+    t_aug = build_augmentation(transforms) if transforms else None
+    a_aug = build_augmentation(augmentation) if augmentation else None
+    if t_aug is None:
+        return a_aug, None
+
+    def transform_fn(images: Tensor, masks: Tensor):
+        gen = torch.Generator(device=images.device).manual_seed(0)
+        return t_aug(gen, images, masks)
+
+    return a_aug, transform_fn

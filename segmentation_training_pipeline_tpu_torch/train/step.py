@@ -1,15 +1,26 @@
-"""The train step: augmentation + preprocessing + forward + loss +
-backward + Adam update + BatchNorm running statistics.
+"""The train and eval steps.
 
 Counterpart of ``segmentation_training_pipeline_tpu/train/step.py``
-(``TrainState``, ``build_train_step``).  The state is functional, as in
-the reference: a step returns a new ``TrainState`` and leaves its input
-untouched.  The loss is per example and weighted by ``batch["weight"]``
-(wrap-padded duplicates weigh 0); logs carry the weighted loss and
-metrics and ``_wsum``, the real-example count.  The step's random draws
-(the augmentation's and the stochastic-depth keep masks) arrive as
-arguments (``draws``, ``drop_masks``), or are sampled from ``gen``.
-Eager PyTorch has no counterpart of ``jax.jit``; nothing is compiled.
+(``TrainState``, ``build_train_step``, ``build_eval_step``) and of the
+stage runner's on-device weighted reduction (``train/stage.py``).  The
+train step runs augmentation + preprocessing + forward + loss + backward +
+the optimizer's unit-lr update times ``-lr`` + the BatchNorm running
+statistics.  The state is functional, as in the reference: a step returns
+a new ``TrainState`` and leaves its input untouched.  The loss is per
+example and weighted by ``batch["weight"]`` (wrap-padded duplicates weigh
+0); logs carry the weighted loss and metrics and ``_wsum``, the
+real-example count, all as tensors on the batch's device (no host sync).
+
+Only the parameters the optimizer trains (``Optimizer.trainable``) are
+differentiated and updated: with a frozen encoder the backward pass stops
+at the decoder and the encoder's parameters stay the very same tensors,
+while its BatchNorm statistics still move (the forward runs in train mode
+on the whole model, as the JAX step's ``mutable=["batch_stats"]``).
+
+The step's random draws (the augmentation's and the stochastic-depth keep
+masks) arrive as arguments (``draws``, ``drop_masks``), or are sampled from
+``gen``.  Eager PyTorch has no counterpart of ``jax.jit``; nothing is
+compiled.
 """
 
 from __future__ import annotations
@@ -51,15 +62,17 @@ def create_train_state(model, tx, device="cuda") -> TrainState:
 
 def build_train_step(model, tx, loss_fn, metric_fns: Dict[str, Callable],
                      activation: str, preprocessing: Optional[str],
-                     aug=None):
+                     aug=None, transform: Optional[Callable] = None):
     """→ ``train_step(state, batch, lr, gen=None, draws=None,
     drop_masks=None) -> (state, logs)``.
 
     ``batch``: {"image": (B, H, W, C) uint8 or 0..255 float, "mask":
-    (B, H, W, M), optional "weight": (B,)}.  ``loss_fn`` is a
-    ``losses.CompositeLoss``; ``metric_fns`` map names to per-example
-    metric functions of (y_true, probs, activation).  ``aug`` is a
-    ``lowering.Augmentation``; its draws are ``draws`` if given, else
+    (B, H, W, M), optional "weight": (B,)}.  ``tx`` is an
+    ``optimizers.Optimizer``; ``loss_fn`` a ``losses.CompositeLoss``;
+    ``metric_fns`` map names to per-example metric functions of (y_true,
+    probs, activation).  ``transform`` (the deterministic ``transforms:``,
+    ``lowering.build_transform_fn``) runs first; ``aug`` is a
+    ``lowering.Augmentation`` whose draws are ``draws`` if given, else
     sampled from ``gen``.  The keep masks of the model's stochastic-depth
     layers (``model.drop_paths()``) are ``drop_masks`` if given, else
     sampled from ``gen`` after the augmentation's draws."""
@@ -73,6 +86,8 @@ def build_train_step(model, tx, loss_fn, metric_fns: Dict[str, Callable],
         if w is None:
             w = torch.ones(b, device=images.device)
         wsum = torch.clamp(w.sum(), min=1.0)
+        if transform is not None:
+            images, masks = transform(images, masks)
         if aug is not None:
             if draws is None:
                 if gen is None:
@@ -89,16 +104,21 @@ def build_train_step(model, tx, loss_fn, metric_fns: Dict[str, Callable],
         x = preprocess(images, preprocessing or "tf", model.dtype)
         masks = masks.float()
 
-        params = {k: p.detach().requires_grad_(True)
-                  for k, p in state.params.items()}
+        names = tx.trainable(state.params)
+        train = {k: state.params[k].detach().requires_grad_(True)
+                 for k in names}
+        params = {**state.params, **train}
         logits, new_stats = apply_model(model, params, state.batch_stats, x,
                                         train=True, drop_masks=drop_masks)
         loss = (loss_fn.per_example(masks, logits) * w).sum() / wsum
-        grads = torch.autograd.grad(loss, list(params.values()))
-        updates, new_opt = tx.update(grads, state.opt_state)
-        new_params = dict(zip(params, torch._foreach_add(
-            [p.detach() for p in params.values()],
-            torch._foreach_mul(updates, -lr))))
+        grads = dict(zip(names, torch.autograd.grad(loss,
+                                                    list(train.values()))))
+        old = {k: state.params[k] for k in names}
+        updates, new_opt = tx.update(grads, state.opt_state, old)
+        new_params = dict(state.params)
+        new_params.update(zip(names, torch._foreach_add(
+            list(old.values()), torch._foreach_mul(list(updates.values()),
+                                                   -lr))))
 
         logs = {"loss": loss.detach()}
         if metric_fns:
@@ -110,3 +130,39 @@ def build_train_step(model, tx, loss_fn, metric_fns: Dict[str, Callable],
                           state.step + 1), logs
 
     return train_step
+
+
+def build_eval_step(model, loss_fn, metric_fns: Dict[str, Callable],
+                    activation: str, preprocessing: Optional[str],
+                    transform: Optional[Callable] = None):
+    """→ ``eval_step(state, batch) -> {"loss": (B,), metric: (B,) …,
+    "weight": (B,)}``: per-example values with BatchNorm in eval mode,
+    under ``torch.inference_mode()``.  ``transform`` is the deterministic
+    ``transforms:`` preprocessing: validation sees what training saw."""
+
+    def eval_step(state: TrainState, batch):
+        with torch.inference_mode():
+            images, masks = batch["image"], batch["mask"]
+            if transform is not None:
+                images, masks = transform(images, masks)
+            x = preprocess(images, preprocessing or "tf", model.dtype)
+            masks = masks.float()
+            logits = apply_model(model, state.params, state.batch_stats, x)
+            logs = {"loss": loss_fn.per_example(masks, logits),
+                    "weight": batch["weight"]}
+            probs = apply_activation(logits, activation)
+            for name, fn in metric_fns.items():
+                logs[name] = fn(masks, probs, activation)
+        return logs
+
+    return eval_step
+
+
+def reduce_per_example(logs: Dict[str, Tensor]) -> Dict[str, Tensor]:
+    """Per-example eval logs {k: (B,), "weight": (B,)} → scalar weighted
+    sums ``sum(v·w)`` and the weight sum, on the logs' device."""
+    with torch.inference_mode():
+        w = logs["weight"]
+        out = {k: (v * w).sum() for k, v in logs.items() if k != "weight"}
+        out["weight"] = w.sum()
+    return out

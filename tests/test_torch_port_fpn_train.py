@@ -96,7 +96,7 @@ def both_steps():
         tm = TF.create_model(cfg.architecture, cfg.backbone, cfg.classes,
                              dtype="float32")
         tm.load_state_dict(BR.state_dict_from_jax(_np(var)))
-        ttx = TO.build_optimizer(cfg.optimizer)
+        ttx = TO.build_optimizer(cfg)
         aug = TL.build_augmentation(cfg.augmentation)
         tstep = TS.build_train_step(
             tm, ttx, TLo.build_loss(cfg.loss, cfg.activation),
@@ -130,7 +130,7 @@ def test_loss_and_logs_match(both_steps):
 def test_gradients_match(both_steps):
     """The first Adam moment is 0.1·g: the gradients of both sides."""
     jmu = _sd(both_steps["jnew"].opt_state[0].mu)
-    tmu = both_steps["tnew"].opt_state.mu
+    tmu = both_steps["tnew"].opt_state[0].mu
     assert set(jmu) == set(tmu)
     g = {n: (jmu[n].numpy() / 0.1, t.numpy() / 0.1) for n, t in tmu.items()}
     floor = 1e-5 * np.median([np.linalg.norm(gj) for gj, _ in g.values()])
@@ -159,7 +159,7 @@ def test_step_samples_drop_masks_from_gen(both_steps):
     augmentation's draws; without either it refuses."""
     tm = both_steps["tm"]
     cfg = TC.parse(YAML)
-    ttx = TO.build_optimizer(cfg.optimizer)
+    ttx = TO.build_optimizer(cfg)
     step = TS.build_train_step(tm, ttx, TLo.build_loss(cfg.loss, "sigmoid"),
                                {}, "sigmoid", None)
     state = TS.create_train_state(tm, ttx, device="cpu")

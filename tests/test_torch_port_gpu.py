@@ -346,3 +346,20 @@ def test_warp_paths_launch_their_kernels(card, env, expect, monkeypatch):
     assert K.launch_counts() == {n: expect.get(n, 0) for n in K.KERNELS}
     assert float((gi.cpu() - ci).abs().max()) <= 0.05
     assert float((gm.cpu() != cm).float().mean()) <= 1e-3
+
+
+def test_prefetcher_copies_pinned_batches_to_the_card(card):
+    """The fit loop's input path: batches built and pinned on the worker
+    thread arrive on the card in order, equal to the numpy batches."""
+    from segmentation_training_pipeline_tpu_torch.data.batcher import (
+        Prefetcher)
+
+    batches = [{"image": np.full((2, 8, 8, 3), i, np.uint8),
+                "weight": np.arange(2, dtype=np.float32)} for i in range(6)]
+    got = list(Prefetcher(lambda: iter(batches), device=card, depth=2))
+    torch.cuda.synchronize()
+    assert len(got) == 6
+    for b, want in zip(got, batches):
+        assert b["image"].is_cuda and b["image"].dtype == torch.uint8
+        assert np.array_equal(b["image"].cpu().numpy(), want["image"])
+        assert np.array_equal(b["weight"].cpu().numpy(), want["weight"])

@@ -30,6 +30,8 @@ from segmentation_training_pipeline_tpu.ops import preprocess as JP
 from segmentation_training_pipeline_tpu_torch import config as TC
 from segmentation_training_pipeline_tpu_torch import infer as TI
 from segmentation_training_pipeline_tpu_torch import kernels as K
+from segmentation_training_pipeline_tpu_torch.data.datasets import (
+    LambdaDataSet)
 from segmentation_training_pipeline_tpu_torch.models import factory as TF
 from segmentation_training_pipeline_tpu_torch.ops import losses as TLo
 from segmentation_training_pipeline_tpu_torch.ops import metrics as TM
@@ -112,7 +114,13 @@ def test_entry_points_default_to_the_card(tmp_path):
     with pytest.raises((AssertionError, RuntimeError)):
         TF.init_model(model, seed=0)
     with pytest.raises((AssertionError, RuntimeError)):
-        TS.create_train_state(model, TO.build_optimizer("Adam"))
+        TS.create_train_state(model, TO.build_optimizer(cfg))
+    ds = LambdaDataSet([np.zeros((64, 64, 3), np.uint8)] * 4,
+                       [np.zeros((64, 64), np.uint8)] * 4)
+    with pytest.raises((AssertionError, RuntimeError)):
+        TC.parse_dict({"shape": [64, 64, 3], "dtype": "float32",
+                       "folds_count": 2, "backbone": "resnet18"},
+                      directory=str(tmp_path / "fit")).fit(ds)
     with pytest.raises(RuntimeError):
         torch.Generator(device="cuda")
     assert K.launch_counts() == {n: 0 for n in K.KERNELS}
@@ -131,7 +139,7 @@ def test_config_parses_the_slice_experiment():
 
 def test_config_parses_the_fpn_example():
     """BASELINE config 2 as written: FPN + efficientnetb0 with the
-    config-2 block; the fit loop itself is not ported."""
+    config-2 block, its callbacks and its metric's mode."""
     cfg = TC.parse(str(ROOT / "examples" / "fpn_augmented_512.yaml"))
     assert (cfg.architecture, cfg.backbone, cfg.classes, cfg.batch) == (
         "FPN", "efficientnetb0", 1, 16)
@@ -139,8 +147,7 @@ def test_config_parses_the_fpn_example():
         "Fliplr", "Affine", "ElasticTransformation", "Multiply"]
     assert [c["name"] for c in cfg.callbacks] == ["ReduceLROnPlateau",
                                                  "EarlyStopping"]
-    with pytest.raises(NotImplementedError, match="fit loop"):
-        cfg.fit(None)
+    assert cfg.primary_mode() == "max"
     for b in range(8):
         TC.parse_dict({**EXPERIMENT, "architecture": "FPN",
                        "backbone": f"efficientnetb{b}"})
@@ -153,7 +160,7 @@ def test_config_parses_the_fpn_example():
     ({"backbone": "efficientnetb0", "architecture": "Linknet"},
      NotImplementedError, "architecture 'Linknet' is not yet ported"),
     ({"backbone": "resnet43"}, TC.ConfigError, "Did you mean"),
-    ({"optimizer": "SGD"}, NotImplementedError, "not yet ported"),
+    ({"optimizer": "SGDD"}, TC.ConfigError, "Did you mean 'SGD'"),
     ({"loss": "jaccard_loss"}, NotImplementedError, "not yet ported"),
     ({"loss": "dice_los"}, ValueError, "Did you mean 'dice_loss'"),
     ({"metrics": ["precision"], "primary_metric": "val_loss"},
@@ -216,21 +223,20 @@ def test_adam_matches_optax_scale_by_adam():
               "b": r.randn(5).astype(np.float32)}
     tx = optax.scale_by_adam()
     jstate = tx.init({k: jnp.asarray(v) for k, v in params.items()})
-    adam = TO.build_optimizer("Adam")
-    tstate = adam.init({k: torch.from_numpy(v) for k, v in params.items()})
+    adam = TO.build_optimizer(TC.parse_dict({"optimizer": "Adam"}))
+    tparams = {k: torch.from_numpy(v) for k, v in params.items()}
+    tstate = adam.init(tparams)
     for step in range(3):
         g = {k: (r.randn(*v.shape) * 10.0 ** -step).astype(np.float32)
              for k, v in params.items()}
         ju, jstate = tx.update({k: jnp.asarray(v) for k, v in g.items()},
                                jstate)
-        tu, tstate = adam.update([torch.from_numpy(g[k]) for k in params],
-                                 tstate)
-        for k, u in zip(params, tu):
+        tu, tstate = adam.update({k: torch.from_numpy(g[k]) for k in params},
+                                 tstate, tparams)
+        for k, u in tu.items():
             np.testing.assert_allclose(u.numpy(), np.asarray(ju[k]),
                                        rtol=1e-6, atol=1e-7)
-    assert tstate.count == 3
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        TO.build_optimizer("Adam", clipnorm=1.0)
+    assert tstate[0].count == 3 and len(tstate) == 1
 
 
 def test_name_tables_match_the_jax_config():

@@ -322,7 +322,8 @@ def test_missing_checkpoint_raises_as_in_jax(served):
 
 def test_refusals(served):
     """d4 on a non-square frame raises in both packages (rot90 changes
-    H/W); ``transforms:`` at predict time is not ported yet."""
+    H/W); ``transforms:`` at predict time builds its transform
+    (``test_torch_port_fit.py`` holds it to JAX)."""
     roots, _, _ = served
     jcfg, tcfg = _configs(roots["sigmoid"], shape=[H, 48, 3])
     with pytest.raises(ValueError, match="square"):
@@ -330,5 +331,4 @@ def test_refusals(served):
     with pytest.raises(ValueError, match="square"):
         TI.InferenceBundle(tcfg, [0], 0, tta="d4", device="cpu")
     _, tcfg = _configs(roots["sigmoid"], transforms={"Fliplr": 1.0})
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        TI.InferenceBundle(tcfg, [0], 0, device="cpu")
+    assert TI.InferenceBundle(tcfg, [0], 0, device="cpu").transform is not None

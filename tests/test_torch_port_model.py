@@ -159,3 +159,33 @@ def test_init_follows_flax_distributions(models):
                                           dtype="float32"), seed=0,
                           device="cpu")
     assert torch.equal(dict(again.named_parameters())[name], got[name])
+
+
+def test_resnet18_taps_and_logits_match_flax():
+    """resnet18 (stage sizes 2, 2, 2, 2) at 32², f32: each feature tap of
+    the encoder and the Unet logits within 1e-4 of the largest value."""
+    from segmentation_training_pipeline_tpu.models.encoders import (
+        build_encoder)
+
+    jm = JF.create_model("Unet", "resnet18", 1, dtype="float32")
+    var = jax.tree.map(np.asarray, JF.init_model(jm, (32, 32, 3), seed=1))
+    tm = TF.create_model("Unet", "resnet18", 1, dtype="float32")
+    tm.load_state_dict(BR.state_dict_from_jax(var))
+    assert sum(p.numel() for p in tm.parameters()) == sum(
+        a.size for a in jax.tree.leaves(var["params"]))
+    x = np.random.RandomState(5).randn(2, 32, 32, 3).astype(np.float32)
+    enc = build_encoder("resnet18", dtype=jnp.float32)
+    want = enc.apply({"params": var["params"]["encoder"],
+                      "batch_stats": var["batch_stats"]["encoder"]},
+                     jnp.asarray(x), train=False)
+    with torch.no_grad():
+        got = tm.encoder(torch.from_numpy(x).permute(0, 3, 1, 2))
+    assert len(got) == len(want) == 5
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        g = g.permute(0, 2, 3, 1).numpy()
+        assert g.shape == w.shape
+        assert np.abs(g - w).max() / np.abs(w).max() < 1e-4
+    jl = np.asarray(jm.apply(var, jnp.asarray(x), train=False))
+    tl = TF.apply_model(tm, *TF.model_variables(tm), torch.from_numpy(x))
+    assert np.abs(tl.detach().numpy() - jl).max() / np.abs(jl).max() < 1e-4

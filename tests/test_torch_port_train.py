@@ -97,7 +97,7 @@ def both_steps():
         tm = TF.create_model(cfg.architecture, cfg.backbone, 1,
                              dtype="float32")
         tm.load_state_dict(BR.state_dict_from_jax(_np(var)))
-        ttx = TO.build_optimizer(cfg.optimizer)
+        ttx = TO.build_optimizer(cfg)
         aug = TL.build_augmentation(cfg.augmentation)
         tstep = TS.build_train_step(
             tm, ttx, TLo.build_loss(cfg.loss, "sigmoid"),
@@ -134,7 +134,7 @@ def test_loss_and_logs_match(both_steps):
 def _grads(both_steps):
     """The first Adam moment is 0.1·g: the gradients of both sides."""
     jmu = _sd(both_steps["jnew"].opt_state[0].mu)
-    tmu = both_steps["tnew"].opt_state.mu
+    tmu = both_steps["tnew"].opt_state[0].mu
     return {k: (jmu[k].numpy() / 0.1, tmu[k].numpy() / 0.1) for k in tmu}
 
 
@@ -155,9 +155,9 @@ def test_gradients_match(both_steps):
 
 def test_adam_second_moment_matches(both_steps):
     jnu = _sd(both_steps["jnew"].opt_state[0].nu)
-    for name, nu in both_steps["tnew"].opt_state.nu.items():
+    for name, nu in both_steps["tnew"].opt_state[0].nu.items():
         assert _rel_l2(nu.numpy(), jnu[name].numpy()) <= 0.2, name
-    assert both_steps["tnew"].opt_state.count == 1
+    assert both_steps["tnew"].opt_state[0].count == 1
     assert int(both_steps["jnew"].opt_state[0].count) == 1
 
 
