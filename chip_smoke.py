@@ -8,13 +8,14 @@ nothing of JAX.  Phases, each printing one JSON line; any failure raises
 and the script exits non-zero:
 
   1. device: ``nvidia-smi`` name and power limit, torch, capability,
-     and whether ``cv2`` and ``msgpack`` import (the serve phase needs
-     neither);
+     whether ``cv2`` and ``msgpack`` import (the serve phase needs
+     neither), and whether the system OpenCV C++ headers and libraries
+     are there (a throwaway ``g++`` link);
   2. build: compile the CUDA kernels from ``csrc/`` (parallel ``nvcc``);
   3. reference: on a small input, the augmentation with the kernels on
      the card against the plain versions on the CPU (same draws), and the
-     float32 forwards of Unet-resnet34 and FPN-efficientnetb0 on the card
-     against the CPU (TF32 off);
+     float32 forwards of Unet-resnet34, FPN-efficientnetb0 and 8-class
+     PSPNet- and Linknet-resnet50 on the card against the CPU (TF32 off);
   4. capture: the config-2 augmentation once at the train shapes on each
      of its three paths (default: kernels X, Y, elastic;
      ``STP_FUSE_ELASTIC=1``: X, YE; ``STP_PALLAS_WARP=0``: the shear
@@ -26,7 +27,9 @@ and the script exits non-zero:
      the mask entries mismatching) and both timed with CUDA events, the
      launches queued behind a 20 ms hold of the stream, beside the
      kernel's memory bound (``bound_share`` = bound / kernel time; the
-     shear's counts only the source columns its outputs use);
+     shear's counts only the source columns its outputs use); beside the
+     elastic kernel, ``F.grid_sample`` on its planes, timed the same way
+     (``library_ms``) with its difference from the kernel;
   6. warp_paths: the config-2 block at B16 512² through
      ``Augmentation.apply`` on one set of draws, the three paths timed
      (CUDA events, median), their launch counts read, and held against
@@ -40,7 +43,12 @@ and the script exits non-zero:
      (FPN + efficientnetb0 at full width, 512², B16, bf16, its loss,
      optimizer, lr and augmentation) for 10 steps with
      ``STP_FUSE_ELASTIC=1``: X and YE once per step, nothing else;
-  9. serve: BASELINE config 5, ``examples/tta_ensemble_predict.yaml``
+  9. train_psp: BASELINE config 3, ``examples/multiclass_pspnet.yaml``
+     parsed by the port, not cut (PSPNet-resnet50, 384², B16, bf16,
+     8-class softmax, its composite loss, Adam at 5e-4) for 10 steps on a
+     fixed batch of synthetic 3-class items: no augmentation block, so
+     every kernel's launch count must stay 0;
+  10. serve: BASELINE config 5, ``examples/tta_ensemble_predict.yaml``
      parsed by the port (Unet-resnet34 at 256², B16, bf16, flip TTA, 5
      folds) in a temporary directory: 5 fold checkpoints written with the
      port's ``save_checkpoint`` (``init_model`` at seeds 0-4) and read back
@@ -51,7 +59,7 @@ and the script exits non-zero:
      equal to ``predict_probs``; a float32 bundle on the card against the
      same on the CPU at B2 (TF32 off), and the bf16 probabilities against
      the float32 ones; no hand-written kernel launched;
-  10. fit: BASELINE config 4, ``examples/kfold_multistage.yaml`` parsed by
+  11. fit: BASELINE config 4, ``examples/kfold_multistage.yaml`` parsed by
      the port (Unet-resnet34 at 256², B16, bf16, bce + 0.25·dice, Adam,
      two stages: the encoder frozen at lr 1e-3 with ``negatives: none``,
      then unfrozen at lr 1e-4 with ``negatives: real``, ReduceLROnPlateau
@@ -70,14 +78,19 @@ and the script exits non-zero:
      wait for its first batch), the epoch split into train, validation
      and checkpoint, a batch's PNG decode on the host alone, and the peak
      memory;
-  11. the ``kernels`` summary line, then the last line
+  12. fit_psp: config 3 through ``fit_pipeline`` on fold 0 of 128
+     synthetic 384² PNGs with class-index masks, the epochs cut from 40
+     to 2: the JAX CSV columns, a ``done`` checkpoint, no kernel launch,
+     then ``cfg.load`` and ``predict_all_to_dir`` writing class-index
+     masks in [0, 7]; train img/s, the epoch split and peak memory;
+  13. the ``kernels`` summary line, then the last line
      ``{"ok": true, "device": {...}}``.
 
 ``--profile FILE`` profiles three more steps of each train phase and
 three more ``predict_probs`` calls of the serve phase (``FILE`` for Unet,
-``FILE`` with ``_fpn`` or ``_serve`` before its suffix for FPN and serve),
-and traces epoch 1 of each fit stage (the fit's own ``profile:``) for its
-device busy time.
+``FILE`` with ``_fpn``, ``_psp`` or ``_serve`` before its suffix for FPN,
+PSPNet and serve), and traces epoch 1 of each fit stage (the fits' own
+``profile:``) for its device busy time.
 """
 
 from __future__ import annotations
@@ -88,6 +101,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -96,6 +110,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from segmentation_training_pipeline_tpu_torch import config as CF
 from segmentation_training_pipeline_tpu_torch import kernels as K
@@ -136,6 +151,11 @@ FIT_YAML = "examples/kfold_multistage.yaml"
 FIT_IMAGES, FIT_EMPTY, FIT_EPOCHS = 320, 0.25, (2, 3)
 FIT_CSV = ["epoch", "lr", "dice", "iou", "loss", "val_dice", "val_iou",
            "val_loss", "time"]
+PSP_YAML = "examples/multiclass_pspnet.yaml"
+# config 3's fit: synthetic 3-class PNGs, the YAML's 40 epochs cut to 2
+PSP_IMAGES, PSP_EPOCHS, PSP_PREDICT = 128, 2, 4
+PSP_CSV = ["epoch", "lr", "accuracy", "dice", "iou", "loss", "val_accuracy",
+           "val_dice", "val_iou", "val_loss", "time"]
 FORWARD_REL = 1e-3   # f32 on the card (TF32 off) against the CPU
 IMG_ATOL = 1e-3
 MASK_SHARE = 1e-4
@@ -235,6 +255,34 @@ def mask_mismatch(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a != b).float().mean())
 
 
+def _opencv_probe() -> dict:
+    """Whether the system OpenCV C++ headers and libraries that the JAX
+    package's native loader builds against are here
+    (``native/build.py``): the header's presence, and a throwaway
+    ``g++`` link in a temporary directory; nothing is installed."""
+    header = "/usr/include/opencv4/opencv2/core.hpp"
+    out = {"header": header, "header_exists": os.path.exists(header),
+           "gxx": shutil.which("g++")}
+    if out["gxx"] is None:
+        return out
+    # with the headers, a program that uses cv::Mat; without, one that
+    # only asks the linker for the three libraries
+    code = ("#include <opencv2/core.hpp>\nint main() { cv::Mat m(2, 2, "
+            "CV_8UC1); return m.rows == 2 ? 0 : 1; }\n"
+            if out["header_exists"] else "int main() { return 0; }\n")
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "probe.cc")
+        with open(src, "w") as f:
+            f.write(code)
+        r = subprocess.run(
+            ["g++", "-I/usr/include/opencv4", src, "-o",
+             os.path.join(tmp, "probe"), "-lopencv_core",
+             "-lopencv_imgcodecs", "-lopencv_imgproc"],
+            capture_output=True, text=True, timeout=120)
+    out.update(links=r.returncode == 0, link_stderr=r.stderr[-400:])
+    return out
+
+
 def _imports(module: str) -> bool:
     """Whether ``module`` imports here (in a child process, so that this
     one stays without it: the serve phase needs neither)."""
@@ -256,7 +304,8 @@ def phase_device() -> dict:
                 name=torch.cuda.get_device_name(0),
                 count=torch.cuda.device_count(), torch=torch.__version__,
                 cuda=torch.version.cuda, capability=list(cap),
-                imports={m: _imports(m) for m in ("cv2", "msgpack")})
+                imports={m: _imports(m) for m in ("cv2", "msgpack")},
+                opencv_cxx=_opencv_probe())
     emit("device", **info)
     if cap != (9, 0):
         raise SystemExit(f"chip_smoke.py: the kernels are built for sm_90a, "
@@ -303,10 +352,11 @@ def no_tf32():
         torch.set_float32_matmul_precision(mm)
 
 
-def _forward_err(arch: str, backbone: str, x, seed: int) -> float:
+def _forward_err(arch: str, backbone: str, x, seed: int,
+                 classes: int = 1) -> float:
     """Relative error of the f32 forward on the card against the CPU,
     with TF32 off for convolutions and matmuls."""
-    model = MF.init_model(MF.create_model(arch, backbone, 1,
+    model = MF.init_model(MF.create_model(arch, backbone, classes,
                                           dtype="float32"), seed, "cpu")
     params, stats = MF.model_variables(model)
     want = MF.apply_model(model, params, stats, x)
@@ -331,8 +381,12 @@ def phase_reference(seed: int) -> None:
     x = torch.from_numpy(imgs).float() / 127.5 - 1.0
     fwd_err = _forward_err("Unet", "resnet34", x, seed)
     fpn_err = _forward_err("FPN", "efficientnetb0", x, seed)
+    psp_err = _forward_err("PSPNet", "resnet50", x, seed, 8)
+    link_err = _forward_err("Linknet", "resnet50", x, seed, 8)
     emit("reference", aug_max_err=aug_err, aug_mask_mismatch=aug_mis,
          forward_rel_err=fwd_err, fpn_forward_rel_err=fpn_err,
+         pspnet_resnet50_forward_rel_err=psp_err,
+         linknet_resnet50_forward_rel_err=link_err,
          shape=[2, 128, 128],
          tolerance=dict(aug_img_atol=REF_IMG_ATOL,
                         aug_mask_share=REF_MASK_SHARE,
@@ -342,6 +396,8 @@ def phase_reference(seed: int) -> None:
     # cuDNN's f32 algorithms against the CPU's
     check(fwd_err <= FORWARD_REL, ("forward error", fwd_err))
     check(fpn_err <= FORWARD_REL, ("FPN forward error", fpn_err))
+    check(psp_err <= FORWARD_REL, ("PSPNet forward error", psp_err))
+    check(link_err <= FORWARD_REL, ("Linknet forward error", link_err))
 
 
 def _to(draws, device):
@@ -493,13 +549,61 @@ def measure_kernel(name: str, args_of) -> dict:
     return m
 
 
+def elastic_library(args, got) -> dict:
+    """``F.grid_sample`` on the elastic kernel's own planes and field, the
+    nearest library call: bilinear with border padding and
+    ``align_corners=True`` (pixel centres at integer coordinates) on the
+    image planes, nearest on the mask planes, timed as the kernel is.  It
+    is not the same function: the kernel's row blend reads each column's
+    own dy, a source outside the frame takes the fill, an offset past K
+    contributes 0, and its masks round ties up (grid_sample rounds half to
+    even).  ``got`` is the kernel's output on ``args``."""
+    planes, flags, dy, dx = args[:4]
+    b, _, h, w = planes.shape
+    yy = torch.arange(h, device=dy.device, dtype=torch.float32)[:, None]
+    xx = torch.arange(w, device=dy.device, dtype=torch.float32)[None, :]
+    grid = torch.stack([2.0 * (xx + dx) / (w - 1) - 1.0,
+                        2.0 * (yy + dy) / (h - 1) - 1.0], -1)
+    image = flags == 0
+    imgs, masks = planes[:, image], planes[:, ~image]
+
+    def images_call():
+        return F.grid_sample(imgs, grid, mode="bilinear",
+                             padding_mode="border", align_corners=True)
+
+    def masks_call():
+        return F.grid_sample(masks, grid, mode="nearest",
+                             padding_mode="border", align_corners=True)
+
+    diff = (images_call() - got[:, image]).abs()
+    sy, sx = yy + dy, xx + dx
+    inside = ((sy >= -0.5) & (sy <= h - 0.5) & (sx >= -0.5)
+              & (sx <= w - 0.5))[:, None].expand_as(diff)
+    torch.cuda.synchronize()
+    images_ms = cuda_ms(images_call, 50, hold=True)
+    masks_ms = cuda_ms(masks_call, 50, hold=True)
+    return dict(library="torch.nn.functional.grid_sample",
+                library_images_ms=images_ms, library_masks_ms=masks_ms,
+                library_ms=images_ms + masks_ms,
+                library_vs_kernel_max_abs_err=float(diff.max()),
+                library_vs_kernel_mean_abs_err=float(diff.mean()),
+                library_vs_kernel_max_abs_err_in_frame=float(
+                    diff[inside].max()),
+                library_vs_kernel_mask_mismatch=mask_mismatch(
+                    masks_call(), got[:, ~image]))
+
+
 def phase_kernels(args_of) -> dict:
     rows = {}
     for name in CALLS:
         m = measure_kernel(name, args_of)
+        lib = {"library_ms": None}
+        if name == "elastic":
+            lib = elastic_library(args_of[name], CALLS[name][0](
+                *args_of[name]))
         rows[name] = dict(name=name, route="cuda", source=SOURCES[name],
                           replaces=K.KERNELS[name].replaces, launches=None,
-                          library_ms=None, **m)
+                          **lib, **m)
         emit("kernel", **rows[name])
         atol, share = (0.0, 0.0) if name in EXACT else (IMG_ATOL, MASK_SHARE)
         check(m["max_abs_err"] <= atol,
@@ -547,10 +651,11 @@ def phase_warp_paths(aug, imgs, masks, draws) -> dict:
 
 
 def phase_train(name: str, cfg, imgs, masks, steps: int, seed: int,
-                expect: dict, profile: str = "") -> dict:
-    """``steps`` train steps of ``cfg``'s model, loss, optimizer, lr and
-    augmentation on the fixed batch; the launch counts of the run must be
-    ``expect`` times ``steps`` (every other kernel 0)."""
+                expect: dict, profile: str = "", **extra) -> dict:
+    """``steps`` train steps of ``cfg``'s model, loss (with its class
+    weights), optimizer, lr and augmentation on the fixed batch; the launch
+    counts of the run must be ``expect`` times ``steps`` (every other
+    kernel 0).  ``extra`` goes into the emitted line."""
     dev = imgs.device
     model = MF.init_model(MF.create_model(cfg.architecture, cfg.backbone,
                                           cfg.classes, dtype=cfg.dtype),
@@ -558,9 +663,10 @@ def phase_train(name: str, cfg, imgs, masks, steps: int, seed: int,
     tx = OP.build_optimizer(cfg)
     state = ST.create_train_state(model, tx, dev)
     step = ST.build_train_step(
-        model, tx, LO.build_loss(cfg.loss, cfg.activation),
+        model, tx, LO.build_loss(cfg.loss, cfg.activation, cfg.class_weights),
         {m: ME.get(m) for m in cfg.metrics}, cfg.activation, None,
-        aug=LW.build_augmentation(cfg.augmentation))
+        aug=(LW.build_augmentation(cfg.augmentation) if cfg.augmentation
+             else None))
     batch = {"image": imgs, "mask": masks}
     gen = torch.Generator(device=dev).manual_seed(seed + 2)
     torch.cuda.reset_peak_memory_stats()
@@ -578,11 +684,14 @@ def phase_train(name: str, cfg, imgs, masks, steps: int, seed: int,
     steady = times[1:] or times
     out = dict(model=f"{cfg.architecture}-{cfg.backbone}", dtype=cfg.dtype,
                steps=steps, batch=b, size=list(imgs.shape[1:3]),
+               classes=cfg.classes, activation=cfg.activation,
+               loss_expr=cfg.loss,
                loss=losses, step_ms=times,
                img_per_s=b / (statistics.mean(steady) / 1e3),
-               launches=launches, dice=float(logs["dice"]),
-               iou=float(logs["iou"]),
-               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+               launches=launches,
+               **{m: float(logs[m]) for m in cfg.metrics},
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               **extra)
     emit(name, **out)
     check(all(math.isfinite(v) for v in losses), ("finite loss", losses))
     check(statistics.mean(losses[-3:]) < losses[0], ("falling loss", losses))
@@ -592,6 +701,32 @@ def phase_train(name: str, cfg, imgs, masks, steps: int, seed: int,
         phase_profile(lambda: step(state, batch, cfg.lr, gen=gen), profile,
                       name)
     return out
+
+
+def multiclass_batch(cfg, seed: int):
+    """``cfg.batch`` synthetic 3-class items at ``cfg.shape`` on the card:
+    uint8 images and one-hot float32 masks over ``cfg.classes``."""
+    ds = SY.generate_multiclass_shapes_dataset(cfg.batch, cfg.shape[0], seed)
+    imgs = np.stack([ds[i].x for i in range(len(ds))])
+    masks = np.stack([BA.prepare_mask(ds[i].y, cfg.shape, cfg.classes,
+                                      cfg.activation)
+                      for i in range(len(ds))])
+    return torch.from_numpy(imgs).cuda(), torch.from_numpy(masks).cuda()
+
+
+def phase_train_psp(seed: int, profile: str = "") -> dict:
+    """BASELINE config 3 as the port parses it, not cut: PSPNet-resnet50,
+    384², B16, bf16, 8-class softmax, its composite loss, Adam at 5e-4."""
+    cfg = CF.parse(PSP_YAML)
+    check((cfg.architecture, cfg.backbone, cfg.shape, cfg.batch, cfg.dtype,
+           cfg.classes, cfg.activation, cfg.augmentation)
+          == ("PSPNet", "resnet50", (384, 384, 3), 16, "bfloat16", 8,
+              "softmax", []), ("config 3", cfg.architecture, cfg.shape))
+    imgs, masks = multiclass_batch(cfg, seed + 7)
+    return phase_train("train_psp", cfg, imgs, masks, STEPS, seed, {},
+                       profile, config=PSP_YAML,
+                       kernels="config 3 has no augmentation block: no "
+                               "hand-written kernel on its path")
 
 
 # kernel-name fragments → the layer they belong to, first match wins
@@ -929,6 +1064,123 @@ def phase_fit(seed: int, profile: bool = False) -> dict:
         and probs.max() <= 1.0, ("served probs", probs.shape))
     return out
 
+def _write_multiclass_pngs(out_dir: str, n: int, size: int, seed: int):
+    """``n`` synthetic 3-class items as PNG files: RGB images and
+    class-index masks (0 background, 1 ellipse, 2 rectangle)."""
+    import cv2
+
+    images, masks = (os.path.join(out_dir, d) for d in ("images", "masks"))
+    os.makedirs(images)
+    os.makedirs(masks)
+    ds = SY.generate_multiclass_shapes_dataset(n, size, seed)
+    for i in range(n):
+        item = ds[i]
+        cv2.imwrite(os.path.join(images, f"{item.id}.png"),
+                    cv2.cvtColor(item.x, cv2.COLOR_RGB2BGR))
+        cv2.imwrite(os.path.join(masks, f"{item.id}.png"), item.y)
+    return images, masks
+
+
+def phase_fit_psp(seed: int, profile: bool = False) -> dict:
+    """BASELINE config 3 through ``fit_pipeline`` (what ``cfg.fit``
+    calls) on fold 0 of synthetic 384² PNGs with class-index masks, the
+    epochs cut; then ``cfg.load`` and ``predict_all_to_dir`` of its
+    checkpoint."""
+    import cv2
+
+    cfg = CF.parse(PSP_YAML)
+    check((cfg.architecture, cfg.backbone, cfg.shape, cfg.batch, cfg.dtype,
+           cfg.classes, len(cfg.stages)) == ("PSPNet", "resnet50",
+                                             (384, 384, 3), 16, "bfloat16",
+                                             8, 1), ("config 3", cfg.shape))
+    reduced = {"epochs": [cfg.stages[0].epochs, PSP_EPOCHS],
+               "images": PSP_IMAGES, "folds": f"fold 0 of {cfg.folds_count}"}
+    cfg.stages = [dataclasses.replace(cfg.stages[0], epochs=PSP_EPOCHS)]
+    cfg.verbose = 0
+    h, w, _ = cfg.shape
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg.directory = os.path.join(tmp, "exp")
+        if profile:
+            cfg.profile = os.path.join(tmp, "profile")
+        images, masks = _write_multiclass_pngs(os.path.join(tmp, "data"),
+                                               PSP_IMAGES, h, seed)
+        ds = DirectoryDataSet(images, masks)
+        timings = []
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        summary = SG.fit_pipeline(cfg, ds, foldsToExecute=[0],
+                                  timings=timings)
+        fit_s = time.perf_counter() - t0
+        launches = K.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        busy = _trace_busy_s(os.path.join(cfg.profile, "fold0.stage0")) \
+            if profile else None
+        meta = CK.checkpoint_meta(cfg.weights_path(0, 0))
+        with open(cfg.metrics_path(0, 0)) as f:
+            rows = [r.split(",") for r in f.read().splitlines()]
+        bundle = cfg.load(0, 0)
+        src = os.path.join(tmp, "predict")
+        os.makedirs(src)
+        names = sorted(os.listdir(images))[:PSP_PREDICT]
+        for n in names:
+            shutil.copy(os.path.join(images, n), src)
+        written = cfg.predict_all_to_dir(src, os.path.join(tmp, "pred"),
+                                         folds=[0], stage=0)
+        preds = [cv2.imread(os.path.join(tmp, "pred", n),
+                            cv2.IMREAD_UNCHANGED) for n in names]
+        decode = {}
+        list(BA.make_batches(ds, cfg.kfold(ds).epoch_indices(0, 0),
+                             cfg.shape, cfg.classes, cfg.activation,
+                             cfg.batch, stats=decode))
+    steady = [t for t in timings if t["epoch"] > 0]
+    losses = [float(r[PSP_CSV.index(c)]) for r in rows[1:]
+              for c in ("loss", "val_loss")]
+    epoch1 = next(t for t in timings if t["epoch"] == 1)
+    out = dict(
+        config=PSP_YAML, model=f"{cfg.architecture}-{cfg.backbone}",
+        dtype=cfg.dtype, batch=cfg.batch, size=[h, w], classes=cfg.classes,
+        activation=cfg.activation, reduced=reduced, fit_s=fit_s,
+        train_steps=sum(t["steps"] for t in timings),
+        fit_train_img_per_s=(sum(t["images"] for t in steady)
+                             / sum(t["train_s"] for t in steady)),
+        fit_train_img_per_s_after_first_batch=(
+            sum(t["images"] for t in steady)
+            / sum(t["train_s"] - t["first_batch_s"] for t in steady)),
+        epochs=[{k: t[k] for k in ("stage", "epoch", "steps", "images",
+                                   "train_s", "first_batch_s", "val_s",
+                                   "checkpoint_s")}
+                for t in timings],
+        decode_s_per_batch=decode["decode_s"] / decode["batches"],
+        traced_epoch1_device_busy_s=busy,
+        traced_epoch1_idle_share=(
+            1.0 - busy / (epoch1["train_s"] + epoch1["val_s"])
+            if busy is not None else None),
+        launches=launches, peak_mem_gib=peak,
+        csv=dict(header=rows[0], rows=len(rows) - 1,
+                 last={c: float(rows[-1][i]) for i, c in enumerate(PSP_CSV)
+                       if c not in ("epoch", "time")}),
+        summary=summary, done=meta and meta.get("done"),
+        bundle_folds=len(bundle.fold_vars), predicted=written,
+        predicted_classes=sorted(set(np.unique(np.stack(preds)).tolist())),
+        kernels="config 3 has no augmentation block: no hand-written "
+                "kernel on its path")
+    emit("fit_psp", **out)
+    check(launches == {n: 0 for n in K.KERNELS}, ("fit_psp launches",
+                                                  launches))
+    check(all(math.isfinite(v) for v in losses), ("fit_psp losses", losses))
+    check(rows[0] == PSP_CSV, ("fit_psp CSV header", rows[0]))
+    check(len(rows) - 1 == summary["fold0.stage0"]["epochs"] == PSP_EPOCHS,
+          ("fit_psp epochs", len(rows) - 1, summary))
+    check(meta is not None and meta["done"] is True, ("done marker", meta))
+    check(written == PSP_PREDICT and all(
+        p is not None and p.shape == (h, w) and p.dtype == np.uint8
+        and int(p.max()) < cfg.classes for p in preds),
+        ("predicted masks", written, [None if p is None else p.shape
+                                      for p in preds]))
+    return out
+
+
 def _profile_path(base: str, tag: str) -> str:
     """``base`` with ``_tag`` before its suffix ("" when not profiling)."""
     if not base:
@@ -968,9 +1220,13 @@ def main(argv=None) -> int:
                                 {"warp_x": 1, "warp_ye": 1},
                                 _profile_path(a.profile, "fpn"))
     torch.cuda.empty_cache()
+    phase_train_psp(SEED, _profile_path(a.profile, "psp"))
+    torch.cuda.empty_cache()
     phase_serve(SEED, _profile_path(a.profile, "serve"))
     torch.cuda.empty_cache()
     phase_fit(SEED, bool(a.profile))
+    torch.cuda.empty_cache()
+    phase_fit_psp(SEED, bool(a.profile))
     # launches on each kernel's main path: X, Y and elastic in the Unet
     # step, YE in the FPN step, the shear in the unfused warp path
     launches = dict(train["launches"], warp_ye=train_fpn["launches"][

@@ -4,7 +4,7 @@ Counterpart of ``segmentation_training_pipeline_tpu/config.py``
 (``PipelineConfig``, ``parse``, ``parse_dict``): the same YAML keys, the
 same per-stage overrides, and unknown keys or names error out with a
 suggestion.  Names the reference knows but this package has not ported yet
-(architectures, backbones, augmenters, losses, metrics) raise
+(architectures, backbones, augmenters) raise
 ``NotImplementedError`` saying so.  ``fit`` trains folds × stages
 (``train/stage.py``); ``load`` and the predict/evaluate methods serve
 checkpoints from ``weights/`` (``infer.py``).  Each of them runs on the
@@ -21,6 +21,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import yaml
 
+from .models.encoders import ENCODERS as _ENCODERS
 from .ops import losses as _losses
 from .ops import metrics as _metrics
 from .ops.aug.arg_schema import validate_args
@@ -95,9 +96,8 @@ for _entry in (
     _name, *_aliases = _entry.split("|")
     AUGMENTERS.register(_name, _name, aliases=_aliases)
 
-PORTED_ARCHITECTURES = {"Unet", "FPN"}
-PORTED_BACKBONES = {"resnet18", "resnet34"} | {f"efficientnetb{i}"
-                                                for i in range(8)}
+PORTED_ARCHITECTURES = {"Unet", "FPN", "Linknet", "PSPNet"}
+PORTED_BACKBONES = set(_ENCODERS)
 PORTED_OPTIMIZERS = set(OPTIMIZERS.names())
 
 _TOP_LEVEL_KEYS = {

@@ -104,6 +104,46 @@ def _background_only(r: np.random.RandomState,
     return img, np.zeros((size, size), np.uint8)
 
 
+def _one_item_multiclass(r: np.random.RandomState,
+                         size: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Class-index masks: 0 background, 1 ellipses, 2 rectangles (a later
+    shape overwrites an earlier one); the occluder bar is background."""
+    img = _textured_background(r, size)
+    mask = np.zeros((size, size), np.uint8)
+    for _ in range(r.randint(2, 5)):
+        cy, cx = r.uniform(0.15 * size, 0.85 * size, size=2)
+        a = r.uniform(0.08 * size, 0.25 * size)
+        b = r.uniform(0.08 * size, 0.25 * size)
+        theta = r.uniform(0, np.pi)
+        ry, rx = _rot_grid(size, cy, cx, theta)
+        is_ellipse = r.rand() < 0.5
+        if is_ellipse:
+            inside = (ry / a) ** 2 + (rx / b) ** 2 < 1.0
+        else:
+            inside = (np.abs(ry) < a) & (np.abs(rx) < b)
+        offset = r.uniform(45, 110) * (1 if r.rand() < 0.7 else -1)
+        texture = r.randn(size, size).astype(np.float32) * r.uniform(4, 12)
+        img[inside] += offset + texture[inside, None]
+        mask[inside] = 1 if is_ellipse else 2
+
+    mask[_maybe_occluder_bar(r, size, img)] = 0
+    return np.clip(img, 0, 255).astype(np.uint8), mask
+
+
+def generate_multiclass_shapes_dataset(n: int, size: int = 128,
+                                       seed: int = 7) -> LambdaDataSet:
+    """→ in-memory LambdaDataSet of ``n`` (image, class-index mask) pairs
+    with 3 classes (background, ellipse, rectangle), for the softmax
+    path (BASELINE config 3)."""
+    r = np.random.RandomState(seed)
+    xs, ys = [], []
+    for _ in range(n):
+        x, y = _one_item_multiclass(r, size)
+        xs.append(x)
+        ys.append(y)
+    return LambdaDataSet(xs, ys, ids=[f"mshape{i:04d}" for i in range(n)])
+
+
 def write_shapes_dataset(out_dir: str, n: int, size: int = 128,
                          seed: int = 7,
                          p_empty: float = 0.0) -> Tuple[str, str]:

@@ -10,9 +10,9 @@ dicts) maps onto this package's module names one to one:
 
 with ``/`` ↔ ``.``.  Conv kernels go HWIO ↔ OIHW (the transpose the JAX
 package's ``models/pretrained.py`` applies to torchvision weights, in the
-other direction); a depthwise kernel (k, k, 1, C) becomes PyTorch's grouped
-layout (C, 1, k, k) by the same transpose.  Both directions copy values bit
-for bit.
+other direction); a grouped kernel (k, k, in/groups, out), depthwise
+(k, k, 1, C) included, becomes PyTorch's grouped layout (out, in/groups,
+k, k) by the same transpose.  Both directions copy values bit for bit.
 """
 
 from __future__ import annotations

@@ -3,8 +3,9 @@
 Counterpart of ``segmentation_training_pipeline_tpu/models/encoders/
 __init__.py``: each encoder's ``forward(x, train)`` returns the feature
 maps [C1 … C5] at strides 2/4/8/16/32 and its ``out_channels`` lists their
-widths, the contract the decoders rely on.  Ported so far: resnet18,
-resnet34 and efficientnetb0–b7.
+widths, the contract the decoders rely on.  Ported so far: the ResNet
+family (resnet18-152, resnext50/101, seresnet18-152, seresnext50/101) and
+efficientnetb0–b7, with the JAX table's constructor arguments.
 """
 
 from __future__ import annotations
@@ -12,12 +13,35 @@ from __future__ import annotations
 from typing import Any, Dict, Tuple, Type
 
 from .efficientnet import EfficientNetEncoder
-from .resnet import ResNetEncoder
+from .resnet import ResNetEncoder, SEResNetEncoder
 
-# name → (module class, constructor kwargs)
+# name → (module class, constructor kwargs); the stage sizes of resnet18,
+# of resnet34 and resnet50, of resnet101 and of resnet152
+_18, _34, _101, _152 = (2, 2, 2, 2), (3, 4, 6, 3), (3, 4, 23, 3), (3, 8, 36, 3)
 ENCODERS: Dict[str, Tuple[Type, Dict[str, Any]]] = {
-    "resnet18": (ResNetEncoder, dict(stage_sizes=(2, 2, 2, 2))),
-    "resnet34": (ResNetEncoder, dict(stage_sizes=(3, 4, 6, 3))),
+    "resnet18": (ResNetEncoder, dict(stage_sizes=_18, bottleneck=False)),
+    "resnet34": (ResNetEncoder, dict(stage_sizes=_34, bottleneck=False)),
+    "resnet50": (ResNetEncoder, dict(stage_sizes=_34, bottleneck=True)),
+    "resnet101": (ResNetEncoder, dict(stage_sizes=_101, bottleneck=True)),
+    "resnet152": (ResNetEncoder, dict(stage_sizes=_152, bottleneck=True)),
+    "seresnet18": (SEResNetEncoder, dict(stage_sizes=_18, bottleneck=False)),
+    "seresnet34": (SEResNetEncoder, dict(stage_sizes=_34, bottleneck=False)),
+    # the Caffe/Cadene se_resnet bottleneck strides its first 1×1
+    "seresnet50": (SEResNetEncoder, dict(stage_sizes=_34, bottleneck=True,
+                                         stride_on_conv1=True)),
+    "seresnet101": (SEResNetEncoder, dict(stage_sizes=_101, bottleneck=True,
+                                          stride_on_conv1=True)),
+    "seresnet152": (SEResNetEncoder, dict(stage_sizes=_152, bottleneck=True,
+                                          stride_on_conv1=True)),
+    # ResNeXt 32x4d: cardinality-32 grouped 3×3, 2× inner width
+    "resnext50": (ResNetEncoder, dict(stage_sizes=_34, bottleneck=True,
+                                      groups=32, width_factor=2)),
+    "resnext101": (ResNetEncoder, dict(stage_sizes=_101, bottleneck=True,
+                                       groups=32, width_factor=2)),
+    "seresnext50": (SEResNetEncoder, dict(stage_sizes=_34, bottleneck=True,
+                                          groups=32, width_factor=2)),
+    "seresnext101": (SEResNetEncoder, dict(stage_sizes=_101, bottleneck=True,
+                                           groups=32, width_factor=2)),
 }
 # EfficientNet B0-B7: (width_mult, depth_mult)
 for _i, (_w, _d) in enumerate([

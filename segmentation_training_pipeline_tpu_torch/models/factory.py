@@ -1,15 +1,15 @@
 """architecture + backbone → SegmentationModel (PyTorch).
 
 Counterpart of ``segmentation_training_pipeline_tpu/models/factory.py`` for
-the ported decoders (Unet, FPN) and encoders (``encoders.ENCODERS``).  The
-model takes NHWC input and returns NHWC float32 **logits**; losses and
-metrics apply the activation themselves.  Inside, it runs NCHW with
-channels-last strides, under autocast in the compute dtype (bfloat16 by
-default), and the 1×1 logits head runs in f32 on an f32 cast of the decoder
-output (a matmul, which PyTorch keeps in full f32 unless TF32 is switched
-on for matmuls).  A decoder that stops short of the input resolution (FPN,
-stride 4) gets its f32 logits resized bilinearly to the input size, as the
-reference does.
+the ported decoders (Unet, FPN, Linknet, PSPNet) and encoders
+(``encoders.ENCODERS``).  The model takes NHWC input and returns NHWC
+float32 **logits**; losses and metrics apply the activation themselves.
+Inside, it runs NCHW with channels-last strides, under autocast in the
+compute dtype (bfloat16 by default), and the 1×1 logits head runs in f32 on
+an f32 cast of the decoder output (a matmul, which PyTorch keeps in full
+f32 unless TF32 is switched on for matmuls).  A decoder that stops short of the input resolution (FPN,
+stride 4; PSPNet, stride 8) gets its f32 logits resized bilinearly to the
+input size, as the reference does.
 
 Parameter names follow the flax tree: ``encoder.*``, ``decoder.*``,
 ``logits_conv.*`` (see ``models.bridge``).
@@ -25,6 +25,8 @@ import torch.nn.functional as F
 from torch.func import functional_call
 
 from .decoders.fpn import FPNDecoder
+from .decoders.linknet import LinknetDecoder
+from .decoders.pspnet import PSPDecoder
 from .decoders.unet import UnetDecoder
 from .encoders import ENCODERS, build_encoder
 from .layers import BatchNorm, Conv, DropPath, resize_to
@@ -34,7 +36,11 @@ Tensor = torch.Tensor
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
 _AUTOCAST = (torch.bfloat16, torch.float16)   # float32/64 run as they are
-DECODERS = {"unet": UnetDecoder, "fpn": FPNDecoder}
+# the JAX table's names and aliases; DeepLab's are known, not yet ported
+DECODERS = {"unet": UnetDecoder, "fpn": FPNDecoder,
+            "linknet": LinknetDecoder, "pspnet": PSPDecoder,
+            "psp": PSPDecoder}
+_DEEPLAB = ("deeplabv3", "deeplabv3+", "deeplabv3plus", "deeplab")
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -49,8 +55,12 @@ class SegmentationModel(nn.Module):
                  classes: int = 1, dropout: float = 0.0,
                  dtype: torch.dtype = torch.bfloat16, in_channels: int = 3):
         super().__init__()
-        if architecture.lower() not in DECODERS:
+        if architecture.lower() in _DEEPLAB:
             raise _not_ported(f"architecture {architecture!r}")
+        if architecture.lower() not in DECODERS:
+            raise KeyError(
+                f"unknown architecture {architecture!r}; known: "
+                f"{sorted(set(DECODERS) | set(_DEEPLAB))}")
         if backbone.lower() not in ENCODERS:
             raise _not_ported(f"backbone {backbone!r}")
         self.architecture = architecture

@@ -25,6 +25,7 @@ from __future__ import annotations
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -122,12 +123,14 @@ class BatchNorm(nn.Module):
 
 
 class ConvBN(nn.Module):
-    """Conv → BatchNorm → ReLU (optional)."""
+    """Conv (``groups`` as flax's ``feature_group_count``) → BatchNorm →
+    ReLU (optional)."""
 
     def __init__(self, in_channels: int, features: int, kernel: int = 3,
-                 stride: int = 1, act: bool = True):
+                 stride: int = 1, act: bool = True, groups: int = 1):
         super().__init__()
-        self.conv = Conv(in_channels, features, kernel, stride)
+        self.conv = Conv(in_channels, features, kernel, stride,
+                         groups=groups)
         self.bn = BatchNorm(features)
         self.act = act
 
@@ -141,23 +144,49 @@ def max_pool_same(x: Tensor, k: int = 3, s: int = 2) -> Tensor:
     return F.max_pool2d(pad_same(x, k, s, value=float("-inf")), k, s)
 
 
+def linear_resize_matrix(n: int, m: int, dtype=np.float32) -> np.ndarray:
+    """(m, n) weights of ``jax.image.resize``'s "linear" method from n to m
+    samples (``jax._src.image.scale.compute_weight_mat`` with translation
+    0, antialiased): the triangle kernel at the half-pixel source position,
+    widened by n/m when m < n, each row normalised to sum to 1.  JAX
+    computes them in its default float type: float32, float64 under
+    x64."""
+    inv = dtype(n / m)                 # JAX: 1 / (m / n) in Python floats
+    kernel_scale = max(inv, dtype(1.0))
+    sample = (np.arange(m, dtype=dtype) + dtype(0.5)) * inv - dtype(0.5)
+    x = np.abs(sample[:, None] - np.arange(n, dtype=dtype)[None, :]) \
+        / kernel_scale
+    w = np.maximum(dtype(0.0), dtype(1.0) - x)
+    total = w.sum(axis=1, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, 1), 0)
+    inside = (sample >= -0.5) & (sample <= n - 0.5)
+    return np.where(inside[:, None], w, 0).astype(dtype)
+
+
 def resize_to(x: Tensor, h: int, w: int, method: str = "nearest") -> Tensor:
     """Resize an NCHW batch to (h, w) in its dtype, as ``jax.image.resize``
     does.  Nearest takes source index floor((i + 0.5)·n/h) (PyTorch's
     "nearest-exact") with autocast off: CUDA autocast would run it in f32,
     which is no more exact for a copy and doubles its bytes.  Bilinear is
     the half-pixel triangle filter with clamped edges, which is
-    ``align_corners=False``; it equals JAX's for upsampling only (JAX
-    antialiases a downsample)."""
+    ``align_corners=False`` when no axis shrinks; JAX antialiases a
+    downsample (the triangle widened by the shrink factor), so an axis
+    that shrinks takes JAX's weight matrices in ``x``'s dtype instead."""
     if tuple(x.shape[2:]) == (h, w):
         return x
     if method == "nearest":
         with torch.autocast(x.device.type, enabled=False):
             return F.interpolate(x, size=(h, w), mode="nearest-exact")
-    if method == "bilinear":
+    if method != "bilinear":
+        raise ValueError(f"resize_to: unknown method {method!r}")
+    if h >= x.shape[2] and w >= x.shape[3]:
         return F.interpolate(x, size=(h, w), mode="bilinear",
                              align_corners=False)
-    raise ValueError(f"resize_to: unknown method {method!r}")
+    wide = np.float64 if x.dtype == torch.float64 else np.float32
+    mh, mw = (torch.from_numpy(linear_resize_matrix(n, m, wide)).to(
+        x.device, x.dtype) for n, m in ((x.shape[2], h), (x.shape[3], w)))
+    return torch.einsum("ih,jw,nchw->ncij", mh, mw, x)
 
 
 def upsample2x(x: Tensor) -> Tensor:
@@ -167,18 +196,20 @@ def upsample2x(x: Tensor) -> Tensor:
 
 
 class SEBlock(nn.Module):
-    """Squeeze-and-excitation (Hu et al. 2018) with EfficientNet's swish
-    hidden activation: spatial mean → 1×1 ``reduce`` (bias) → swish → 1×1
-    ``expand`` (bias) → sigmoid gate on the input."""
+    """Squeeze-and-excitation (Hu et al. 2018): spatial mean → 1×1
+    ``reduce`` (bias) → hidden activation → 1×1 ``expand`` (bias) →
+    sigmoid gate on the input.  ``act``: "relu" for SE-ResNet (canonical
+    SENet), "swish" for EfficientNet."""
 
-    def __init__(self, channels: int, reduced: int):
+    def __init__(self, channels: int, reduced: int, act: str = "swish"):
         super().__init__()
         self.reduce = Conv(channels, reduced, 1, bias=True)
         self.expand = Conv(reduced, channels, 1, bias=True)
+        self.act = F.relu if act == "relu" else F.silu
 
     def forward(self, x: Tensor) -> Tensor:
         s = x.mean(dim=(2, 3), keepdim=True)
-        s = self.expand(F.silu(self.reduce(s)))
+        s = self.expand(self.act(self.reduce(s)))
         return x * torch.sigmoid(s)
 
 

@@ -1,10 +1,12 @@
-"""Evaluation metrics — the dice and IoU scores of the ported slice.
+"""Evaluation metrics (IoU / dice / accuracy family).
 
-Counterpart of ``segmentation_training_pipeline_tpu/ops/metrics.py``
-(``dice_score``, ``iou_score``).  Metrics take **probabilities** and ground
-truth, threshold (sigmoid: p ≥ 0.5; softmax: argmax one-hot) and return a
-scalar float32 mean over batch and classes; ``*_per_example`` give the
-(B,) values the train step weights.
+Counterpart of ``segmentation_training_pipeline_tpu/ops/metrics.py``: all 7
+metrics of its registry with their aliases.  Metrics take
+**probabilities** and ground truth; all but ``soft_iou`` threshold them
+(sigmoid: p ≥ 0.5; softmax: argmax one-hot).  Each is a
+``*_per_example`` function returning (B,) float32 values, entry b the
+reference's scalar on the batch of image b alone, which the train step
+weights.
 """
 
 from __future__ import annotations
@@ -48,35 +50,63 @@ def dice_score_per_example(y_true: Tensor, probs: Tensor,
     return ((2.0 * inter + _EPS) / (ps + ts + _EPS)).mean(-1)
 
 
-def iou_score(y_true: Tensor, probs: Tensor,
-              activation: str = "sigmoid") -> Tensor:
-    """Thresholded intersection-over-union, averaged over batch and
-    classes."""
-    return iou_score_per_example(y_true, probs, activation).mean()
+def binary_accuracy_per_example(y_true: Tensor, probs: Tensor,
+                                activation: str = "sigmoid") -> Tensor:
+    pred = _binarize(probs, activation)
+    hit = (pred == torch.round(y_true.float())).float()
+    return _flatten_spatial(hit).mean(dim=(1, 2))
 
 
-def dice_score(y_true: Tensor, probs: Tensor,
-               activation: str = "sigmoid") -> Tensor:
-    return dice_score_per_example(y_true, probs, activation).mean()
+def accuracy_per_example(y_true: Tensor, probs: Tensor,
+                         activation: str = "sigmoid") -> Tensor:
+    """Softmax: the share of pixels whose argmax class is the true one;
+    otherwise :func:`binary_accuracy_per_example`."""
+    if activation == "softmax":
+        hit = (probs.argmax(-1) == y_true.argmax(-1)).float()
+        return hit.reshape(hit.shape[0], -1).mean(-1)
+    return binary_accuracy_per_example(y_true, probs, activation)
 
 
-# name → per-example function; aliases as in the JAX registry
-PER_EXAMPLE: Dict[str, Callable] = {
-    "iou": iou_score_per_example, "iou_score": iou_score_per_example,
-    "jaccard_score": iou_score_per_example,
-    "dice": dice_score_per_example, "dice_score": dice_score_per_example,
-    "f1_score": dice_score_per_example, "f1-score": dice_score_per_example,
-}
-KNOWN = {"binary_accuracy", "accuracy", "acc", "categorical_accuracy",
-         "precision", "recall", "soft_iou"} | set(PER_EXAMPLE)
+def precision_per_example(y_true: Tensor, probs: Tensor,
+                          activation: str = "sigmoid") -> Tensor:
+    inter, ps, _ = _counts(y_true, probs, activation)
+    return ((inter + _EPS) / (ps + _EPS)).mean(-1)
+
+
+def recall_per_example(y_true: Tensor, probs: Tensor,
+                       activation: str = "sigmoid") -> Tensor:
+    inter, _, ts = _counts(y_true, probs, activation)
+    return ((inter + _EPS) / (ts + _EPS)).mean(-1)
+
+
+def soft_iou_per_example(y_true: Tensor, probs: Tensor,
+                         activation: str = "sigmoid") -> Tensor:
+    """Un-thresholded IoU on the probabilities."""
+    p = _flatten_spatial(probs.float())
+    t = _flatten_spatial(y_true.float())
+    inter = (p * t).sum(1)
+    return ((inter + _EPS) / (p.sum(1) + t.sum(1) - inter + _EPS)).mean(-1)
+
+
+# name → per-example function; names and aliases as in the JAX registry
+PER_EXAMPLE: Dict[str, Callable] = {}
+for _fn, _names in [
+        (binary_accuracy_per_example, ("binary_accuracy",)),
+        (accuracy_per_example, ("accuracy", "acc", "categorical_accuracy")),
+        (iou_score_per_example, ("iou", "iou_score", "jaccard_score")),
+        (dice_score_per_example, ("dice", "dice_score", "f1_score",
+                                  "f1-score")),
+        (precision_per_example, ("precision",)),
+        (recall_per_example, ("recall",)),
+        (soft_iou_per_example, ("soft_iou",))]:
+    for _n in _names:
+        PER_EXAMPLE[_n] = _fn
+KNOWN = set(PER_EXAMPLE)
 
 
 def get(name: str) -> Callable:
     """Per-example metric by (case-insensitive, ``val_``-stripped) name."""
     key = name.lower().replace("val_", "")
-    if key in PER_EXAMPLE:
-        return PER_EXAMPLE[key]
-    if key in KNOWN:
-        raise NotImplementedError(f"metric {name!r} is not yet ported to the "
-                                  "torch package")
-    raise KeyError(f"unknown metric {name!r}; known: {sorted(KNOWN)}")
+    if key not in PER_EXAMPLE:
+        raise KeyError(f"unknown metric {name!r}; known: {sorted(KNOWN)}")
+    return PER_EXAMPLE[key]

@@ -111,8 +111,11 @@ def build_train_step(model, tx, loss_fn, metric_fns: Dict[str, Callable],
         logits, new_stats = apply_model(model, params, state.batch_stats, x,
                                         train=True, drop_masks=drop_masks)
         loss = (loss_fn.per_example(masks, logits) * w).sum() / wsum
-        grads = dict(zip(names, torch.autograd.grad(loss,
-                                                    list(train.values()))))
+        # a parameter the loss does not reach (PSPNet reads C3 only, so
+        # the encoder's last two stages) gets a zero gradient, as in JAX
+        grads = dict(zip(names, torch.autograd.grad(
+            loss, list(train.values()), allow_unused=True,
+            materialize_grads=True)))
         old = {k: state.params[k] for k in names}
         updates, new_opt = tx.update(grads, state.opt_state, old)
         new_params = dict(state.params)

@@ -21,8 +21,8 @@ from segmentation_training_pipeline_tpu_torch import kernels as K
 from segmentation_training_pipeline_tpu_torch.ops.aug import lowering as TL
 from segmentation_training_pipeline_tpu_torch.ops.aug import warp as TW
 
-from torch_port_util import (CONFIG2_BLOCK, blob_batch, interpret_kernels,
-                             jax_draws)
+from torch_port_util import (CONFIG2_BLOCK, blob_batch, few_torch_threads,
+                             interpret_kernels, jax_draws)
 
 
 def _run_both(spec, b, h, w, seed, monkeypatch, imgs=None, masks=None):

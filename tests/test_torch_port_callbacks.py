@@ -18,6 +18,8 @@ from segmentation_training_pipeline_tpu.utils import tfevents as JTE
 from segmentation_training_pipeline_tpu_torch.train import callbacks as TCB
 from segmentation_training_pipeline_tpu_torch.utils import tfevents as TTE
 
+from torch_port_util import few_torch_threads  # noqa: F401
+
 EPOCHS, STEPS = 12, 3
 
 

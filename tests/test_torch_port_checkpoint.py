@@ -35,7 +35,7 @@ from segmentation_training_pipeline_tpu_torch.models import bridge as BR
 from segmentation_training_pipeline_tpu_torch.models import factory as TF
 from segmentation_training_pipeline_tpu_torch.train import checkpoint as TCK
 from segmentation_training_pipeline_tpu_torch.utils import msgpack_tree as MT
-from torch_port_util import perturbed_batch_stats
+from torch_port_util import few_torch_threads, perturbed_batch_stats
 
 H = 64
 META = {"architecture": "Unet", "backbone": "resnet34", "fold": 0,

@@ -19,6 +19,8 @@ from segmentation_training_pipeline_tpu_torch.data import batcher as TB
 from segmentation_training_pipeline_tpu_torch.data import datasets as TD
 from segmentation_training_pipeline_tpu_torch.utils import rle as TR
 
+from torch_port_util import few_torch_threads  # noqa: F401
+
 
 def _same_items(a, b):
     assert a.id == b.id

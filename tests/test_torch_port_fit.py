@@ -86,6 +86,8 @@ from segmentation_training_pipeline_tpu_torch.train import checkpoint as TCK
 from segmentation_training_pipeline_tpu_torch.train import stage as TST
 from segmentation_training_pipeline_tpu_torch.train import step as TS
 
+from torch_port_util import few_torch_threads  # noqa: F401
+
 H, N = 32, 12
 FIRST_RTOL, STAT_RTOL = 1e-4, 1e-5
 LOSS_RTOL, METRIC_ATOL, PARAM_ATOL, SHARE = 1e-2, 3e-2, 1e-2, 0.35

@@ -30,7 +30,7 @@ from segmentation_training_pipeline_tpu_torch.models import layers as TLY
 from segmentation_training_pipeline_tpu_torch.models.encoders import (
     ENCODERS, build_encoder)
 
-from torch_port_util import capture_drop_masks
+from torch_port_util import capture_drop_masks, few_torch_threads
 
 H = 64
 

@@ -51,7 +51,7 @@ from segmentation_training_pipeline_tpu_torch.train import optimizers as TO
 from segmentation_training_pipeline_tpu_torch.train import step as TS
 
 from torch_port_util import (blob_batch, capture_drop_masks,
-                             interpret_kernels, jax_draws)
+                             few_torch_threads, interpret_kernels, jax_draws)
 
 B, H = 2, 64
 YAML = "examples/fpn_augmented_512.yaml"

@@ -40,6 +40,8 @@ from segmentation_training_pipeline_tpu_torch.train import checkpoint as TCK
 from segmentation_training_pipeline_tpu_torch.train import optimizers as TO
 from segmentation_training_pipeline_tpu_torch.train import step as TS
 
+from torch_port_util import few_torch_threads  # noqa: F401
+
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "segmentation_training_pipeline_tpu_torch"
 SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
@@ -155,26 +157,41 @@ def test_config_parses_the_fpn_example():
 
 @pytest.mark.parametrize("patch,exc,match", [
     ({"archtecture": "Unet"}, TC.ConfigError, "Did you mean 'architecture'"),
-    ({"architecture": "FPN", "backbone": "resnet50"}, NotImplementedError,
-     "backbone 'resnet50' is not yet ported"),
-    ({"backbone": "efficientnetb0", "architecture": "Linknet"},
-     NotImplementedError, "architecture 'Linknet' is not yet ported"),
+    ({"architecture": "FPN", "backbone": "senet154"}, NotImplementedError,
+     "backbone 'senet154' is not yet ported"),
+    ({"backbone": "efficientnetb0", "architecture": "DeepLabV3"},
+     NotImplementedError, "architecture 'DeepLabV3' is not yet ported"),
     ({"backbone": "resnet43"}, TC.ConfigError, "Did you mean"),
     ({"optimizer": "SGDD"}, TC.ConfigError, "Did you mean 'SGD'"),
-    ({"loss": "jaccard_loss"}, NotImplementedError, "not yet ported"),
+    ({"augmentation": {"PiecewiseAffine": {"scale": 0.01}}},
+     NotImplementedError, "augmenter 'PiecewiseAffine' is not yet ported"),
     ({"loss": "dice_los"}, ValueError, "Did you mean 'dice_loss'"),
-    ({"metrics": ["precision"], "primary_metric": "val_loss"},
-     NotImplementedError, "not yet ported"),
+    ({"backbone": "vgg16"}, NotImplementedError,
+     "backbone 'vgg16' is not yet ported"),
     ({"augmentation": {"GaussianBlur": {"sigma": 1}}}, NotImplementedError,
      "not yet ported"),
     ({"augmentation": {"Fliplrr": 0.5}}, TC.ConfigError, "Did you mean"),
     ({"augmentation": {"Affine": {"rotat": 10}}}, TC.ConfigError,
      "Did you mean 'rotate'"),
-], ids=["key", "fpn", "effnet", "backbone-typo", "sgd", "jaccard",
-        "loss-typo", "metric", "blur", "aug-typo", "arg-typo"])
+], ids=["key", "fpn", "effnet", "backbone-typo", "sgd", "piecewise",
+        "loss-typo", "vgg", "blur", "aug-typo", "arg-typo"])
 def test_config_refuses_what_is_not_ported(patch, exc, match):
     with pytest.raises(exc, match=match):
         TC.parse_dict({**EXPERIMENT, **patch})
+
+
+@pytest.mark.parametrize("patch", [
+    {"architecture": "FPN", "backbone": "resnet50"},
+    {"backbone": "efficientnetb0", "architecture": "Linknet"},
+    {"loss": "jaccard_loss"},
+    {"metrics": ["precision"], "primary_metric": "val_loss"}],
+    ids=["fpn-resnet50", "linknet", "jaccard", "precision"])
+def test_config_parses_what_was_refused_before_config3(patch):
+    """Names this slice ported: the ResNet-50 family, Linknet and PSPNet,
+    and every loss and metric of the reference's registries."""
+    cfg = TC.parse_dict({**EXPERIMENT, **patch})
+    for k, v in patch.items():
+        assert getattr(cfg, k) == v
 
 
 @pytest.mark.parametrize("mode", ["tf", "scale", "torch", "caffe"])

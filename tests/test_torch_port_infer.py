@@ -52,7 +52,7 @@ from segmentation_training_pipeline_tpu_torch.models import bridge as BR
 from segmentation_training_pipeline_tpu_torch.models import factory as TF
 from segmentation_training_pipeline_tpu_torch.utils.rle import (rle_decode,
                                                                 rle_encode)
-from torch_port_util import perturbed_batch_stats
+from torch_port_util import few_torch_threads, perturbed_batch_stats
 
 H, B = 64, 8
 PROB_ATOL = 2e-4

@@ -29,6 +29,8 @@ from segmentation_training_pipeline_tpu_torch.ops.aug import fast_warp as TFW
 from segmentation_training_pipeline_tpu_torch.ops.aug import fused_warp as TW
 from segmentation_training_pipeline_tpu_torch.ops.aug import shear as TS
 
+from torch_port_util import few_torch_threads  # noqa: F401
+
 
 def _batch(b, h, w, seed):
     r = np.random.RandomState(seed)

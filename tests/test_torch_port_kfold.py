@@ -20,6 +20,8 @@ from segmentation_training_pipeline_tpu_torch.data import batcher as TB
 from segmentation_training_pipeline_tpu_torch.data import datasets as TD
 from segmentation_training_pipeline_tpu_torch.data import synthetic as TS
 
+from torch_port_util import few_torch_threads  # noqa: F401
+
 NEGATIVES = [None, "real", "none", 0.5, 1, "2", 100]
 
 

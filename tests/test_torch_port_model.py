@@ -21,6 +21,8 @@ from segmentation_training_pipeline_tpu_torch.models import bridge as BR
 from segmentation_training_pipeline_tpu_torch.models import factory as TF
 from segmentation_training_pipeline_tpu_torch.models import layers as TLY
 
+from torch_port_util import few_torch_threads  # noqa: F401
+
 H = 64
 
 

@@ -23,6 +23,8 @@ from segmentation_training_pipeline_tpu_torch import config as TC
 from segmentation_training_pipeline_tpu_torch.models import bridge as BR
 from segmentation_training_pipeline_tpu_torch.train import optimizers as TO
 
+from torch_port_util import few_torch_threads  # noqa: F401
+
 RTOL, ATOL = 2e-5, 1e-7
 LR = 0.01
 NAMES = ["Adam", "AdamW", "Nadam", "SGD", "RMSprop", "Adagrad", "Adadelta",

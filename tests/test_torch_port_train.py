@@ -58,8 +58,8 @@ from segmentation_training_pipeline_tpu_torch.ops.aug import lowering as TL
 from segmentation_training_pipeline_tpu_torch.train import optimizers as TO
 from segmentation_training_pipeline_tpu_torch.train import step as TS
 
-from torch_port_util import (CONFIG2_BLOCK, blob_batch, interpret_kernels,
-                             jax_draws)
+from torch_port_util import (CONFIG2_BLOCK, blob_batch, few_torch_threads,
+                             interpret_kernels, jax_draws)
 
 B, H, LR = 2, 64, 5e-4
 LOSS = "binary_crossentropy + 0.25*dice_loss"

@@ -37,8 +37,8 @@ from segmentation_training_pipeline_tpu_torch.ops.aug import fused_warp as TW
 from segmentation_training_pipeline_tpu_torch.ops.aug import lowering as TL
 from segmentation_training_pipeline_tpu_torch.ops.aug import shear as TS
 
-from torch_port_util import (CONFIG2_BLOCK, blob_batch, interpret_kernels,
-                             jax_draws)
+from torch_port_util import (CONFIG2_BLOCK, blob_batch, few_torch_threads,
+                             interpret_kernels, jax_draws)
 
 NO_LAUNCHES = {n: 0 for n in K.KERNELS}
 

@@ -22,6 +22,7 @@ perturbs the BatchNorm statistics of a flax variables tree
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 import torch
 
 from segmentation_training_pipeline_tpu.ops.aug import fast_warp as JFW
@@ -150,6 +151,42 @@ def capture_drop_masks(store):
         return x * mask.astype(x.dtype) / keep
 
     return fnn.intercept_methods(intercept)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def few_torch_threads():
+    """At most 2 PyTorch intra-op threads while a port test module runs,
+    restored after it.  The tier-1 command runs 6 pytest workers on one
+    host; with PyTorch's default of a thread per core in each, their
+    spin-waiting OpenMP threads oversubscribe the cores: six of the port's
+    files took 557 s side by side at the default and 260 s with this
+    fixture (6 workers, 8-core CPU host).  A module that imports this
+    fixture uses it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(min(2, before))
+    yield
+    torch.set_num_threads(before)
+
+
+def random_weights(module, seed):
+    """Fill every parameter of a port module from ``seed``, much faster
+    than ``models.factory.init_model``'s truncated normals at ResNet-50
+    size: conv kernels N(0, 1/fan_in), BatchNorm scales 1 + N(0, 0.1²),
+    every bias N(0, 0.1²); running statistics 0 and 1 (see
+    ``perturbed_batch_stats``).  Returns the module."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            r = torch.randn(p.shape, generator=gen)
+            if p.dim() == 4:
+                p.copy_(r / float(np.sqrt(p[0].numel())))
+            elif name.endswith("weight"):
+                p.copy_(1.0 + 0.1 * r)
+            else:
+                p.copy_(0.1 * r)
+        for name, b in module.named_buffers():
+            b.fill_(1.0 if name.endswith("running_var") else 0.0)
+    return module
 
 
 def perturbed_batch_stats(var, seed=1):
