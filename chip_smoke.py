@@ -4,18 +4,20 @@
     python3 chip_smoke.py [--profile FILE]
 
 Needs a CUDA card (sm_90a), PyTorch built for CUDA and ``nvcc``; imports
-nothing of JAX.  Phases, each printing one JSON line; any failure raises
-and the script exits non-zero:
+nothing of JAX.  Phases, each printing one JSON line and then a ``wall``
+line with its seconds; any failure raises and the script exits non-zero:
 
-  1. device: ``nvidia-smi`` name and power limit, torch, capability,
+  1. device: ``nvidia-smi`` name and power limit, torch, capability, the
+     host's CPU count (``nproc``, the decode pool's default threads),
      whether ``cv2`` and ``msgpack`` import (the serve phase needs
      neither), and whether the system OpenCV C++ headers and libraries
      are there (a throwaway ``g++`` link);
   2. build: compile the CUDA kernels from ``csrc/`` (parallel ``nvcc``);
   3. reference: on a small input, the augmentation with the kernels on
      the card against the plain versions on the CPU (same draws), and the
-     float32 forwards of Unet-resnet34, FPN-efficientnetb0 and 8-class
-     PSPNet- and Linknet-resnet50 on the card against the CPU (TF32 off);
+     float32 forwards of Unet-resnet34, FPN-efficientnetb0, 8-class
+     PSPNet- and Linknet-resnet50 and DeepLabV3 on the aligned Xception on
+     the card against the CPU (TF32 off);
   4. capture: the config-2 augmentation once at the train shapes on each
      of its three paths (default: kernels X, Y, elastic;
      ``STP_FUSE_ELASTIC=1``: X, YE; ``STP_PALLAS_WARP=0``: the shear
@@ -43,11 +45,25 @@ and the script exits non-zero:
      (FPN + efficientnetb0 at full width, 512², B16, bf16, its loss,
      optimizer, lr and augmentation) for 10 steps with
      ``STP_FUSE_ELASTIC=1``: X and YE once per step, nothing else;
+  8b. train_deeplab: DeepLabV3 on the aligned Xception-65 at full width
+     (output stride 16, 16 middle units, bonlime's decoder) with
+     ``train``'s batch, loss, optimizer and block for 10 steps: X, Y and
+     elastic once a step, each held bit for bit against its plain version
+     on the arguments the first step gave it;
+  8c. remat: ``train``'s model and block with ``remat`` off, then on
+     (two 10-step runs, ``remat_off`` and ``remat_on``): peak memory and
+     step time of each, the first step's loss equal within 1e-2;
   9. train_psp: BASELINE config 3, ``examples/multiclass_pspnet.yaml``
      parsed by the port, not cut (PSPNet-resnet50, 384², B16, bf16,
      8-class softmax, its composite loss, Adam at 5e-4) for 10 steps on a
      fixed batch of synthetic 3-class items: no augmentation block, so
      every kernel's launch count must stay 0;
+  9b. zoo: every backbone outside the ResNet family and EfficientNet
+     (Unet; DeepLabV3 for ``xception_aligned``) and resnet34's
+     ``keras-preact`` graph at 256² B4: the f32 forward on the card
+     against the CPU (TF32 off) within 1e-3, one bf16 train step with a
+     finite loss and no kernel launch, the bf16 forward's ms; one line
+     each;
   10. serve: BASELINE config 5, ``examples/tta_ensemble_predict.yaml``
      parsed by the port (Unet-resnet34 at 256², B16, bf16, flip TTA, 5
      folds) in a temporary directory: 5 fold checkpoints written with the
@@ -76,8 +92,8 @@ and the script exits non-zero:
      skips, and ``cfg.load`` serving the fit's checkpoint; train img/s
      over the epochs after each stage's first (also without each epoch's
      wait for its first batch), the epoch split into train, validation
-     and checkpoint, a batch's PNG decode on the host alone, and the peak
-     memory;
+     and checkpoint, a batch's PNG decode on the host alone (the decode
+     pool, its thread count beside it), and the peak memory;
   12. fit_psp: config 3 through ``fit_pipeline`` on fold 0 of 128
      synthetic 384² PNGs with class-index masks, the epochs cut from 40
      to 2: the JAX CSV columns, a ``done`` checkpoint, no kernel launch,
@@ -88,9 +104,9 @@ and the script exits non-zero:
 
 ``--profile FILE`` profiles three more steps of each train phase and
 three more ``predict_probs`` calls of the serve phase (``FILE`` for Unet,
-``FILE`` with ``_fpn``, ``_psp`` or ``_serve`` before its suffix for FPN,
-PSPNet and serve), and traces epoch 1 of each fit stage (the fits' own
-``profile:``) for its device busy time.
+``FILE`` with ``_fpn``, ``_deeplab``, ``_psp`` or ``_serve`` before its
+suffix for FPN, DeepLab, PSPNet and serve), and traces epoch 1 of each fit
+stage (the fits' own ``profile:``) for its device busy time.
 """
 
 from __future__ import annotations
@@ -156,6 +172,18 @@ PSP_YAML = "examples/multiclass_pspnet.yaml"
 PSP_IMAGES, PSP_EPOCHS, PSP_PREDICT = 128, 2, 4
 PSP_CSV = ["epoch", "lr", "accuracy", "dice", "iou", "loss", "val_accuracy",
            "val_dice", "val_iou", "val_loss", "time"]
+# the zoo phase: every backbone outside the ResNet family and EfficientNet
+# (Unet, or DeepLabV3 for the aligned Xception) and resnet34's keras-preact
+# graph, at 256² B4
+ZOO = [(n, "") for n in (
+    "senet154", "vgg16", "vgg19", "mobilenet", "mobilenetv1", "mobilenetv2",
+    "densenet121", "densenet169", "densenet201", "xception",
+    "xception_aligned", "inceptionv3", "inceptionresnetv2")] + [
+    ("resnet34", "keras-preact")]
+ZOO_BATCH, ZOO_SIZE = 4, 256
+# remat off against on: the first step's loss, whose forward both run the
+# same way, within bf16 rounding
+REMAT_LOSS_REL = 1e-2
 FORWARD_REL = 1e-3   # f32 on the card (TF32 off) against the CPU
 IMG_ATOL = 1e-3
 MASK_SHARE = 1e-4
@@ -304,6 +332,7 @@ def phase_device() -> dict:
                 name=torch.cuda.get_device_name(0),
                 count=torch.cuda.device_count(), torch=torch.__version__,
                 cuda=torch.version.cuda, capability=list(cap),
+                nproc=os.cpu_count(),
                 imports={m: _imports(m) for m in ("cv2", "msgpack")},
                 opencv_cxx=_opencv_probe())
     emit("device", **info)
@@ -352,19 +381,25 @@ def no_tf32():
         torch.set_float32_matmul_precision(mm)
 
 
+def _card_vs_cpu(model, x) -> float:
+    """Relative error of ``model``'s forward (f32, on the CPU) on the card
+    against the CPU, with TF32 off for convolutions and matmuls; the model
+    is left on the card."""
+    with torch.no_grad():
+        params, stats = MF.model_variables(model)
+        want = MF.apply_model(model, params, stats, x)
+        with no_tf32():
+            model.cuda()
+            params, stats = MF.model_variables(model)
+            got = MF.apply_model(model, params, stats, x.cuda()).cpu()
+    return float((got - want).abs().max() / want.abs().max())
+
+
 def _forward_err(arch: str, backbone: str, x, seed: int,
                  classes: int = 1) -> float:
-    """Relative error of the f32 forward on the card against the CPU,
-    with TF32 off for convolutions and matmuls."""
-    model = MF.init_model(MF.create_model(arch, backbone, classes,
-                                          dtype="float32"), seed, "cpu")
-    params, stats = MF.model_variables(model)
-    want = MF.apply_model(model, params, stats, x)
-    with no_tf32():
-        model.cuda()
-        params, stats = MF.model_variables(model)
-        got = MF.apply_model(model, params, stats, x.cuda()).cpu()
-    return float((got - want).abs().max() / want.abs().max())
+    """:func:`_card_vs_cpu` of a model initialised from ``seed``."""
+    return _card_vs_cpu(MF.init_model(MF.create_model(
+        arch, backbone, classes, dtype="float32"), seed, "cpu"), x)
 
 
 def phase_reference(seed: int) -> None:
@@ -383,10 +418,12 @@ def phase_reference(seed: int) -> None:
     fpn_err = _forward_err("FPN", "efficientnetb0", x, seed)
     psp_err = _forward_err("PSPNet", "resnet50", x, seed, 8)
     link_err = _forward_err("Linknet", "resnet50", x, seed, 8)
+    deeplab_err = _forward_err("DeepLabV3", "xception_aligned", x, seed)
     emit("reference", aug_max_err=aug_err, aug_mask_mismatch=aug_mis,
          forward_rel_err=fwd_err, fpn_forward_rel_err=fpn_err,
          pspnet_resnet50_forward_rel_err=psp_err,
          linknet_resnet50_forward_rel_err=link_err,
+         deeplab_xception_aligned_forward_rel_err=deeplab_err,
          shape=[2, 128, 128],
          tolerance=dict(aug_img_atol=REF_IMG_ATOL,
                         aug_mask_share=REF_MASK_SHARE,
@@ -398,6 +435,7 @@ def phase_reference(seed: int) -> None:
     check(fpn_err <= FORWARD_REL, ("FPN forward error", fpn_err))
     check(psp_err <= FORWARD_REL, ("PSPNet forward error", psp_err))
     check(link_err <= FORWARD_REL, ("Linknet forward error", link_err))
+    check(deeplab_err <= FORWARD_REL, ("DeepLab forward error", deeplab_err))
 
 
 def _to(draws, device):
@@ -415,40 +453,49 @@ def _check_augmented(out_i, out_m, what: str) -> None:
     check(bool(((out_m == 0) | (out_m == 1)).all()), (what, "masks binary"))
 
 
+# each kernel's wrapper where the main path calls it: (module, attribute)
+WRAPPERS = {"warp_x": (FW, "warp_x"), "warp_y": (FW, "warp_y"),
+            "warp_ye": (FW, "warp_ye"), "elastic": (EL, "elastic_resample"),
+            "shear": (MP, "shear_pass")}
+
+
+@contextlib.contextmanager
+def captured(names, store: dict):
+    """Record in ``store`` (kernel name → list of argument tuples) the
+    arguments of every call of the named kernels' wrappers in a block, the
+    calls themselves unchanged."""
+    originals = {n: getattr(*WRAPPERS[n]) for n in names}
+
+    def hook(n):
+        def call(*args):
+            store.setdefault(n, []).append(args)
+            return originals[n](*args)
+        return call
+
+    for n in names:
+        setattr(*WRAPPERS[n], hook(n))
+    try:
+        yield store
+    finally:
+        for n in names:
+            setattr(*WRAPPERS[n], originals[n])
+
+
 def phase_capture(aug, imgs, masks, draws):
     """Run the augmentation once on each path and record each kernel
     wrapper's arguments (the tensors the main path gives the kernel)."""
-    captured = {}
-    hooks = [(FW, "warp_x"), (FW, "warp_y"), (FW, "warp_ye"),
-             (EL, "elastic_resample"), (MP, "shear_pass")]
-    originals = {name: getattr(mod, name) for mod, name in hooks}
-
-    def hook(name):
-        def call(*args):
-            captured.setdefault(name, []).append(args)
-            return originals[name](*args)
-        return call
-
-    for mod, name in hooks:
-        setattr(mod, name, hook(name))
-    try:
+    with captured(list(WRAPPERS), {}) as calls:
         for path, values in PATHS.items():
             with env(values):
                 out_i, out_m = aug.apply(draws, imgs, masks)
             torch.cuda.synchronize()
             _check_augmented(out_i, out_m, path)
-    finally:
-        for mod, name in hooks:
-            setattr(mod, name, originals[name])
     # default path: X, Y, elastic; fused: X, YE; unfused: 2 shears, elastic
-    check(len(captured["warp_ye"]) == 1 and len(captured["shear_pass"]) == 2
-          and len(captured["warp_y"]) == 1, ("captures", {
-              k: len(v) for k, v in captured.items()}))
-    args_of = {"warp_x": captured["warp_x"][0],
-               "warp_y": captured["warp_y"][0],
-               "elastic": captured["elastic_resample"][0],
-               "shear": captured["shear_pass"],
-               "warp_ye": captured["warp_ye"][0]}
+    check(len(calls["warp_ye"]) == 1 and len(calls["shear"]) == 2
+          and len(calls["warp_y"]) == 1, ("captures", {
+              k: len(v) for k, v in calls.items()}))
+    args_of = {n: calls[n] if n == "shear" else calls[n][0]
+               for n in WRAPPERS}
     emit("capture", planes=list(args_of["warp_x"][0].shape),
          px=args_of["warp_x"][3], py=args_of["warp_y"][3],
          k=args_of["elastic"][4], ye_py=args_of["warp_ye"][5],
@@ -651,15 +698,19 @@ def phase_warp_paths(aug, imgs, masks, draws) -> dict:
 
 
 def phase_train(name: str, cfg, imgs, masks, steps: int, seed: int,
-                expect: dict, profile: str = "", **extra) -> dict:
-    """``steps`` train steps of ``cfg``'s model, loss (with its class
-    weights), optimizer, lr and augmentation on the fixed batch; the launch
-    counts of the run must be ``expect`` times ``steps`` (every other
-    kernel 0).  ``extra`` goes into the emitted line."""
+                expect: dict, profile: str = "", hold: tuple = (),
+                **extra) -> dict:
+    """``steps`` train steps of ``cfg``'s model (``remat`` included),
+    loss (with its class weights), optimizer, lr and augmentation on the
+    fixed batch; the launch counts of the run must be ``expect`` times
+    ``steps`` (every other kernel 0).  The kernels in ``hold`` are held bit
+    for bit against their plain versions on the arguments the first step
+    gave them, after the counts are read.  ``extra`` goes into the emitted
+    line."""
     dev = imgs.device
     model = MF.init_model(MF.create_model(cfg.architecture, cfg.backbone,
-                                          cfg.classes, dtype=cfg.dtype),
-                          seed, dev)
+                                          cfg.classes, dtype=cfg.dtype,
+                                          remat=cfg.remat), seed, dev)
     tx = OP.build_optimizer(cfg)
     state = ST.create_train_state(model, tx, dev)
     step = ST.build_train_step(
@@ -671,15 +722,19 @@ def phase_train(name: str, cfg, imgs, masks, steps: int, seed: int,
     gen = torch.Generator(device=dev).manual_seed(seed + 2)
     torch.cuda.reset_peak_memory_stats()
     losses, times = [], []
+    calls = {}
     K.reset_launches()
-    for _ in range(steps):
+    for i in range(steps):
         t0 = time.perf_counter()
-        state, logs = step(state, batch, cfg.lr, gen=gen)
+        with captured(hold if i == 0 else (), calls):
+            state, logs = step(state, batch, cfg.lr, gen=gen)
         loss = float(logs["loss"])
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(loss)
     launches = K.launch_counts()
+    if hold:
+        extra["held_to_plain"] = held_to_plain(calls, name)
     b = imgs.shape[0]
     steady = times[1:] or times
     out = dict(model=f"{cfg.architecture}-{cfg.backbone}", dtype=cfg.dtype,
@@ -909,33 +964,24 @@ def _fit_block_vs_plain(aug, ds, cfg, seed: int) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(seed)
     draws = aug.sample(gen, *imgs.shape)
     names = ("warp_x", "warp_y")
-    originals = {n: getattr(FW, n) for n in names}
-    captured = {}
-
-    def hook(n):
-        def call(*args):
-            captured.setdefault(n, []).append(args)
-            return originals[n](*args)
-        return call
-
-    for n in names:
-        setattr(FW, n, hook(n))
-    try:
+    with captured(names, {}) as calls:
         out_i, out_m = aug.apply(draws, imgs, masks)
-    finally:
-        for n in names:
-            setattr(FW, n, originals[n])
     torch.cuda.synchronize()
     _check_augmented(out_i, out_m, "fit block")
-    check({n: len(v) for n, v in captured.items()}
-          == {n: 1 for n in names}, ("fit block captures", captured.keys()))
+    check({n: len(v) for n, v in calls.items()}
+          == {n: 1 for n in names}, ("fit block captures", calls.keys()))
+    return held_to_plain(calls, "fit block")
+
+
+def held_to_plain(calls: dict, what: str) -> dict:
+    """Each kernel's first captured call against its plain version on the
+    same arguments: ``EXACT``, bit for bit."""
     out = {}
-    for n in names:
-        args = captured[n][0]
-        _, err, mis = _errors(n, *CALLS[n], args)
-        out[n] = dict(planes=list(args[0].shape), max_abs_err=err,
+    for n, args in calls.items():
+        _, err, mis = _errors(n, *CALLS[n], args[0])
+        out[n] = dict(planes=list(args[0][0].shape), max_abs_err=err,
                       mask_mismatch=mis)
-        check(err == 0.0 and mis == 0.0, ("fit block", n, out[n]))
+        check(err == 0.0 and mis == 0.0, (what, n, out[n]))
     return out
 
 
@@ -1030,6 +1076,7 @@ def phase_fit(seed: int, profile: bool = False) -> dict:
                                    "checkpoint_s")}
                 for t in timings],
         decode_s_per_batch=decode["decode_s"] / decode["batches"],
+        decode_threads=decode["decode_threads"],
         traced_epoch1_device_busy_s=busy or None,
         traced_epoch1_idle_share={
             s: 1.0 - b / (epoch1[s]["train_s"] + epoch1[s]["val_s"])
@@ -1152,6 +1199,7 @@ def phase_fit_psp(seed: int, profile: bool = False) -> dict:
                                    "checkpoint_s")}
                 for t in timings],
         decode_s_per_batch=decode["decode_s"] / decode["batches"],
+        decode_threads=decode["decode_threads"],
         traced_epoch1_device_busy_s=busy,
         traced_epoch1_idle_share=(
             1.0 - busy / (epoch1["train_s"] + epoch1["val_s"])
@@ -1181,12 +1229,104 @@ def phase_fit_psp(seed: int, profile: bool = False) -> dict:
     return out
 
 
+def phase_zoo(seed: int) -> list:
+    """Every backbone outside the ResNet family and EfficientNet, in Unet
+    (DeepLabV3 for ``xception_aligned``), and resnet34's ``keras-preact``
+    variant, at ``ZOO_SIZE``² B``ZOO_BATCH``: the f32 forward on the card
+    against the CPU (TF32 off), one bf16 train step (bce + 0.25·dice,
+    Adam) with a finite loss and no hand-written kernel launched, and the
+    bf16 eval forward's time (CUDA events, median of 10)."""
+    imgs, masks = synthetic_batch(ZOO_BATCH, ZOO_SIZE, ZOO_SIZE, seed + 9)
+    x = torch.from_numpy(imgs).float() / 127.5 - 1.0
+    batch = {"image": torch.from_numpy(imgs).cuda(),
+             "mask": torch.from_numpy(masks).cuda()}
+    loss_fn = LO.build_loss(LOSS, "sigmoid")
+    rows = []
+    for backbone, variant in ZOO:
+        t0 = time.perf_counter()
+        arch = "DeepLabV3" if backbone == "xception_aligned" else "Unet"
+        model = MF.init_model(MF.create_model(
+            arch, backbone, 1, dtype="float32", encoder_variant=variant),
+            seed, "cpu")
+        err = _card_vs_cpu(model, x)
+        model.dtype = torch.bfloat16              # the card's compute dtype
+        tx = OP.build_optimizer(CF.parse_dict({"optimizer": "Adam",
+                                               "lr": LR}))
+        state = ST.create_train_state(model, tx, "cuda")
+        step = ST.build_train_step(model, tx, loss_fn, {}, "sigmoid", None)
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        _, logs = step(state, batch, LR)
+        loss = float(logs["loss"])
+        launches = K.launch_counts()
+        xg = x.cuda()
+        with torch.no_grad():
+            fwd_ms = cuda_ms(lambda: MF.apply_model(
+                model, state.params, state.batch_stats, xg), 10)
+        row = dict(model=f"{arch}-{backbone}", encoder_variant=variant,
+                   batch=ZOO_BATCH, size=[ZOO_SIZE, ZOO_SIZE],
+                   params=sum(p.numel() for p in state.params.values()),
+                   f32_card_vs_cpu_rel_err=err, bf16_train_loss=loss,
+                   bf16_forward_ms=fwd_ms,
+                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   seconds=time.perf_counter() - t0,
+                   tolerance=dict(f32_card_vs_cpu_rel=FORWARD_REL))
+        emit("zoo", **row)
+        check(err <= FORWARD_REL, (backbone, variant, "forward error", err))
+        check(math.isfinite(loss), (backbone, variant, "train loss", loss))
+        check(not any(launches.values()), (backbone, "launches", launches))
+        rows.append(row)
+        del model, state, step
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_remat(cfg, imgs, masks, seed: int) -> dict:
+    """``cfg`` (Unet-resnet34 at 512² B16 with the config-2 block) with
+    ``remat`` off and on, from the same weights, batch and draws: peak
+    memory and steady step time of each, the first step's loss equal
+    within bf16 rounding."""
+    runs = {}
+    for remat in (False, True):
+        runs[remat] = phase_train(f"remat_{'on' if remat else 'off'}",
+                                  dataclasses.replace(cfg, remat=remat),
+                                  imgs, masks, STEPS, seed,
+                                  {"warp_x": 1, "warp_y": 1, "elastic": 1})
+        torch.cuda.empty_cache()
+    off, on = runs[False], runs[True]
+    first = abs(on["loss"][0] - off["loss"][0]) / abs(off["loss"][0])
+    out = dict(model=off["model"], batch=off["batch"], size=off["size"],
+               peak_mem_gib={"off": off["peak_mem_gib"],
+                             "on": on["peak_mem_gib"]},
+               img_per_s={"off": off["img_per_s"], "on": on["img_per_s"]},
+               steady_step_ms={k: statistics.mean(r["step_ms"][1:])
+                               for k, r in (("off", off), ("on", on))},
+               first_loss={"off": off["loss"][0], "on": on["loss"][0]},
+               first_loss_rel_diff=first,
+               tolerance=dict(first_loss_rel=REMAT_LOSS_REL))
+    emit("remat", **out)
+    check(first <= REMAT_LOSS_REL, ("remat first loss", first))
+    check(on["peak_mem_gib"] < off["peak_mem_gib"],
+          ("remat peak memory", out["peak_mem_gib"]))
+    return out
+
+
 def _profile_path(base: str, tag: str) -> str:
     """``base`` with ``_tag`` before its suffix ("" when not profiling)."""
     if not base:
         return ""
     stem, dot, suffix = base.rpartition(".")
     return f"{stem}_{tag}.{suffix}" if dot else f"{base}_{tag}"
+
+
+def timed(name: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, then a line with its wall seconds and the
+    card's memory cache emptied."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    emit("wall", of=name, seconds=time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+    return out
 
 
 def main(argv=None) -> int:
@@ -1198,35 +1338,41 @@ def main(argv=None) -> int:
     a = ap.parse_args(argv)
 
     info = phase_device()
-    phase_build()
-    phase_reference(SEED)
+    timed("build", phase_build)
+    timed("reference", phase_reference, SEED)
 
     aug, imgs, masks, draws = train_shapes()
-    rows = phase_kernels(phase_capture(aug, imgs, masks, draws))
-    paths = phase_warp_paths(aug, imgs, masks, draws)
+    rows = timed("kernel", lambda: phase_kernels(phase_capture(
+        aug, imgs, masks, draws)))
+    paths = timed("warp_paths", phase_warp_paths, aug, imgs, masks, draws)
 
     unet = CF.parse_dict({"architecture": "Unet", "backbone": "resnet34",
                           "loss": LOSS, "optimizer": "Adam", "lr": LR,
                           "batch": BATCH, "augmentation": CONFIG2_BLOCK,
                           "metrics": ["dice", "iou"]})
-    train = phase_train("train", unet, imgs, masks, STEPS, SEED,
-                        {"warp_x": 1, "warp_y": 1, "elastic": 1}, a.profile)
-    torch.cuda.empty_cache()
+    x_y_elastic = {"warp_x": 1, "warp_y": 1, "elastic": 1}
+    train = timed("train", phase_train, "train", unet, imgs, masks, STEPS,
+                  SEED, x_y_elastic, a.profile)
     fpn = CF.parse(FPN_YAML)
     check(fpn.shape[:2] == (SIZE, SIZE) and fpn.batch == BATCH,
           ("config 2 shape and batch", fpn.shape, fpn.batch))
     with env({"STP_FUSE_ELASTIC": "1"}):
-        train_fpn = phase_train("train_fpn", fpn, imgs, masks, STEPS, SEED,
-                                {"warp_x": 1, "warp_ye": 1},
-                                _profile_path(a.profile, "fpn"))
-    torch.cuda.empty_cache()
-    phase_train_psp(SEED, _profile_path(a.profile, "psp"))
-    torch.cuda.empty_cache()
-    phase_serve(SEED, _profile_path(a.profile, "serve"))
-    torch.cuda.empty_cache()
-    phase_fit(SEED, bool(a.profile))
-    torch.cuda.empty_cache()
-    phase_fit_psp(SEED, bool(a.profile))
+        train_fpn = timed("train_fpn", phase_train, "train_fpn", fpn, imgs,
+                          masks, STEPS, SEED, {"warp_x": 1, "warp_ye": 1},
+                          _profile_path(a.profile, "fpn"))
+    deeplab = dataclasses.replace(unet, architecture="DeepLabV3",
+                                  backbone="xception_aligned")
+    timed("train_deeplab", phase_train, "train_deeplab", deeplab, imgs,
+          masks, STEPS, SEED, x_y_elastic, _profile_path(a.profile,
+                                                         "deeplab"),
+          hold=tuple(x_y_elastic), output_stride=16, middle_units=16)
+    timed("remat", phase_remat, unet, imgs, masks, SEED)
+    timed("train_psp", phase_train_psp, SEED,
+          _profile_path(a.profile, "psp"))
+    timed("zoo", phase_zoo, SEED)
+    timed("serve", phase_serve, SEED, _profile_path(a.profile, "serve"))
+    timed("fit", phase_fit, SEED, bool(a.profile))
+    timed("fit_psp", phase_fit_psp, SEED, bool(a.profile))
     # launches on each kernel's main path: X, Y and elastic in the Unet
     # step, YE in the FPN step, the shear in the unfused warp path
     launches = dict(train["launches"], warp_ye=train_fpn["launches"][

@@ -3,8 +3,8 @@
 Counterpart of ``segmentation_training_pipeline_tpu/config.py``
 (``PipelineConfig``, ``parse``, ``parse_dict``): the same YAML keys, the
 same per-stage overrides, and unknown keys or names error out with a
-suggestion.  Names the reference knows but this package has not ported yet
-(architectures, backbones, augmenters) raise
+suggestion.  Every architecture and backbone of the reference is ported;
+an augmenter it knows that this package has not ported yet raises
 ``NotImplementedError`` saying so.  ``fit`` trains folds × stages
 (``train/stage.py``); ``load`` and the predict/evaluate methods serve
 checkpoints from ``weights/`` (``infer.py``).  Each of them runs on the
@@ -96,7 +96,7 @@ for _entry in (
     _name, *_aliases = _entry.split("|")
     AUGMENTERS.register(_name, _name, aliases=_aliases)
 
-PORTED_ARCHITECTURES = {"Unet", "FPN", "Linknet", "PSPNet"}
+PORTED_ARCHITECTURES = set(ARCHITECTURES.names())
 PORTED_BACKBONES = set(_ENCODERS)
 PORTED_OPTIMIZERS = set(OPTIMIZERS.names())
 

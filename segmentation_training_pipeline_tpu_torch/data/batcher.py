@@ -8,9 +8,11 @@ to float, augments and normalises on the device.  Resizes go through
 contract), imported only where sizes differ: a resize to the same size is an
 exact copy in OpenCV, so skipping it changes no value.
 
-``make_batches`` decodes item by item (``dataset[i]``); the JAX package's
-native C++ loader for file-backed datasets, which gives the same bytes, is
-not bound here yet.  ``Prefetcher`` runs the batch generator on a worker
+``make_batches`` decodes a file-backed dataset (one that serves
+``image_path`` and ``mask_path``) at 1 or 3 channels on the thread pool of
+``data/loader.py``, which gives the bytes of the JAX package's native C++
+loader, and any other dataset item by item (``dataset[i]``), as the JAX
+batcher chooses.  ``Prefetcher`` runs the batch generator on a worker
 thread that pins each batch; the consumer copies it to the card with
 ``non_blocking=True`` on its current stream, so the worker never touches a
 stream and the copy overlaps the previous step.
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from .datasets import DataSet
+from .loader import default_pool
 
 
 def prepare_image(x: np.ndarray, shape) -> np.ndarray:
@@ -114,28 +117,48 @@ def _masks_u8_to_onehot(masks_u8: np.ndarray, classes: int,
     return np.repeat(m, classes, axis=-1) if classes > 1 else m
 
 
+def _paths_available(dataset, probe_idx: int) -> bool:
+    """True iff the dataset really serves file paths (a wrapper such as
+    ``SubDataSet`` defines ``image_path`` whatever its parent does, so
+    probe it)."""
+    if not (hasattr(dataset, "image_path") and hasattr(dataset, "mask_path")):
+        return False
+    try:
+        return dataset.image_path(probe_idx) is not None
+    except Exception:
+        return False
+
+
 def make_batches(dataset: DataSet, indices: Sequence[int], shape, classes: int,
                  activation: str, batch_size: int,
                  wrap_pad: bool = True,
                  cache: Optional[dict] = None,
-                 stats: Optional[dict] = None) -> Iterator[Dict[str, np.ndarray]]:
+                 stats: Optional[dict] = None
+                 ) -> Iterator[Dict[str, np.ndarray]]:
     """Yield batches of stacked uint8 images + uint8 one-hot masks + float32
     weights, in plan order.
 
     The final partial batch wraps around to the plan's start and its
     padding rows get weight 0, so the steps can discount them.  ``cache``
     (``cache: true`` in YAML): per-index dict of decoded ``(img_u8,
-    mask_u8)`` items, so epochs after the first skip the decode.
-    ``stats``: a dict accumulating ``decode_s`` (wall seconds spent
-    assembling batches), ``batches`` and ``native`` (always False here:
-    every item decodes through ``dataset[i]``).
+    mask_u8)`` items, so epochs after the first skip the decode.  A
+    file-backed dataset at 1 or 3 channels decodes on the shared
+    ``loader.default_pool()``; a file that fails raises ``IOError`` with
+    the batch's count of failures.  ``stats``: a dict accumulating
+    ``decode_s`` (wall seconds spent assembling batches), ``batches``,
+    ``native`` (whether the pool served this plan) and ``decode_threads``
+    (its threads, 0 without it).
     """
     idx = np.asarray(indices, dtype=np.int64)
     n = len(idx)
     if n == 0:
         return
+    h, w, c = shape
+    pool = (default_pool() if c in (1, 3)
+            and _paths_available(dataset, int(idx[0])) else None)
     if stats is not None:
-        stats["native"] = False
+        stats["native"] = pool is not None
+        stats["decode_threads"] = pool.threads if pool is not None else 0
         stats.setdefault("decode_s", 0.0)
         stats.setdefault("batches", 0)
     for start in range(0, n, batch_size):
@@ -148,6 +171,15 @@ def make_batches(dataset: DataSet, indices: Sequence[int], shape, classes: int,
         if cache is not None and all(int(i) in cache for i in sel):
             imgs_arr = np.stack([cache[int(i)][0] for i in sel])
             masks_arr = np.stack([cache[int(i)][1] for i in sel])
+        elif pool is not None:
+            ipaths = [dataset.image_path(int(i)) for i in sel]
+            mpaths = [dataset.mask_path(int(i)) for i in sel]
+            imgs_arr, masks_u8, fails = pool.load_batch(ipaths, mpaths, h, w,
+                                                        c)
+            if fails:
+                raise IOError(f"decode pool failed on {fails} of {len(sel)} "
+                              f"files (first: {ipaths[0]})")
+            masks_arr = _masks_u8_to_onehot(masks_u8, classes, activation)
         else:
             imgs, masks = [], []
             for i in sel:

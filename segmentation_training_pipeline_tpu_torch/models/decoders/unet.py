@@ -3,7 +3,10 @@
 Counterpart of ``segmentation_training_pipeline_tpu/models/decoders/
 unet.py``: for each of 5 steps, nearest 2× upsample → concat the encoder
 skip → two 3×3 conv-BN-ReLU blocks; widths 256/128/64/32/16.  Stage and
-block names follow the flax tree (``up1/conv1/conv`` …).
+block names follow the flax tree (``up1/conv1/conv`` …).  ``remat``
+checkpoints each stage on its own (``layers.run_part``), as the JAX
+decoder's per-stage ``nn.remat``: the backward pass then recomputes one
+stage's activations at a time.
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ from typing import List, Optional, Sequence
 import torch
 import torch.nn as nn
 
-from ..layers import ConvBN, upsample2x
+from ..layers import ConvBN, run_part, upsample2x
 
 Tensor = torch.Tensor
 
@@ -38,8 +41,10 @@ class UnetStage(nn.Module):
 
 class UnetDecoder(nn.Module):
     def __init__(self, encoder_channels: Sequence[int],
-                 widths: Sequence[int] = (256, 128, 64, 32, 16)):
+                 widths: Sequence[int] = (256, 128, 64, 32, 16),
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         # feats: [C1..C5] at strides 2..32; decode from C5 up with skips
         # C4, C3, C2, C1 and no skip at full resolution
         skips = list(encoder_channels[:-1])[::-1]
@@ -56,5 +61,6 @@ class UnetDecoder(nn.Module):
         y = feats[-1]
         for i in range(self.n_stages):
             skip = skips[i] if i < len(skips) else None
-            y = getattr(self, f"up{i + 1}")(y, skip, train)
+            y = run_part(self._modules[f"up{i + 1}"], "", None, self.remat,
+                         y, skip, train=train)
         return y  # full input resolution

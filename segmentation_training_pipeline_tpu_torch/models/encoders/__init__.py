@@ -3,17 +3,25 @@
 Counterpart of ``segmentation_training_pipeline_tpu/models/encoders/
 __init__.py``: each encoder's ``forward(x, train)`` returns the feature
 maps [C1 … C5] at strides 2/4/8/16/32 and its ``out_channels`` lists their
-widths, the contract the decoders rely on.  Ported so far: the ResNet
-family (resnet18-152, resnext50/101, seresnet18-152, seresnext50/101) and
-efficientnetb0–b7, with the JAX table's constructor arguments.
+widths, the contract the decoders rely on.  Every name of the JAX table
+(``_SPECS``: 34 backbones and the ``mobilenetv1`` alias), with its
+classes' names and constructor arguments; each class here also takes
+``in_channels`` first.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, Tuple, Type
 
+from .densenet import DenseNetEncoder
 from .efficientnet import EfficientNetEncoder
-from .resnet import ResNetEncoder, SEResNetEncoder
+from .inception import InceptionResNetV2Encoder, InceptionV3Encoder
+from .mobilenet import MobileNetV1Encoder
+from .mobilenetv2 import MobileNetV2Encoder
+from .resnet import ResNetEncoder, SENet154Encoder, SEResNetEncoder
+from .vgg import VGGEncoder
+from .xception import XceptionEncoder
+from .xception_aligned import AlignedXceptionEncoder
 
 # name → (module class, constructor kwargs); the stage sizes of resnet18,
 # of resnet34 and resnet50, of resnet101 and of resnet152
@@ -42,6 +50,22 @@ ENCODERS: Dict[str, Tuple[Type, Dict[str, Any]]] = {
                                           groups=32, width_factor=2)),
     "seresnext101": (SEResNetEncoder, dict(stage_sizes=_101, bottleneck=True,
                                            groups=32, width_factor=2)),
+    # Cadene senet154: its own block (2p/4p widths, cardinality 64, deep
+    # stem, kernel-3 downsamples)
+    "senet154": (SENet154Encoder, {}),
+    "vgg16": (VGGEncoder, dict(stage_convs=(2, 2, 3, 3, 3))),
+    "vgg19": (VGGEncoder, dict(stage_convs=(2, 2, 4, 4, 4))),
+    "mobilenet": (MobileNetV1Encoder, {}),
+    "mobilenetv1": (MobileNetV1Encoder, {}),
+    "mobilenetv2": (MobileNetV2Encoder, {}),
+    "densenet121": (DenseNetEncoder, dict(block_sizes=(6, 12, 24, 16))),
+    "densenet169": (DenseNetEncoder, dict(block_sizes=(6, 12, 32, 32))),
+    "densenet201": (DenseNetEncoder, dict(block_sizes=(6, 12, 48, 32))),
+    "xception": (XceptionEncoder, {}),
+    # the DeepLabV3+ graph; the factory sets output_stride=16 with DeepLab
+    "xception_aligned": (AlignedXceptionEncoder, {}),
+    "inceptionv3": (InceptionV3Encoder, {}),
+    "inceptionresnetv2": (InceptionResNetV2Encoder, {}),
 }
 # EfficientNet B0-B7: (width_mult, depth_mult)
 for _i, (_w, _d) in enumerate([
@@ -51,6 +75,6 @@ for _i, (_w, _d) in enumerate([
         EfficientNetEncoder, dict(width_mult=_w, depth_mult=_d))
 
 
-def build_encoder(name: str, in_channels: int = 3):
+def build_encoder(name: str, in_channels: int = 3, **overrides):
     cls, kw = ENCODERS[name.lower()]
-    return cls(in_channels, **kw)
+    return cls(in_channels, **{**kw, **overrides})

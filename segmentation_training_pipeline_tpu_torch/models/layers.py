@@ -10,9 +10,9 @@ inside).  Three conventions of the flax reference are kept exactly:
     conv pads asymmetrically (the 7×7/2 stem pads (2, 3), a 3×3/2 conv
     (0, 1)), which a symmetric ``padding=k//2`` gets wrong.
   * BatchNorm with flax's running-statistics rule: running = m·running +
-    (1 − m)·batch with m = 0.9 (PyTorch's momentum 0.1; EfficientNet uses
-    0.99 and eps 1e-3), and the BIASED batch variance (PyTorch folds in
-    the unbiased one).  In training mode
+    (1 − m)·batch with m = 0.9 (PyTorch's momentum 0.1; the Keras-derived
+    graphs use Keras's 0.99 and eps 1e-3, MobileNetV2 0.999), and the
+    BIASED batch variance (PyTorch folds in the unbiased one).  In training mode
     the layer leaves its updated statistics in ``updated``; the caller
     collects them (``models.factory.apply_model``).
   * Initialisation as flax's defaults: conv kernels from
@@ -22,28 +22,40 @@ inside).  Three conventions of the flax reference are kept exactly:
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 Tensor = torch.Tensor
+Size2 = Union[int, Tuple[int, int]]
+
+
+def _pair(v: Size2) -> Tuple[int, int]:
+    return (v, v) if isinstance(v, int) else (int(v[0]), int(v[1]))
 
 
 def same_pads(n: int, k: int, s: int) -> Tuple[int, int]:
-    """XLA's SAME padding (low, high) of one spatial axis."""
+    """XLA's SAME padding (low, high) of one spatial axis for a window of
+    ``k`` taps (a dilated kernel's EFFECTIVE size (k − 1)·r + 1, as XLA
+    counts it)."""
     out = -(-n // s)
     total = max((out - 1) * s + k - n, 0)
     return total // 2, total - total // 2
 
 
-def pad_same(x: Tensor, k: int, s: int, value: float = 0.0) -> Tensor:
-    """Pad an NCHW tensor for a VALID k×k / s window to act as SAME."""
-    (t, b), (l, r) = (same_pads(x.shape[2], k, s),
-                      same_pads(x.shape[3], k, s))
+def pad_same(x: Tensor, k: Size2, s: int, value: float = 0.0) -> Tensor:
+    """Pad an NCHW tensor for a VALID k×k (or (kh, kw), effective sizes)
+    / s window to act as SAME."""
+    kh, kw = _pair(k)
+    (t, b), (l, r) = (same_pads(x.shape[2], kh, s),
+                      same_pads(x.shape[3], kw, s))
     if t == b == l == r == 0:
         return x
     return F.pad(x, (l, r, t, b), value=value)
@@ -55,21 +67,27 @@ _TRUNC_STD = 0.87962566103423978
 
 
 class Conv(nn.Module):
-    """k×k convolution with XLA SAME padding (flax ``nn.Conv``)."""
+    """k×k or (kh, kw) convolution, optionally dilated, with XLA SAME
+    padding (flax ``nn.Conv``; ``groups`` is its ``feature_group_count``,
+    ``dilation`` its ``kernel_dilation``)."""
 
-    def __init__(self, in_channels: int, out_channels: int, kernel: int = 3,
-                 stride: int = 1, bias: bool = False, groups: int = 1):
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel: Size2 = 3, stride: int = 1, bias: bool = False,
+                 groups: int = 1, dilation: int = 1):
         super().__init__()
-        self.kernel = kernel
+        self.kernel = _pair(kernel)
         self.stride = stride
         self.groups = groups
+        self.dilation = dilation
+        # the window XLA pads for: (k − 1)·r + 1 taps per axis
+        self.span = tuple((k - 1) * dilation + 1 for k in self.kernel)
         self.weight = nn.Parameter(torch.empty(
-            out_channels, in_channels // groups, kernel, kernel))
+            out_channels, in_channels // groups, *self.kernel))
         self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
 
     def reset_parameters(self, gen: torch.Generator) -> None:
-        # flax's fan_in of a grouped conv: in/groups · k · k
-        fan_in = self.weight.shape[1] * self.kernel * self.kernel
+        # flax's fan_in of a grouped conv: in/groups · kh · kw
+        fan_in = self.weight[0].numel()
         std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
         with torch.no_grad():
             nn.init.trunc_normal_(self.weight, 0.0, std, -2.0 * std,
@@ -78,22 +96,25 @@ class Conv(nn.Module):
                 self.bias.zero_()
 
     def forward(self, x: Tensor) -> Tensor:
-        k, s, g = self.kernel, self.stride, self.groups
-        if s == 1 and k % 2 == 1:
-            return F.conv2d(x, self.weight, self.bias, 1, k // 2, 1, g)
-        return F.conv2d(pad_same(x, k, s), self.weight, self.bias, s, 0, 1,
-                        g)
+        (eh, ew), s, r, g = self.span, self.stride, self.dilation, self.groups
+        if s == 1 and eh % 2 == 1 and ew % 2 == 1:
+            # SAME pads an odd window at stride 1 by (e − 1)/2 both sides
+            return F.conv2d(x, self.weight, self.bias, 1, (eh // 2, ew // 2),
+                            r, g)
+        return F.conv2d(pad_same(x, self.span, s), self.weight, self.bias, s,
+                        0, r, g)
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm over NCHW channels with flax's statistics rule."""
+    """BatchNorm over NCHW channels with flax's statistics rule.
+    ``scale=False`` is flax's ``use_scale=False`` (no ``weight``)."""
 
     def __init__(self, channels: int, momentum: float = 0.9,
-                 eps: float = 1e-5):
+                 eps: float = 1e-5, scale: bool = True):
         super().__init__()
         self.momentum = momentum       # flax convention (decay of running)
         self.eps = eps
-        self.weight = nn.Parameter(torch.ones(channels))
+        self.weight = nn.Parameter(torch.ones(channels)) if scale else None
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
@@ -101,18 +122,23 @@ class BatchNorm(nn.Module):
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         with torch.no_grad():
-            self.weight.fill_(1.0)
+            if self.weight is not None:
+                self.weight.fill_(1.0)
             self.bias.zero_()
             self.running_mean.zero_()
             self.running_var.fill_(1.0)
 
     def forward(self, x: Tensor, train: bool = False) -> Tensor:
+        # without a scale, a constant 1 (exact): cuDNN's backward returns
+        # no bias gradient when the weight is absent
+        weight = self.weight if self.weight is not None else \
+            torch.ones_like(self.bias)
         if not train:
             return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, False, 0.0, self.eps)
+                                weight, self.bias, False, 0.0, self.eps)
         mean = self.running_mean.clone()
         var = self.running_var.clone()
-        y = F.batch_norm(x, mean, var, self.weight, self.bias, True,
+        y = F.batch_norm(x, mean, var, weight, self.bias, True,
                          1.0 - self.momentum, self.eps)
         # PyTorch blended in the unbiased batch variance n/(n−1)·v; flax
         # blends the biased v: rescale the blended-in part by (n−1)/n
@@ -123,15 +149,16 @@ class BatchNorm(nn.Module):
 
 
 class ConvBN(nn.Module):
-    """Conv (``groups`` as flax's ``feature_group_count``) → BatchNorm →
-    ReLU (optional)."""
+    """Conv (``groups`` as flax's ``feature_group_count``) → BatchNorm
+    (``momentum``, ``eps``) → ReLU (optional)."""
 
-    def __init__(self, in_channels: int, features: int, kernel: int = 3,
-                 stride: int = 1, act: bool = True, groups: int = 1):
+    def __init__(self, in_channels: int, features: int, kernel: Size2 = 3,
+                 stride: int = 1, act: bool = True, groups: int = 1,
+                 momentum: float = 0.9, eps: float = 1e-5):
         super().__init__()
         self.conv = Conv(in_channels, features, kernel, stride,
                          groups=groups)
-        self.bn = BatchNorm(features)
+        self.bn = BatchNorm(features, momentum, eps)
         self.act = act
 
     def forward(self, x: Tensor, train: bool = False) -> Tensor:
@@ -142,6 +169,20 @@ class ConvBN(nn.Module):
 def max_pool_same(x: Tensor, k: int = 3, s: int = 2) -> Tensor:
     """k×k / s max-pool with SAME padding by −inf (flax ``nn.max_pool``)."""
     return F.max_pool2d(pad_same(x, k, s, value=float("-inf")), k, s)
+
+
+def avg_pool_same(x: Tensor, k: int = 3, s: int = 1,
+                  count_include_pad: bool = True) -> Tensor:
+    """k×k / s average pool with XLA SAME padding (flax ``nn.avg_pool(…,
+    padding="SAME")``): the window sum over the zero-padded input divided
+    by k² (``count_include_pad=True``) or by the number of real inputs in
+    the window (``False``, flax computes that count by pooling ones)."""
+    sums = F.avg_pool2d(pad_same(x, k, s), k, s, divisor_override=1)
+    if count_include_pad:
+        return sums / (k * k)
+    ones = torch.ones((1, 1, *x.shape[2:]), dtype=x.dtype, device=x.device)
+    return sums / F.avg_pool2d(pad_same(ones, k, s), k, s,
+                               divisor_override=1)
 
 
 def linear_resize_matrix(n: int, m: int, dtype=np.float32) -> np.ndarray:
@@ -175,6 +216,10 @@ def resize_to(x: Tensor, h: int, w: int, method: str = "nearest") -> Tensor:
     that shrinks takes JAX's weight matrices in ``x``'s dtype instead."""
     if tuple(x.shape[2:]) == (h, w):
         return x
+    if tuple(x.shape[2:]) == (1, 1) and method in ("nearest", "bilinear"):
+        # one source pixel: both methods copy it (JAX's one bilinear
+        # weight normalises to exactly 1)
+        return x.expand(-1, -1, h, w)
     if method == "nearest":
         with torch.autocast(x.device.type, enabled=False):
             return F.interpolate(x, size=(h, w), mode="nearest-exact")
@@ -233,6 +278,71 @@ class DropPath(nn.Module):
         keep = 1.0 - self.rate
         m = self.keep_mask.to(x.dtype).view(-1, 1, 1, 1)
         return x * m / keep
+
+
+class Dropout(nn.Module):
+    """Element-wise dropout as flax's ``nn.Dropout``: in training each
+    value is kept and scaled by 1/keep, or zeroed.  The keep mask (x's
+    shape, bool) is ``keep_mask`` when the caller binds one (as the tests
+    do with the JAX step's draw), else drawn from PyTorch's global
+    generator, which ``torch.utils.checkpoint`` replays on recomputation."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+        self.keep_mask: Optional[Tensor] = None
+
+    def forward(self, x: Tensor, train: bool = False) -> Tensor:
+        if self.rate == 0.0 or not train:
+            return x
+        keep = 1.0 - self.rate
+        mask = self.keep_mask
+        if mask is None:
+            mask = torch.rand(x.shape, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                       device=x.device))
+
+
+@contextlib.contextmanager
+def bound_masks(module: nn.Module, masks: Optional[Dict[str, Tensor]],
+                prefix: str):
+    """Bind ``masks`` (model-level name → keep mask) to the ``DropPath``
+    and ``Dropout`` layers of ``module``, whose names in the model start
+    with ``prefix``, for a block."""
+    bound = []
+    for n, m in module.named_modules(prefix=prefix):
+        if isinstance(m, (DropPath, Dropout)) and masks and n in masks:
+            m.keep_mask = masks[n]
+            bound.append(m)
+    try:
+        yield
+    finally:
+        for m in bound:
+            m.keep_mask = None
+
+
+def run_part(module: nn.Module, prefix: str, masks, remat: bool, *args,
+             train: bool = False):
+    """``module(*args, train)`` with the keep masks of its layers bound;
+    with ``remat`` (and autograd recording) under ``torch.utils.checkpoint``
+    (non-reentrant), the JAX package's ``nn.remat``: the backward pass
+    recomputes the part's activations instead of keeping them.  The
+    recomputation runs after the caller's ``functional_call`` has put the
+    module's own tensors back, so the part's parameters and buffers as
+    they are now go in as an argument and are put back in for it, and the
+    masks are bound again: the recomputed forward is the same function of
+    the same values, drop masks and global generator state included."""
+    if not (remat and torch.is_grad_enabled()):
+        with bound_masks(module, masks, prefix):
+            return module(*args, train)
+    tensors = {**dict(module.named_parameters()),
+               **dict(module.named_buffers())}
+
+    def call(tensors, *a):
+        with bound_masks(module, masks, prefix):
+            return functional_call(module, tensors, (*a, train))
+
+    return checkpoint(call, tensors, *args, use_reentrant=False)
 
 
 def round_filters(filters: float, multiplier: float, divisor: int = 8) -> int:

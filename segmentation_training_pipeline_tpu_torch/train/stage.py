@@ -20,9 +20,13 @@ epoch, so no step waits for the host.  The augmentation draws come from one
 ``random_state·1000 + fold·10 + stage``; they are not threefry's, so the
 same seed does not give the JAX package's draws.
 
+``debug: true`` fails the fit on the first train step with a non-finite
+loss, gradient or parameter (``FloatingPointError``, as the JAX package's
+``jax_debug_nans``); ``debug: checks`` also runs each step under
+autograd's anomaly mode (``train/step.py``).  Nothing is caught.
+
 Not ported yet (each raises ``NotImplementedError``): a ``mesh:`` of more
-than one device, ``debug:``, ``encoder_weights`` and (in the model factory)
-``remat: true``.
+than one device and ``encoder_weights``.
 """
 
 from __future__ import annotations
@@ -123,8 +127,6 @@ def fit_pipeline(cfg, dataset, foldsToExecute: Optional[Sequence[int]] = None,
     of its train loop (ended by the copy of its logs to the host), of the
     wait for its first batch within it, of validation and of the
     checkpoint, and its train steps and images."""
-    if cfg.debug:
-        raise _not_ported("`debug:` (NaN checks)")
     if cfg.mesh and math.prod(int(v) for v in cfg.mesh.values()) > 1:
         raise _not_ported(f"`mesh: {cfg.mesh}` (more than one device)")
     verbose = cfg.verbose if verbose is None else verbose
@@ -202,7 +204,8 @@ def fit_pipeline(cfg, dataset, foldsToExecute: Optional[Sequence[int]] = None,
             tx = build_optimizer(cfg, freeze_encoder=frozen)
             train_step = build_train_step(
                 model, tx, loss_fn, metric_fns, cfg.activation,
-                cfg.preprocessing, aug=aug, transform=transform)
+                cfg.preprocessing, aug=aug, transform=transform,
+                debug=cfg.debug)
             eval_step = build_eval_step(
                 model, loss_fn, metric_fns, cfg.activation, cfg.preprocessing,
                 transform=transform)

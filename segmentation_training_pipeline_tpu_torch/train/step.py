@@ -21,12 +21,24 @@ The step's random draws (the augmentation's and the stochastic-depth keep
 masks) arrive as arguments (``draws``, ``drop_masks``), or are sampled from
 ``gen``.  Eager PyTorch has no counterpart of ``jax.jit``; nothing is
 compiled.
+
+``debug`` (YAML ``debug:``), the counterpart of the JAX package's
+``jax_debug_nans`` and ``checkify``: ``True`` fails the step with
+``FloatingPointError`` (the exception ``jax_debug_nans`` raises) on a
+non-finite loss, before the backward pass, and on a non-finite gradient
+or updated parameter, at the price of two host syncs a step;
+``"checks"`` also runs the forward and backward under
+``torch.autograd.set_detect_anomaly(True, check_nan=True)``, whose error
+names the backward op that made a NaN and is raised as
+``FloatingPointError`` from it.  The anomaly mode is the context
+manager's, restored when the step leaves it.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Union
 
 import torch
 
@@ -60,9 +72,36 @@ def create_train_state(model, tx, device="cuda") -> TrainState:
     return TrainState(params, stats, tx.init(params), 0)
 
 
+def _check_finite(what: str, tensors: Dict[str, Tensor]) -> None:
+    """Raise ``FloatingPointError`` naming the tensors with a NaN or an
+    infinity (one host sync when all are finite)."""
+    if not tensors:
+        return
+    ok = torch.stack([torch.isfinite(t).all() for t in tensors.values()])
+    if not bool(ok.all()):
+        bad = [k for k, good in zip(tensors, ok.tolist()) if not good]
+        raise FloatingPointError(f"debug: non-finite {what}: {bad[:8]}"
+                                 + (f" and {len(bad) - 8} more"
+                                    if len(bad) > 8 else ""))
+
+
+@contextlib.contextmanager
+def _anomaly_checks():
+    """Autograd's anomaly mode with NaN checks for a block; its NaN error
+    raised as ``FloatingPointError``."""
+    with torch.autograd.set_detect_anomaly(True, check_nan=True):
+        try:
+            yield
+        except RuntimeError as e:
+            if "nan" not in str(e).lower():
+                raise
+            raise FloatingPointError(str(e)) from e
+
+
 def build_train_step(model, tx, loss_fn, metric_fns: Dict[str, Callable],
                      activation: str, preprocessing: Optional[str],
-                     aug=None, transform: Optional[Callable] = None):
+                     aug=None, transform: Optional[Callable] = None,
+                     debug: Union[bool, str] = False):
     """→ ``train_step(state, batch, lr, gen=None, draws=None,
     drop_masks=None) -> (state, logs)``.
 
@@ -75,7 +114,8 @@ def build_train_step(model, tx, loss_fn, metric_fns: Dict[str, Callable],
     ``lowering.Augmentation`` whose draws are ``draws`` if given, else
     sampled from ``gen``.  The keep masks of the model's stochastic-depth
     layers (``model.drop_paths()``) are ``drop_masks`` if given, else
-    sampled from ``gen`` after the augmentation's draws."""
+    sampled from ``gen`` after the augmentation's draws.  ``debug``: see
+    the module's notes."""
 
     def train_step(state: TrainState, batch, lr: float,
                    gen: Optional[torch.Generator] = None, draws=None,
@@ -108,20 +148,30 @@ def build_train_step(model, tx, loss_fn, metric_fns: Dict[str, Callable],
         train = {k: state.params[k].detach().requires_grad_(True)
                  for k in names}
         params = {**state.params, **train}
-        logits, new_stats = apply_model(model, params, state.batch_stats, x,
-                                        train=True, drop_masks=drop_masks)
-        loss = (loss_fn.per_example(masks, logits) * w).sum() / wsum
-        # a parameter the loss does not reach (PSPNet reads C3 only, so
-        # the encoder's last two stages) gets a zero gradient, as in JAX
-        grads = dict(zip(names, torch.autograd.grad(
-            loss, list(train.values()), allow_unused=True,
-            materialize_grads=True)))
+        with (_anomaly_checks() if debug == "checks"
+              else contextlib.nullcontext()):
+            logits, new_stats = apply_model(model, params, state.batch_stats,
+                                            x, train=True,
+                                            drop_masks=drop_masks)
+            loss = (loss_fn.per_example(masks, logits) * w).sum() / wsum
+            if debug:
+                _check_finite("loss", {"loss": loss})
+            # a parameter the loss does not reach (PSPNet reads C3 only, so
+            # the encoder's last two stages) gets a zero gradient, as in JAX
+            grads = dict(zip(names, torch.autograd.grad(
+                loss, list(train.values()), allow_unused=True,
+                materialize_grads=True)))
+
         old = {k: state.params[k] for k in names}
         updates, new_opt = tx.update(grads, state.opt_state, old)
         new_params = dict(state.params)
         new_params.update(zip(names, torch._foreach_add(
             list(old.values()), torch._foreach_mul(list(updates.values()),
                                                    -lr))))
+        if debug:
+            _check_finite("gradients or updated parameters", {
+                **{f"grad {k}": g for k, g in grads.items()},
+                **{k: new_params[k] for k in names}})
 
         logs = {"loss": loss.detach()}
         if metric_fns:

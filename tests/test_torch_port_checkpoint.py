@@ -209,8 +209,9 @@ def test_both_packages_write_the_same_sidecar(jax_vars, tmp_path):
     ids=["none", "plain", "preact", "no-variant"])
 def test_variant_follows_the_sidecar(tmp_path, sidecar, want):
     """``encoder_weights`` on a pre-activation backbone implies the JAX
-    package's Keras graph (its ``.h5`` reader is not ported); a sidecar
-    that records the variant decides instead."""
+    package's Keras graph (its ``.h5`` reader is not ported, so that
+    raises); a sidecar that records the variant decides instead, and the
+    ``keras-preact`` graph it pins builds."""
     d = {"architecture": "Unet", "backbone": "resnet34",
          "encoder_weights": "imagenet", "shape": [H, H, 3]}
     tcfg = TC.parse_dict(d, directory=str(tmp_path))
@@ -223,12 +224,11 @@ def test_variant_follows_the_sidecar(tmp_path, sidecar, want):
         return
     assert TF.variant_from_checkpoint(tcfg, [path]) == want
     assert JF.variant_from_checkpoint(jcfg, [path]) == want
-    if want:
-        with pytest.raises(NotImplementedError, match="keras-preact"):
-            TF.model_from_config(tcfg, want)
-    else:
-        assert isinstance(TF.model_from_config(tcfg, want),
-                          TF.SegmentationModel)
+    model = TF.model_from_config(tcfg, want)
+    assert isinstance(model, TF.SegmentationModel)
+    assert model.encoder_variant == want
+    assert type(model.encoder).__name__ == (
+        "PreactResNetEncoder" if want else "ResNetEncoder")
 
 
 def _drop_leaf(var):

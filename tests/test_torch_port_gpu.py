@@ -1,4 +1,5 @@
-"""The CUDA kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card, and
+the scale-free BatchNorm's backward there.
 
 These tests need an sm_90 card, ``nvcc`` and PyTorch built for CUDA, and
 skip elsewhere (the decision is made inside the fixture, never at import).
@@ -363,3 +364,29 @@ def test_prefetcher_copies_pinned_batches_to_the_card(card):
         assert b["image"].is_cuda and b["image"].dtype == torch.uint8
         assert np.array_equal(b["image"].cpu().numpy(), want["image"])
         assert np.array_equal(b["weight"].cpu().numpy(), want["weight"])
+
+
+def test_scale_free_batchnorm_trains_on_the_card(card):
+    """The keras-preact graph's ``bn_data`` has no scale: cuDNN's backward
+    gives no bias gradient for a batch norm without a weight, so the
+    layer passes a constant 1 (``models/layers.py:BatchNorm``).  Its
+    train-mode output and gradients on the card equal the CPU's."""
+    from segmentation_training_pipeline_tpu_torch.models.layers import (
+        BatchNorm)
+
+    x = torch.from_numpy(np.random.RandomState(0).randn(4, 3, 9, 7).astype(
+        np.float32))
+    out = {}
+    for dev in ("cpu", card):
+        bn = BatchNorm(3, 0.99, 1e-3, scale=False).to(dev)
+        with torch.no_grad():
+            bn.bias.copy_(torch.tensor([0.1, -0.2, 0.3]))
+        xd = x.to(dev).detach().clone().requires_grad_(True)
+        y = bn(xd, train=True)
+        (y * torch.arange(y.numel(), device=dev).view_as(y).sin()).sum(
+            ).backward()
+        out[str(dev)] = [t.detach().cpu() for t in (y, xd.grad, bn.bias.grad)]
+    assert bn.weight is None
+    for cpu, gpu in zip(out["cpu"], out[str(card)]):
+        assert cpu.shape == gpu.shape
+        torch.testing.assert_close(gpu, cpu, rtol=1e-5, atol=1e-5)

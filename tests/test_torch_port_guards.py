@@ -157,17 +157,21 @@ def test_config_parses_the_fpn_example():
 
 @pytest.mark.parametrize("patch,exc,match", [
     ({"archtecture": "Unet"}, TC.ConfigError, "Did you mean 'architecture'"),
-    ({"architecture": "FPN", "backbone": "senet154"}, NotImplementedError,
-     "backbone 'senet154' is not yet ported"),
-    ({"backbone": "efficientnetb0", "architecture": "DeepLabV3"},
-     NotImplementedError, "architecture 'DeepLabV3' is not yet ported"),
+    ({"architecture": "FPN", "backbone": "senet154",
+      "augmentation": {"CoarseDropout": {"p": 0.1}}}, NotImplementedError,
+     "augmenter 'CoarseDropout' is not yet ported"),
+    ({"backbone": "efficientnetb0", "architecture": "DeepLabV3",
+      "augmentation": {"Rot90": [1, 3]}}, NotImplementedError,
+     "augmenter 'Rot90' is not yet ported"),
     ({"backbone": "resnet43"}, TC.ConfigError, "Did you mean"),
     ({"optimizer": "SGDD"}, TC.ConfigError, "Did you mean 'SGD'"),
     ({"augmentation": {"PiecewiseAffine": {"scale": 0.01}}},
      NotImplementedError, "augmenter 'PiecewiseAffine' is not yet ported"),
     ({"loss": "dice_los"}, ValueError, "Did you mean 'dice_loss'"),
-    ({"backbone": "vgg16"}, NotImplementedError,
-     "backbone 'vgg16' is not yet ported"),
+    ({"backbone": "vgg16", "augmentation": {"AdditiveGaussianNoise":
+                                            {"scale": 5}}},
+     NotImplementedError, "augmenter 'AdditiveGaussianNoise' is not yet "
+     "ported"),
     ({"augmentation": {"GaussianBlur": {"sigma": 1}}}, NotImplementedError,
      "not yet ported"),
     ({"augmentation": {"Fliplrr": 0.5}}, TC.ConfigError, "Did you mean"),

@@ -126,8 +126,14 @@ def test_encoder_table_pins_the_jax_specs(name):
 
 
 def test_ported_encoders_are_the_resnet_family_and_efficientnets():
-    assert set(ENCODERS) == set(RESNET_FAMILY) | {
-        f"efficientnetb{i}" for i in range(8)}
+    """The port's table now holds every name of the JAX table (34
+    backbones and the ``mobilenetv1`` alias), the ResNet family and the
+    EfficientNets among them."""
+    assert set(ENCODERS) == set(JSPECS)
+    assert len(ENCODERS) == 35 and ENCODERS["mobilenetv1"] == ENCODERS[
+        "mobilenet"]
+    assert set(RESNET_FAMILY) | {f"efficientnetb{i}" for i in range(8)} \
+        <= set(ENCODERS)
     for name in ENCODERS:
         assert ENCODERS[name][1] == JSPECS[name][1], name
 
@@ -332,12 +338,17 @@ def test_bridge_round_trips_every_new_name(models, arch):
     assert "encoder.stage1_block1.conv3.weight" in names
 
 
-@pytest.mark.parametrize("arch,exc", [("DeepLabV3", NotImplementedError),
-                                      ("deeplab", NotImplementedError),
+@pytest.mark.parametrize("arch,exc", [("DeepLabV3", None),
+                                      ("deeplab", None),
                                       ("SegNet", KeyError)])
 def test_unported_and_unknown_architectures_raise(arch, exc):
-    with pytest.raises(exc, match="not yet ported" if exc is
-                       NotImplementedError else "known"):
+    """DeepLabV3 and its aliases are ported now and build; an unknown
+    name still raises."""
+    if exc is None:
+        assert TF.create_model(arch, "resnet50", CLASSES).architecture \
+            == arch
+        return
+    with pytest.raises(exc, match="known"):
         TF.create_model(arch, "resnet50", CLASSES)
 
 

@@ -126,17 +126,23 @@ def capture_drop_masks(store):
     training-mode ``DropPath`` of the JAX models draws its keep mask as
     the module itself does (one ``make_rng("dropout")``, a bernoulli) and
     records it in ``store`` under the port's module name, as a (B,) bool
-    array.  Works inside ``jit`` (the mask leaves through
-    ``jax.debug.callback``); call ``jax.effects_barrier()`` before
-    reading."""
+    array; and every training-mode ``nn.Dropout`` too, under its flax path
+    with "/" → ".", as a bool array of the input's shape (NHWC).  Works
+    inside ``jit`` (the mask leaves through ``jax.debug.callback``); call
+    ``jax.effects_barrier()`` before reading."""
     import flax.linen as fnn
     from segmentation_training_pipeline_tpu.models import layers as JLY
 
     def put(name, m):
         store[name] = np.asarray(m).reshape(-1).astype(bool)
 
+    def put_full(name, m):
+        store[name] = np.asarray(m).astype(bool)
+
     def intercept(next_fun, args, kwargs, context):
         mod = context.module
+        if isinstance(mod, fnn.Dropout) and context.method_name == "__call__":
+            return dropout(mod, next_fun, args, kwargs)
         if (not isinstance(mod, JLY.DropPath)
                 or context.method_name != "__call__"):
             return next_fun(*args, **kwargs)
@@ -149,6 +155,20 @@ def capture_drop_masks(store):
                                     (x.shape[0], 1, 1, 1))
         jax.debug.callback(lambda m, n=".".join(mod.path): put(n, m), mask)
         return x * mask.astype(x.dtype) / keep
+
+    def dropout(mod, next_fun, args, kwargs):
+        # flax's own Dropout.__call__, its draw recorded
+        x = args[0]
+        det = kwargs.get("deterministic")
+        det = mod.deterministic if det is None else det
+        if mod.rate == 0.0 or det or mod.broadcast_dims:
+            return next_fun(*args, **kwargs)
+        keep = 1.0 - mod.rate
+        mask = jax.random.bernoulli(mod.make_rng(mod.rng_collection), keep,
+                                    x.shape)
+        jax.debug.callback(lambda m, n=".".join(mod.path): put_full(n, m),
+                           mask)
+        return jax.lax.select(mask, x / keep, jnp.zeros_like(x))
 
     return fnn.intercept_methods(intercept)
 
