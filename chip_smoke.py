@@ -99,14 +99,38 @@ line with its seconds; any failure raises and the script exits non-zero:
      to 2: the JAX CSV columns, a ``done`` checkpoint, no kernel launch,
      then ``cfg.load`` and ``predict_all_to_dir`` writing class-index
      masks in [0, 7]; train img/s, the epoch split and peak memory;
+  12b. pretrained: ``encoder_weights: imagenet`` from a temporary
+     ``STP_PRETRAINED_DIR`` (``STP_REQUIRE_PRETRAINED`` set): a
+     torchvision-named resnet34 state dict written from the seed with
+     ``torch.save`` loads into Unet-resnet34, whose encoder on the card
+     equals the file bit for bit, and its ``.npz`` export loads to the same
+     tensors; with ``h5py`` (its presence is on the device line), a
+     Keras-named preact resnet34 ``.h5`` makes the factory build
+     ``keras-preact`` and loads bit for bit; then 10 bf16 train steps at
+     512² B16 from the ``.pt`` under ``GEO_BLOCK`` (the geometric entries
+     of ``examples/kitchen_sink.yaml``, its fixed sizes scaled to 512²),
+     which takes the exact gather (K far above 64): every X, Y or elastic
+     launch of the first step held bit for bit (none on that route), the
+     route printed, a falling loss, img/s, peak memory, and three profiled
+     steps for the device's busy and idle time;
+  12c. geo_paths: each geometric name alone through ``Augmentation.apply``
+     at 512² B16, Rot90 also on a 384×512 frame, two field blocks with
+     K ≤ 64 and ``GEO_BLOCK``: the route, the block's ms (CUDA events,
+     median of 10), one block's launches (its route's kernels once each),
+     each launch held bit for bit against its plain version; on the
+     gather's blocks the card against the CPU on the same draws, and
+     ``warp_joint`` itself on one set of matrices and field on both
+     devices (TF32 off);
   13. the ``kernels`` summary line, then the last line
      ``{"ok": true, "device": {...}}``.
 
 ``--profile FILE`` profiles three more steps of each train phase and
 three more ``predict_probs`` calls of the serve phase (``FILE`` for Unet,
-``FILE`` with ``_fpn``, ``_deeplab``, ``_psp`` or ``_serve`` before its
-suffix for FPN, DeepLab, PSPNet and serve), and traces epoch 1 of each fit
-stage (the fits' own ``profile:``) for its device busy time.
+``FILE`` with ``_fpn``, ``_deeplab``, ``_psp``, ``_serve`` or
+``_pretrained`` before its suffix for FPN, DeepLab, PSPNet, serve and the
+pretrained phase, whose three steps are profiled in every run), and traces
+epoch 1 of each fit stage (the fits' own ``profile:``) for its device busy
+time.
 """
 
 from __future__ import annotations
@@ -134,7 +158,9 @@ from segmentation_training_pipeline_tpu_torch.data import batcher as BA
 from segmentation_training_pipeline_tpu_torch.data import synthetic as SY
 from segmentation_training_pipeline_tpu_torch.data.datasets import (
     DirectoryDataSet, LambdaDataSet)
+from segmentation_training_pipeline_tpu_torch.models import bridge as BR
 from segmentation_training_pipeline_tpu_torch.models import factory as MF
+from segmentation_training_pipeline_tpu_torch.models import pretrained as PT
 from segmentation_training_pipeline_tpu_torch.ops import losses as LO
 from segmentation_training_pipeline_tpu_torch.ops import metrics as ME
 from segmentation_training_pipeline_tpu_torch.ops.aug import elastic as EL
@@ -142,6 +168,7 @@ from segmentation_training_pipeline_tpu_torch.ops.aug import fast_warp as MP
 from segmentation_training_pipeline_tpu_torch.ops.aug import fused_warp as FW
 from segmentation_training_pipeline_tpu_torch.ops.aug import lowering as LW
 from segmentation_training_pipeline_tpu_torch.ops.aug import shear as SH
+from segmentation_training_pipeline_tpu_torch.ops.aug import warp as WP
 from segmentation_training_pipeline_tpu_torch.train import checkpoint as CK
 from segmentation_training_pipeline_tpu_torch.train import optimizers as OP
 from segmentation_training_pipeline_tpu_torch.train import stage as SG
@@ -220,6 +247,58 @@ _CSRC = "segmentation_training_pipeline_tpu_torch/csrc/"
 SOURCES = {"warp_x": _CSRC + "warp_xy.cu", "warp_y": _CSRC + "warp_xy.cu",
            "elastic": _CSRC + "elastic.cu", "shear": _CSRC + "shear.cu",
            "warp_ye": _CSRC + "warp_xy.cu"}
+# the geometric entries of examples/kitchen_sink.yaml, its PadToFixedSize
+# (420) and CenterCropToFixedSize (352) scaled from its 384² frame to 512²
+GEO_BLOCK = {
+    "Fliplr": 0.5,
+    "Rot90": [0, 3],
+    "Affine": {"rotate": [-25, 25], "scale": {"x": [0.85, 1.2],
+                                              "y": [0.85, 1.2]},
+               "translate_percent": [-0.05, 0.05], "shear": [-8, 8],
+               "cval": [0, 255]},
+    "CropAndPad": {"percent": [-0.08, 0.08]},
+    "PadToFixedSize": {"width": 560, "height": 560, "pad_cval": 16},
+    "CenterCropToFixedSize": {"width": 469, "height": 469},
+    "ElasticTransformation": {"alpha": [0, 30], "sigma": [4, 7]},
+    "PiecewiseAffine": {"scale": [0.01, 0.03]},
+}
+# the geo_paths phase: each geometric name alone at 512² (and Rot90 on a
+# 384×512 frame), two field ops with K ≤ 64 that reach the elastic
+# kernel, and GEO_BLOCK whole: (case, frame, block)
+GEO_CASES = [
+    ("rot90", (SIZE, SIZE), {"Rot90": [0, 3]}),
+    ("rot90_384x512", (384, SIZE), {"Rot90": [0, 3]}),
+    ("crop", (SIZE, SIZE), {"Crop": {"percent": [0, 0.1]}}),
+    ("cropandpad", (SIZE, SIZE), {"CropAndPad": {"percent": [-0.08, 0.08]}}),
+    ("pad", (SIZE, SIZE), {"Pad": {"px": [0, 48]}}),
+    ("croptofixedsize", (SIZE, SIZE),
+     {"CropToFixedSize": {"width": 448, "height": 400}}),
+    ("randomcrop", (SIZE, SIZE), {"RandomCrop": {"width": 448,
+                                                 "height": 448}}),
+    ("padtofixedsize", (SIZE, SIZE),
+     {"PadToFixedSize": {"width": 560, "height": 560}}),
+    ("centercroptofixedsize", (SIZE, SIZE),
+     {"CenterCropToFixedSize": {"width": 469, "height": 469}}),
+    ("piecewiseaffine", (SIZE, SIZE),
+     {"PiecewiseAffine": {"scale": [0.01, 0.03]}}),
+    ("perspectivetransform", (SIZE, SIZE),
+     {"PerspectiveTransform": {"scale": [0.0, 0.06]}}),
+    ("piecewiseaffine_k57", (SIZE, SIZE),
+     {"PiecewiseAffine": {"scale": [0.005, 0.015]}}),
+    ("affine_perspective_k57", (SIZE, SIZE),
+     {"Affine": {"rotate": [-10, 10]},
+      "PerspectiveTransform": {"scale": [0.0, 0.015]}}),
+    ("kitchen_sink_geo", (SIZE, SIZE), GEO_BLOCK),
+]
+# the kernels each route launches once per block
+ROUTE_KERNELS = {"flips": (), "gather": (), "multipass": ("warp_x", "warp_y"),
+                 "elastic": ("elastic",),
+                 "multipass+elastic": ("warp_x", "warp_y", "elastic"),
+                 "multipass ye": ("warp_x", "warp_ye")}
+# the exact gather on the card against the CPU on the same matrices and
+# field: one IEEE operation per PyTorch op on either side
+GATHER_IMG_ATOL = 1e-4
+
 # the three paths of the warp and the environment that selects each
 PATHS = {"default": {}, "fuse_elastic": {"STP_FUSE_ELASTIC": "1"},
          "unfused": {"STP_PALLAS_WARP": "0"}}
@@ -333,7 +412,8 @@ def phase_device() -> dict:
                 count=torch.cuda.device_count(), torch=torch.__version__,
                 cuda=torch.version.cuda, capability=list(cap),
                 nproc=os.cpu_count(),
-                imports={m: _imports(m) for m in ("cv2", "msgpack")},
+                imports={m: _imports(m) for m in ("cv2", "msgpack",
+                                                  "h5py")},
                 opencv_cxx=_opencv_probe())
     emit("device", **info)
     if cap != (9, 0):
@@ -699,18 +779,19 @@ def phase_warp_paths(aug, imgs, masks, draws) -> dict:
 
 def phase_train(name: str, cfg, imgs, masks, steps: int, seed: int,
                 expect: dict, profile: str = "", hold: tuple = (),
-                **extra) -> dict:
-    """``steps`` train steps of ``cfg``'s model (``remat`` included),
-    loss (with its class weights), optimizer, lr and augmentation on the
-    fixed batch; the launch counts of the run must be ``expect`` times
-    ``steps`` (every other kernel 0).  The kernels in ``hold`` are held bit
-    for bit against their plain versions on the arguments the first step
-    gave them, after the counts are read.  ``extra`` goes into the emitted
-    line."""
+                model=None, **extra) -> dict:
+    """``steps`` train steps of ``cfg``'s model (``remat`` included; or
+    ``model``, already on the card), loss (with its class weights),
+    optimizer, lr and augmentation on the fixed batch; the launch counts
+    of the run must be ``expect`` times ``steps`` (every other kernel 0).
+    The kernels in ``hold`` are held bit for bit against their plain
+    versions on the arguments the first step gave them, after the counts
+    are read.  ``extra`` goes into the emitted line."""
     dev = imgs.device
-    model = MF.init_model(MF.create_model(cfg.architecture, cfg.backbone,
-                                          cfg.classes, dtype=cfg.dtype,
-                                          remat=cfg.remat), seed, dev)
+    if model is None:
+        model = MF.init_model(MF.create_model(
+            cfg.architecture, cfg.backbone, cfg.classes, dtype=cfg.dtype,
+            remat=cfg.remat), seed, dev)
     tx = OP.build_optimizer(cfg)
     state = ST.create_train_state(model, tx, dev)
     step = ST.build_train_step(
@@ -1311,6 +1392,241 @@ def phase_remat(cfg, imgs, masks, seed: int) -> dict:
     return out
 
 
+def _torchvision_key(name: str) -> str:
+    """The port's ResNet encoder parameter ``name`` → its torchvision
+    state-dict key (``stem_conv`` → ``conv1``, ``stage2_block1.bn_down`` →
+    ``layer2.0.downsample.1``, …)."""
+    mod, leaf = name.rsplit(".", 1)
+    if mod in ("stem_conv", "stem_bn"):
+        return f"{'conv1' if mod == 'stem_conv' else 'bn1'}.{leaf}"
+    block, part = mod.split(".")
+    stage, b = block[len("stage"):].split("_block")
+    part = {"downsample": "downsample.0", "bn_down": "downsample.1"}.get(
+        part, part)
+    return f"layer{stage}.{int(b) - 1}.{part}.{leaf}"
+
+
+def torchvision_resnet_state(model, seed: int) -> dict:
+    """A torchvision-named state dict for ``model``'s ResNet encoder,
+    values from ``seed`` at a trained network's scales (kernels
+    N(0, 1/fan_in), BatchNorm near the identity), with torchvision's
+    ``num_batches_tracked`` counters and its ``fc`` head."""
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for name, t in model.encoder.state_dict().items():
+        r = torch.randn(t.shape, generator=gen)
+        if t.dim() == 4:
+            v = r / math.sqrt(t[0].numel())
+        elif name.endswith("running_var"):
+            v = 0.5 * r.abs() + 0.5
+        elif name.endswith("weight"):
+            v = 1.0 + 0.1 * r
+        else:
+            v = 0.1 * r
+        key = _torchvision_key(name)
+        out[key] = v
+        if key.endswith("running_var"):
+            out[key[:-len("running_var")] + "num_batches_tracked"] = (
+                torch.tensor(1000))
+    out["fc.weight"] = torch.randn((1000, 512), generator=gen) * 0.01
+    out["fc.bias"] = torch.zeros(1000)
+    return out
+
+
+def _write_preact_h5(path: str, model, seed: int) -> dict:
+    """A Keras-named (classification_models) pre-activation resnet34 file
+    for ``model``'s ``keras-preact`` encoder, values from ``seed``; returns
+    ``{layer: {weight: array}}`` as written."""
+    import h5py
+
+    tree = BR.jax_from_state_dict(model.state_dict())
+    params, stats = tree["params"]["encoder"], tree["batch_stats"]["encoder"]
+    r = np.random.RandomState(seed)
+    layers = {}
+    for name, sub in params.items():
+        if "kernel" in sub:
+            k = sub["kernel"]
+            layers[name] = {"kernel": (r.randn(*k.shape) / math.sqrt(
+                k[..., 0].size)).astype(np.float32)}
+            continue
+        n = sub["bias"].shape[0]
+        w = {"beta": 0.1 * r.randn(n), "moving_mean": 0.1 * r.randn(n),
+             "moving_variance": 0.5 * np.abs(r.randn(n)) + 0.5}
+        if "scale" in sub:
+            w["gamma"] = 1.0 + 0.1 * r.randn(n)
+        layers[name] = {k: v.astype(np.float32) for k, v in w.items()}
+    with h5py.File(path, "w") as f:
+        f.attrs["layer_names"] = np.array([n.encode() for n in layers])
+        for name, ws in layers.items():
+            g = f.create_group(name)
+            g.attrs["weight_names"] = np.array(
+                [f"{name}/{k}:0".encode() for k in ws])
+            for k, v in ws.items():
+                g.create_dataset(f"{name}/{k}:0", data=v)
+    return layers
+
+
+def _geo_cfg(**over):
+    return CF.parse_dict({"architecture": "Unet", "backbone": "resnet34",
+                          "loss": LOSS, "optimizer": "Adam", "lr": LR,
+                          "batch": BATCH, "augmentation": GEO_BLOCK,
+                          "metrics": ["dice", "iou"], **over})
+
+
+def phase_pretrained(imgs, masks, seed: int, profile: str) -> dict:
+    """``encoder_weights: imagenet`` from a temporary STP_PRETRAINED_DIR:
+    a torchvision-named resnet34 ``.pt`` and its ``.npz`` export load into
+    Unet-resnet34 on the card bit for bit; a Keras preact ``.h5`` (if
+    ``h5py`` imports) selects ``keras-preact`` and loads bit for bit; then
+    10 bf16 train steps at 512² B16 from the ``.pt`` under GEO_BLOCK, the
+    kernels it launches held bit for bit on the first step, and three
+    profiled steps for the device's busy and idle time."""
+    tmp = tempfile.mkdtemp(prefix="stp_pretrained_")
+    try:
+        with env({"STP_PRETRAINED_DIR": tmp, "STP_REQUIRE_PRETRAINED": "1"}):
+            return _pretrained(tmp, imgs, masks, seed, profile)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _pretrained(tmp, imgs, masks, seed, profile) -> dict:
+    cfg = _geo_cfg(encoder_weights="imagenet")
+    check(MF._variant_for_config(cfg) == "", "no .h5: the plain graph")
+    model = MF.init_model(MF.model_from_config(cfg), seed, "cpu")
+    state = torchvision_resnet_state(model, seed + 7)
+    torch.save(state, os.path.join(tmp, "resnet34.pt"))
+    t0 = time.perf_counter()
+    check(PT.load_into_model(model, cfg.backbone, cfg.encoder_weights),
+          "imagenet resolves to resnet34.pt")
+    load_s = time.perf_counter() - t0
+    model.cuda()
+    on_card = {n: t.cpu() for n, t in model.encoder.state_dict().items()}
+    pt_equal = all(torch.equal(t, state[_torchvision_key(n)])
+                   for n, t in on_card.items())
+    check(pt_equal, "encoder on the card equals the .pt bit for bit")
+    npz = os.path.join(tmp, "resnet34-export.npz")
+    PT.export_encoder_npz(npz, BR.jax_from_state_dict(
+        {n: t.cpu() for n, t in model.state_dict().items()}))
+    other = MF.init_model(MF.model_from_config(cfg), seed + 1, "cpu")
+    PT.load_into_model(other, cfg.backbone, npz)
+    npz_equal = all(torch.equal(t, on_card[n])
+                    for n, t in other.encoder.state_dict().items())
+    check(npz_equal, "the .npz export loads to the same tensors")
+    h5 = _pretrained_h5(cfg, seed)
+    aug = LW.build_augmentation(cfg.augmentation)
+    routes = [seg.route(SIZE, SIZE) for seg in aug.segments]
+    check(routes == ["gather"], ("GEO_BLOCK's route at 512²", routes))
+    kbound = aug.segments[0].kbound(SIZE, SIZE)
+    out = phase_train("pretrained", cfg, imgs, masks, STEPS, seed, {},
+                      profile or os.path.join(tmp, "profile.txt"),
+                      hold=("warp_x", "warp_y", "elastic"),
+                      model=model, encoder_weights="imagenet (.pt)",
+                      load_s=load_s, pt_bit_for_bit=pt_equal,
+                      npz_bit_for_bit=npz_equal, h5=h5, routes=routes,
+                      kbound=kbound)
+    return out
+
+
+def _pretrained_h5(cfg, seed) -> dict:
+    """The Keras leg: with ``resnet34.h5`` in the directory, the factory
+    builds ``keras-preact`` and the file loads bit for bit.  Reported, not
+    skipped, when ``h5py`` is missing."""
+    if not _imports("h5py"):
+        return {"h5py": False}
+    root = os.path.join(os.environ["STP_PRETRAINED_DIR"], "h5")
+    os.makedirs(root)
+    with env({"STP_PRETRAINED_DIR": root}):
+        layers = _write_preact_h5(os.path.join(root, "resnet34.h5"),
+                                  MF.create_model(
+                                      "Unet", "resnet34",
+                                      encoder_variant="keras-preact"),
+                                  seed + 9)
+        variant = MF._variant_for_config(cfg)
+        check(variant == "keras-preact", ("an .h5 selects", variant))
+        model = MF.init_model(MF.model_from_config(cfg), seed, "cpu")
+        check(type(model.encoder).__name__ == "PreactResNetEncoder",
+              "keras-preact graph")
+        check(PT.load_into_model(model, cfg.backbone, cfg.encoder_weights),
+              "imagenet resolves to resnet34.h5")
+    model.cuda()
+    tree = BR.jax_from_state_dict(
+        {n: t.cpu() for n, t in model.state_dict().items()})
+    enc_p, enc_s = tree["params"]["encoder"], tree["batch_stats"]["encoder"]
+    names = {"gamma": ("scale", enc_p), "beta": ("bias", enc_p),
+             "moving_mean": ("mean", enc_s),
+             "moving_variance": ("var", enc_s), "kernel": ("kernel", enc_p)}
+    equal = all(np.array_equal(names[k][1][layer][names[k][0]], v)
+                for layer, ws in layers.items() for k, v in ws.items())
+    check(equal, "the .h5 loads bit for bit")
+    return {"h5py": True, "variant": variant, "layers": len(layers),
+            "bit_for_bit": equal}
+
+
+def phase_geo_paths(seed: int) -> dict:
+    """Each geometric name alone through ``Augmentation.apply`` at 512²
+    B16 (Rot90 also on a 384×512 frame), two field blocks with K ≤ 64 and
+    GEO_BLOCK: the route, the block's ms (CUDA events, median of 10), the
+    launches of one block (those of its route, once each), every launch
+    held bit for bit against its plain version; the gather's blocks
+    against the CPU on the same draws, and ``warp_joint`` itself on the
+    same matrices and field (TF32 off)."""
+    out = {}
+    for case, (h, w), spec in GEO_CASES:
+        aug = LW.build_augmentation(spec)
+        route = aug.segments[0].route(h, w)
+        imgs, masks = synthetic_batch(BATCH, h, w, seed + 3)
+        imgs, masks = torch.from_numpy(imgs), torch.from_numpy(masks)
+        draws = aug.sample(torch.Generator().manual_seed(seed), BATCH, h, w)
+        gi, gm, gd = imgs.cuda(), masks.cuda(), _to(draws, "cuda")
+        K.reset_launches()
+        with captured(list(WRAPPERS), {}) as calls:
+            out_i, out_m = aug.apply(gd, gi, gm)
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        _check_augmented(out_i, out_m, case)
+        want = {n: int(n in ROUTE_KERNELS[route]) for n in K.KERNELS}
+        check(launches == want, (case, route, launches))
+        row = dict(frame=[h, w], route=route,
+                   kbound=aug.segments[0].kbound(h, w), launches=launches,
+                   held_to_plain=held_to_plain(calls, case),
+                   block_ms=cuda_ms(lambda: aug.apply(gd, gi, gm), 10))
+        if route == "gather":
+            with no_tf32():
+                row.update(_gather_vs_cpu(aug, draws, imgs, masks, out_i,
+                                          out_m, case))
+        out[case] = row
+        emit("geo_paths", case=case, **row)
+    return out
+
+
+def _gather_vs_cpu(aug, draws, imgs, masks, out_i, out_m, case) -> dict:
+    """The card's block against the CPU's on the same draws (sin, cos and
+    the fields round differently there: REF_IMG_ATOL, REF_MASK_SHARE), and
+    ``warp_joint`` on the first segment's matrices and field as the card
+    computed them, on both devices (GATHER_IMG_ATOL, masks equal)."""
+    ci, cm = aug.apply(draws, imgs, masks)
+    block_err = float((out_i.cpu() - ci).abs().max())
+    block_mis = mask_mismatch(out_m.cpu(), cm)
+    check(block_err <= REF_IMG_ATOL and block_mis <= REF_MASK_SHARE,
+          (case, "gather block card vs CPU", block_err, block_mis))
+    b, h, w = imgs.shape[:3]
+    mats = WP.rot90s(h, w, torch.arange(b) % 4).cuda()
+    r = torch.Generator().manual_seed(b + h)
+    disp = tuple(4.0 * torch.randn((b, h, w), generator=r) for _ in range(2))
+    g = WP.warp_joint(imgs.cuda().float(), masks.cuda(), mats,
+                      tuple(d.cuda() for d in disp), 16.0, gather_u8=True)
+    c = WP.warp_joint(imgs.float(), masks, mats.cpu(), disp, 16.0,
+                      gather_u8=True)
+    gather_err = float((g[0].cpu() - c[0]).abs().max())
+    check(gather_err <= GATHER_IMG_ATOL and torch.equal(g[1].cpu(), c[1]),
+          (case, "warp_joint card vs CPU", gather_err))
+    return dict(cpu_block_max_err=block_err, cpu_block_mask_mismatch=block_mis,
+                warp_joint_max_err=gather_err,
+                tolerance=dict(block_img_atol=REF_IMG_ATOL,
+                               block_mask_share=REF_MASK_SHARE,
+                               warp_joint_img_atol=GATHER_IMG_ATOL))
+
+
 def _profile_path(base: str, tag: str) -> str:
     """``base`` with ``_tag`` before its suffix ("" when not profiling)."""
     if not base:
@@ -1373,6 +1689,9 @@ def main(argv=None) -> int:
     timed("serve", phase_serve, SEED, _profile_path(a.profile, "serve"))
     timed("fit", phase_fit, SEED, bool(a.profile))
     timed("fit_psp", phase_fit_psp, SEED, bool(a.profile))
+    timed("pretrained", phase_pretrained, imgs, masks, SEED,
+          _profile_path(a.profile, "pretrained"))
+    timed("geo_paths", phase_geo_paths, SEED)
     # launches on each kernel's main path: X, Y and elastic in the Unet
     # step, YE in the FPN step, the shear in the unfused warp path
     launches = dict(train["launches"], warp_ye=train_fpn["launches"][

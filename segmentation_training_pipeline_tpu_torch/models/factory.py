@@ -36,6 +36,7 @@ from .decoders.unet import UnetDecoder
 from .encoders import ENCODERS
 from .encoders.resnet import PreactResNetEncoder
 from .layers import BatchNorm, Conv, DropPath, resize_to, run_part
+from .pretrained import resolve_pretrained_path
 
 Tensor = torch.Tensor
 
@@ -49,11 +50,6 @@ DECODERS = {"unet": UnetDecoder, "fpn": FPNDecoder,
             "deeplabv3+": DeepLabV3PlusDecoder,
             "deeplabv3plus": DeepLabV3PlusDecoder,
             "deeplab": DeepLabV3PlusDecoder}
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not yet ported to the torch "
-                               "package")
 
 
 class SegmentationModel(nn.Module):
@@ -173,15 +169,15 @@ _PREACT_BACKBONES = frozenset({
 
 
 def _variant_for_config(cfg) -> str:
-    """The encoder variant the config's weights imply: the JAX package
-    picks ``keras-preact`` when ``encoder_weights`` resolves to a Keras
-    ``.h5`` for a pre-activation backbone (``models/pretrained.py``, not
-    ported), so that case raises; every other config is ``""``.  A
-    checkpoint's sidecar that pins the variant builds it
-    (``variant_from_checkpoint``)."""
-    if cfg.encoder_weights and cfg.backbone.lower() in _PREACT_BACKBONES:
-        raise _not_ported(f"encoder_weights {cfg.encoder_weights!r} for "
-                          f"{cfg.backbone} (models/pretrained.py)")
+    """Keras ``.h5`` weights for a classification_models-era resnet imply
+    the pre-activation graph, decided when the model is built so that the
+    weights load one to one; every other config is ``""``.  A checkpoint's
+    sidecar that pins the variant builds it (``variant_from_checkpoint``)."""
+    spec = cfg.encoder_weights
+    if spec and cfg.backbone.lower() in _PREACT_BACKBONES:
+        path = resolve_pretrained_path(cfg.backbone, spec, quiet=True)
+        if path and path.endswith((".h5", ".hdf5")):
+            return "keras-preact"
     return ""
 
 

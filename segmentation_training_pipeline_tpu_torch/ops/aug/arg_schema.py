@@ -38,20 +38,44 @@ def _def(name: str, allowed: Set[str], unsupported: Dict[str, str] = None,
         _LOOKUP[n.lower()] = key
 
 
+_STATIC_SHAPE = ("output shapes are static; the lowered form always keeps "
+                 "the input shape (resize-back) — remove it")
+
 _def("Fliplr", {"p"}, aliases=("HorizontalFlip",))
 _def("Flipud", {"p"}, aliases=("VerticalFlip",))
+_def("Rot90", {"k", "keep_size"})
 _def("Affine", {"scale", "translate_percent", "translate_px", "rotate",
                 "shear", "cval", "mode"},
      {"order": _FIXED_INTERP,
       "backend": "there is no cv2/skimage backend choice — the warp is one "
                  "fused on-device kernel; remove it",
-      "fit_output": "output shapes are static; the lowered form always "
-                    "keeps the input shape — remove it"})
+      "fit_output": _STATIC_SHAPE})
+_def("Crop", {"px", "percent", "keep_size", "cval", "mode"},
+     {"sample_independently": "sides always sample independently here — "
+                              "remove it (it is the imgaug default)"})
+_CAP_UNSUP = {"sample_independently": "sides always sample independently "
+                                      "here — remove it"}
+_def("CropAndPad", {"px", "percent", "pad_mode", "pad_cval", "keep_size",
+                    "cval", "mode"}, _CAP_UNSUP)
+_def("Pad", {"px", "percent", "pad_mode", "pad_cval", "keep_size", "cval",
+             "mode"}, _CAP_UNSUP)
+_def("CropToFixedSize", {"width", "height", "position"},
+     aliases=("RandomCrop",))
+_def("PadToFixedSize", {"width", "height", "position", "pad_mode",
+                        "pad_cval", "cval", "mode"})
+_def("CenterCropToFixedSize", {"width", "height"})
 _def("ElasticTransformation", {"alpha", "sigma", "cval", "mode"},
      {"order": _FIXED_INTERP,
       "polygon_recoverer": "polygon targets are not part of this pipeline "
                            "(images + segmentation masks only)"},
      aliases=("ElasticTransform", "Elastic"))
+_def("PiecewiseAffine", {"scale", "nb_rows", "nb_cols", "cval", "mode"},
+     {"order": _FIXED_INTERP,
+      "absolute_scale": "scale is always relative to the image dimension "
+                        "here — convert to a fraction",
+      "polygon_recoverer": "polygon targets are not part of this pipeline"})
+_def("PerspectiveTransform", {"scale", "cval", "mode", "keep_size"},
+     {"fit_output": _STATIC_SHAPE})
 _def("Multiply", {"mul", "per_channel"})
 
 

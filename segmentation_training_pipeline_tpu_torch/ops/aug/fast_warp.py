@@ -90,7 +90,7 @@ def _decompose_nok(mats: Tensor):
     return s1, e1, e2, tpx, tpy, s2
 
 
-def _rot90_select(x: Tensor, k: Tensor) -> Tensor:
+def rot90_select(x: Tensor, k: Tensor) -> Tensor:
     """Per-image np.rot90 by k ∈ {0..3} of a square NHWC batch."""
     kb = k[:, None, None, None]
     t = x.transpose(1, 2)
@@ -241,8 +241,8 @@ def warp_joint_multipass(images: Tensor, masks: Tensor, mats: Tensor,
     img, msk = images, masks
     if h == w:
         k, s1, e1, e2, tx, ty, s2 = _decompose(mats, h, w)
-        img = _rot90_select(img, k)
-        msk = _rot90_select(msk, k)
+        img = rot90_select(img, k)
+        msk = rot90_select(msk, k)
     else:
         s1, e1, e2, tx, ty, s2 = _decompose_nok(mats)
     # centre the shears about the image midpoint and fold the induced

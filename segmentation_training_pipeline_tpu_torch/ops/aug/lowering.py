@@ -3,33 +3,40 @@
 Counterpart of ``segmentation_training_pipeline_tpu/ops/aug/lowering.py``
 (``build_augmentation``).  The block compiles the same way: contiguous
 runs of geometric augmenters fold into one per-image inverse affine (plus
-an elastic displacement field) applied by ONE warp of images (bilinear)
-and masks (nearest); photometric augmenters apply elementwise after, in
-the user's order.
+a displacement field from ElasticTransformation, PiecewiseAffine and
+PerspectiveTransform) applied by ONE warp of images (bilinear) and masks
+(nearest); photometric augmenters apply elementwise after, in the user's
+order.  Crop, CropAndPad, Pad and the fixed-size crops and pads keep the
+frame's shape (the window is resized back, the reference's static-shape
+deviation from imgaug), so they are affine factors too.
 
 Randomness is explicit.  ``Augmentation.sample(gen, b, h, w)`` draws every
 random value of the block from a ``torch.Generator`` (the distributions of
-the JAX lowering: bernoulli flips; uniform scale, translate, rotate and
-alpha; uniform noise fields for the elastic field; the Multiply factor),
-and ``Augmentation.apply(draws, images, masks)`` is deterministic.  The
-tests make the draws with ``jax.random`` along the reference's key schedule
-and hand the same values to both sides.
+the JAX lowering), and ``Augmentation.apply(draws, images, masks)`` is
+deterministic.  The tests make the draws with ``jax.random`` along the
+reference's key schedule and hand the same values to both sides.
 
-Paths, as on the TPU:
-  * flips only → reverse + select (``_apply_cheap_geo``);
-  * affine → ``fast_warp.warp_joint_multipass`` (kernels X and Y);
-  * affine + elastic → the multipass warp, then the elastic kernel on the
-    residual field D' = A⁻¹·D clipped to ±K; with ``STP_FUSE_ELASTIC`` set
-    (default off, read as the JAX lowering reads it) the field rides the
-    multipass warp instead, and kernel YE replaces Y and the elastic kernel;
-  * elastic only → the elastic kernel on the raw field.
+Paths (``_GeoRun.route``), chosen as the JAX lowering chooses them on the
+TPU:
+  * flips, and rot90 on a square frame → reverse + select;
+  * affine only → ``fast_warp.warp_joint_multipass`` (kernels X and Y);
+  * affine + a field bounded by K ≤ 64 → the multipass warp, then the
+    elastic kernel on the residual field D' = A⁻¹·D clipped to ±K; with
+    ``STP_FUSE_ELASTIC`` set (default off, read as the JAX lowering reads
+    it) the field rides the multipass warp instead, and kernel YE replaces
+    Y and the elastic kernel;
+  * a field alone, K ≤ 64 → the elastic kernel on the raw field;
+  * anything else (K > 64, a shear bound beyond the canvas, rot90 or
+    rotations of 60° or more on non-square frames) → the exact footprint
+    gather (``warp.warp_joint``), a PyTorch gather as the reference's is
+    an XLA gather.
 ``STP_PALLAS_WARP=0`` sends the multipass warp down its unfused path (the
 shear kernel twice around two f32 matmuls, see ``fast_warp``).  Neither
 switch routes a CUDA tensor to a plain version: each picks between
 hand-written kernels, as the JAX switches pick between Pallas kernels.
-Configurations the JAX package sends to its exact footprint gather (K > 64,
-a shear bound beyond the canvas, non-square frames with rotations of 60° or
-more) raise ``NotImplementedError``, as does every augmenter not yet ported.
+A ``cval``/``pad_cval`` fill is applied as warp(image − cval) + cval, exact
+for a constant fill (the last one of a run wins: a warp has one fill).
+Every augmenter not yet ported raises ``NotImplementedError``.
 
 Parameter forms: scalar → fixed value (probability for flips); [lo, hi] →
 uniform per image; [a, b, c, ...] → uniform choice per image;
@@ -43,6 +50,7 @@ import os
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from . import elastic as EL
 from . import fast_warp as FW
@@ -59,8 +67,14 @@ _GEOMETRIC = {"fliplr", "horizontalflip", "flipud", "verticalflip", "rot90",
               "elastictransformation", "elastictransform", "elastic",
               "piecewiseaffine", "perspectivetransform"}
 _FLIPS = {"fliplr", "horizontalflip", "flipud", "verticalflip"}
+_CHEAP_GEO = _FLIPS | {"rot90"}
+_CROPS = {"crop", "cropandpad", "pad"}
+_FIXED_SIZE = {"croptofixedsize", "randomcrop", "padtofixedsize",
+               "centercroptofixedsize"}
 _ELASTIC_NAMES = {"elastictransformation", "elastictransform", "elastic"}
-PORTED_AUGMENTERS = _FLIPS | {"affine", "multiply"} | _ELASTIC_NAMES
+# ops that contribute a displacement FIELD, not an affine factor
+_DISP_NAMES = _ELASTIC_NAMES | {"piecewiseaffine", "perspectivetransform"}
+PORTED_AUGMENTERS = _GEOMETRIC | {"multiply"}
 
 
 def not_ported(what: str) -> NotImplementedError:
@@ -109,6 +123,53 @@ def _flip_p(args) -> float:
     if isinstance(args, (int, float)):
         return float(args)
     return float((args or {}).get("p", 0.5))
+
+
+def _percent_arg(args: Any, default: Any) -> Any:
+    """Crop/CropAndPad/Pad percent spec: dict {percent: ...}, bare scalar,
+    or bare range list all mean the per-side fraction distribution."""
+    if isinstance(args, dict):
+        return args.get("percent", default)
+    return default if args is None else args
+
+
+def _as_list(v) -> List[Any]:
+    return list(v) if isinstance(v, (list, tuple)) else [v]
+
+
+def _abs_values(v) -> List[float]:
+    """|values| of a scalar, a range, a list or an {x, y} dict of them."""
+    vals = list(v.values()) if isinstance(v, dict) else _as_list(v)
+    return [abs(float(x)) for e in vals for x in _as_list(e)]
+
+
+def _check_geo_args(spec: Dict[str, Any], name: str, cval_spec: Any) -> Any:
+    """Refuse what the lowering cannot honour, as the JAX lowering does;
+    returns the run's fill value spec (``cval``/``pad_cval``: the last one
+    in the run wins, a warp has one fill region)."""
+    a = spec.get("args")
+    if name in _FIXED_SIZE and not (
+            isinstance(a, dict) and (a.get("width") is not None
+                                     or a.get("height") is not None)):
+        raise ValueError(
+            f"{spec['name']} needs {{width: ..., height: ...}} (imgaug "
+            "requires them; omit one to leave that axis unchanged) — "
+            "without them it would be a silent no-op")
+    if not isinstance(a, dict):
+        return cval_spec
+    for key in ("mode", "pad_mode"):
+        if a.get(key) not in (None, "constant"):
+            raise ValueError(f"{spec['name']}: only {key}='constant' fill is "
+                             f"supported (got {a.get(key)!r})")
+    for key in ("px", "percent"):
+        v = a.get(key)
+        if isinstance(v, (list, tuple)) and len(v) == 4 and name in _CROPS:
+            raise ValueError(
+                f"{spec['name']}: the imgaug 4-tuple per-side {key} form "
+                "(top, right, bottom, left) is not lowered — each side "
+                "samples independently from a scalar or [lo, hi] range")
+    cv = a.get("cval", a.get("pad_cval"))
+    return cval_spec if cv is None else cv
 
 
 def _static_bounds(spec, default) -> Tuple[float, float]:
@@ -161,6 +222,86 @@ def _sample_xy(gen: torch.Generator, spec: Any, b: int,
     return v, v
 
 
+def _sample_k(gen: torch.Generator, args: Any, b: int) -> Tensor:
+    """Rot90's k per image: [lo, hi] uniform over the integers, a longer
+    list a choice, a scalar fixed; default [0, 3]."""
+    spec = args if args is not None else [0, 3]
+    spec = spec.get("k") if isinstance(spec, dict) else spec
+    if isinstance(spec, (list, tuple)) and len(spec) == 2:
+        return torch.randint(int(spec[0]), int(spec[1]) + 1, (b,),
+                             generator=gen, device=gen.device)
+    if isinstance(spec, (list, tuple)):
+        idx = torch.randint(0, len(spec), (b,), generator=gen,
+                            device=gen.device)
+        return torch.tensor([int(v) for v in spec], device=gen.device)[idx]
+    return torch.full((b,), int(spec), dtype=torch.long, device=gen.device)
+
+
+# ---------------------------------------------------------------------------
+# displacement fields of PiecewiseAffine and PerspectiveTransform
+# ---------------------------------------------------------------------------
+
+def solve_homography(dst: Tensor, src: Tensor) -> Tensor:
+    """DLT: per-image 3×3 H with H·(dst, 1) ∝ (src, 1) from 4 point pairs;
+    dst/src (B, 4, 2) as (x, y) → (B, 3, 3) with H[2, 2] = 1."""
+    b = dst.shape[0]
+    xd, yd = dst[..., 0], dst[..., 1]
+    xs, ys = src[..., 0], src[..., 1]
+    zeros, ones = torch.zeros_like(xd), torch.ones_like(xd)
+    # rows for x': [xd, yd, 1, 0, 0, 0, -xd*xs, -yd*xs] · h = xs
+    rx = torch.stack([xd, yd, ones, zeros, zeros, zeros, -xd * xs, -yd * xs],
+                     dim=-1)
+    ry = torch.stack([zeros, zeros, zeros, xd, yd, ones, -xd * ys, -yd * ys],
+                     dim=-1)
+    a = torch.cat([rx, ry], dim=1)                              # (B, 8, 8)
+    rhs = torch.cat([xs, ys], dim=1)                            # (B, 8)
+    hvec = torch.linalg.solve(a, rhs[..., None])[..., 0]
+    return torch.cat([hvec, torch.ones((b, 1), dtype=hvec.dtype,
+                                       device=hvec.device)], 1).reshape(b, 3, 3)
+
+
+def perspective_field(offsets: Tensor, scale: Tensor, h: int,
+                      w: int) -> Tuple[Tensor, Tensor]:
+    """imgaug PerspectiveTransform as a displacement field: the corners
+    move inward by |N(0, scale)|·dim (``offsets``: the (B, 4, 2) standard
+    normal draws), the full frame maps onto the jittered quad by a
+    homography, and ``src − dst`` is the field.  (imgaug crops to the
+    quad's box and resizes back: the same up to its box rounding.)"""
+    dev = offsets.device
+    offs = torch.abs(offsets) * scale[:, None, None]
+    offs = offs * torch.tensor([w, h], dtype=torch.float32, device=dev)
+    # corner order: tl, tr, br, bl; inward signs per corner
+    signs = torch.tensor([[1, 1], [-1, 1], [-1, -1], [1, -1]],
+                         dtype=torch.float32, device=dev)
+    dst = torch.tensor([[0, 0], [w - 1, 0], [w - 1, h - 1], [0, h - 1]],
+                       dtype=torch.float32, device=dev)
+    src = dst[None] + offs * signs[None]
+    hm = solve_homography(dst.expand(offs.shape[0], 4, 2), src)
+    gx = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
+    gy = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+    hm = hm[:, None, None]                                   # (B,1,1,3,3)
+    denom = hm[..., 2, 0] * gx + hm[..., 2, 1] * gy + hm[..., 2, 2]
+    denom = torch.where(torch.abs(denom) < 1e-6,
+                        torch.full_like(denom, 1e-6), denom)
+    xs = (hm[..., 0, 0] * gx + hm[..., 0, 1] * gy + hm[..., 0, 2]) / denom
+    ys = (hm[..., 1, 0] * gx + hm[..., 1, 1] * gy + hm[..., 1, 2]) / denom
+    return xs - gx, ys - gy
+
+
+def piecewise_field(coarse: Tensor, scale: Tensor, h: int,
+                    w: int) -> Tuple[Tensor, Tensor]:
+    """imgaug PiecewiseAffine as a smooth field: each of the rows × cols
+    control points moves by N(0, scale·dim) px (``coarse``: the (B, 2,
+    rows, cols) standard normal draws), upsampled bilinearly (half-pixel
+    centres) instead of Delaunay patches — the reference's documented
+    approximation."""
+    dx = coarse[:, 0] * (scale * w)[:, None, None]
+    dy = coarse[:, 1] * (scale * h)[:, None, None]
+    up = F.interpolate(torch.stack([dx, dy], 1), size=(h, w),
+                       mode="bilinear", align_corners=False)
+    return up[:, 0], up[:, 1]
+
+
 # ---------------------------------------------------------------------------
 # geometric runs
 # ---------------------------------------------------------------------------
@@ -168,91 +309,136 @@ def _sample_xy(gen: torch.Generator, spec: Any, b: int,
 class _GeoRun:
     """One contiguous run of geometric augmenters → one fused warp."""
 
-    def __init__(self, geo: List[Dict[str, Any]]):
+    def __init__(self, geo: List[Dict[str, Any]], integer_input: bool = True):
         self.geo = geo
         self.names = [s["name"].lower() for s in geo]
+        # uint8 gather taps only for the block's first segment (decoded
+        # uint8 images); a warp after a photometric sees non-integers
+        self.integer_input = integer_input
+        self.cval_spec = None
         for s, name in zip(geo, self.names):
             if name not in PORTED_AUGMENTERS:
                 raise not_ported(f"augmenter {s['name']!r}")
-            a = s.get("args")
-            if isinstance(a, dict):
-                if a.get("mode") not in (None, "constant"):
-                    raise ValueError(
-                        f"{s['name']}: only mode='constant' fill is "
-                        f"supported (got {a.get('mode')!r})")
-                if a.get("cval") is not None:
-                    raise not_ported(f"{s['name']} cval (the fill shift)")
-        self.cheap = set(self.names) <= _FLIPS
+            self.cval_spec = _check_geo_args(s, name, self.cval_spec)
         self.nonelastic = [s for s, n in zip(geo, self.names)
-                           if n not in _ELASTIC_NAMES]
+                           if n not in _DISP_NAMES]
         self.mag_bound = self._static_magnification()
         self.shear_deg, self.shear_aniso = self._static_shear_tan()
-        self.disp_bound = 0.0
         self.elastic = {}
         for i, (s, name) in enumerate(zip(geo, self.names)):
             if name in _ELASTIC_NAMES:
                 a = s.get("args") or {}
-                _, a_max = _static_bounds(a.get("alpha"), 20.0)
                 sig_min, sig_max = _static_bounds(a.get("sigma"), 5.0)
-                self.disp_bound += W.displacement_bound(a_max, sig_min)
                 # quarter-res field when the blur makes it lossless-ish
                 self.elastic[i] = (W.elastic_radius(sig_max),
                                    4 if sig_min >= 2.0 else 1)
-        # K bound of the elastic kernel: the static field bound scaled by
-        # the forward affine's static magnification, plus a margin
-        self.kbound = int(math.ceil(self.disp_bound * self.mag_bound
-                                    * 1.15)) + 2
 
-    @staticmethod
-    def _affine_values(a: Dict[str, Any], key: str) -> List[float]:
-        v = a.get(key)
-        vals = (list(v.values()) if isinstance(v, dict)
-                else v if isinstance(v, (list, tuple)) else [v])
-        flat: List[float] = []
-        for x in vals:
-            flat += list(x) if isinstance(x, (list, tuple)) else [x]
-        return [abs(float(x)) for x in flat]
+    def is_cheap(self, h: int, w: int) -> bool:
+        """Flips, and rot90 on a square frame: reverse + select, no warp."""
+        names = set(self.names)
+        return names <= _CHEAP_GEO and (h == w or "rot90" not in names)
+
+    def kbound(self, h: int, w: int) -> int:
+        """K of the elastic kernel: the static 6-sigma bound of the run's
+        displacement fields, scaled by the forward affine's static
+        magnification (D' = A₂ₓ₂⁻¹·D grows with zoom-in), plus a
+        margin."""
+        bound = 0.0
+        for s, name in zip(self.geo, self.names):
+            if name in _ELASTIC_NAMES:
+                a = s.get("args") or {}
+                bound += W.displacement_bound(
+                    _static_bounds(a.get("alpha"), 20.0)[1],
+                    _static_bounds(a.get("sigma"), 5.0)[0])
+            elif name in ("piecewiseaffine", "perspectivetransform"):
+                a = _bare(s.get("args"), "scale")
+                default = 0.05 if name == "piecewiseaffine" else 0.06
+                bound += (6.0 * _static_bounds(a.get("scale"), default)[1]
+                          * max(h, w) + 1.0)
+        return int(math.ceil(bound * self.mag_bound * 1.15)) + 2
 
     def _static_magnification(self) -> float:
         """Static bound on how much the forward affine magnifies the
-        elastic displacement (zoom from scale, plus a shear allowance)."""
+        displacement field: zoom from the scale and crop specs, plus a
+        shear allowance."""
         mag = 1.0
         for s in self.nonelastic:
+            name = s["name"].lower()
             a = s.get("args") or {}
-            if s["name"].lower() != "affine":
-                continue
             try:
-                if a.get("scale") is not None:
-                    mag *= max(max(self._affine_values(a, "scale")), 1.0)
-                if a.get("shear") is not None:
-                    smax = max(self._affine_values(a, "shear"))
-                    mag *= 1.0 + math.tan(math.radians(min(smax, 80.0)))
+                if name == "affine":
+                    if a.get("scale") is not None:
+                        mag *= max(max(_abs_values(a["scale"])), 1.0)
+                    if a.get("shear") is not None:
+                        smax = max(_abs_values(a["shear"]))
+                        mag *= 1.0 + math.tan(math.radians(min(smax, 80.0)))
+                elif name == "crop":
+                    if isinstance(a, dict) and "px" in a:
+                        mag *= 4.0   # px/dim unknown statically
+                    else:
+                        pct = _percent_arg(a, [0, 0.1])
+                        pmax = max(float(v) for v in _as_list(pct))
+                        mag *= 1.0 / max(1.0 - 2.0 * pmax, 0.1)
+                elif name in ("cropandpad", "pad"):
+                    if isinstance(a, dict) and "px" in a:
+                        mag *= 4.0
+                    else:
+                        # negative percents crop: a zoom-in
+                        pct = _percent_arg(a, [0, 0.1])
+                        pmin = min(float(v) for v in _as_list(pct))
+                        if pmin < 0:
+                            mag *= 1.0 / max(1.0 + 2.0 * pmin, 0.1)
+                elif name in ("croptofixedsize", "randomcrop",
+                              "centercroptofixedsize"):
+                    # the zoom depends on the input shape: a generous cap
+                    # (PadToFixedSize zooms out: no contribution)
+                    mag *= 4.0
             except (TypeError, ValueError):
-                mag *= 4.0  # unparseable spec: be conservative
+                mag *= 4.0   # unparseable spec: be conservative
         return mag
 
     def _static_shear_tan(self) -> Tuple[float, float]:
         """(rotation + shear degrees, anisotropy) bounding the multipass
-        shear factors: s1 = tan(θ)·(sy/sx)."""
+        shear factors s1 = tan(θ)·(sy/sx): anisotropy multiplies the
+        shear, from Affine's {x, y} scale dicts, the per-side crop and pad
+        fractions and the fixed-size windows."""
         rot = shear = 0.0
         aniso = 1.0
         try:
             for s in self.nonelastic:
+                name = s["name"].lower()
                 a = s.get("args") or {}
-                if s["name"].lower() != "affine":
-                    continue
-                if a.get("rotate") is not None:
-                    rot += max(abs(v) for v in _static_bounds(a["rotate"], 0))
-                sh = a.get("shear")
-                if sh is not None:
-                    spec = list(sh.values()) if isinstance(sh, dict) else sh
-                    shear += max(abs(v) for v in _static_bounds(spec, 0.0))
-                sc = a.get("scale")
-                if isinstance(sc, dict):
-                    los, his = zip(*(_static_bounds(sc.get(ax), 1.0)
-                                     for ax in ("x", "y")))
-                    lo, hi = min(los), max(his)
-                    aniso = math.inf if lo <= 0 else aniso * hi / lo
+                if name == "affine":
+                    if a.get("rotate") is not None:
+                        rot += max(abs(v) for v in
+                                   _static_bounds(a["rotate"], 0.0))
+                    sh = a.get("shear")
+                    if sh is not None:
+                        spec = list(sh.values()) if isinstance(sh, dict) else sh
+                        shear += max(abs(v) for v in _static_bounds(spec, 0.0))
+                    sc = a.get("scale")
+                    if isinstance(sc, dict):
+                        los, his = zip(*(_static_bounds(sc.get(ax), 1.0)
+                                         for ax in ("x", "y")))
+                        lo, hi = min(los), max(his)
+                        aniso = math.inf if lo <= 0 else aniso * hi / lo
+                elif name in _CROPS:
+                    if isinstance(a, dict) and "px" in a:
+                        aniso *= 4.0
+                        continue
+                    lo, hi = _static_bounds(_percent_arg(a, [0, 0.1]), 0.0)
+                    if name == "crop":
+                        lo, hi = -hi, -lo      # crop percent p shrinks by 2p
+                    if name == "pad":
+                        lo = max(lo, 0.0)
+                    aniso *= max(1.0 + 2.0 * hi, 0.1) / max(1.0 + 2.0 * lo,
+                                                            0.1)
+                elif name in _FIXED_SIZE:
+                    wd, ht = a.get("width"), a.get("height")
+                    if wd is not None or ht is not None:
+                        r = (float(wd if wd is not None else ht)
+                             / float(ht if ht is not None else wd))
+                        aniso *= max(r, 1.0 / r)
         except (TypeError, ValueError, ZeroDivisionError):
             return 90.0, 2.0
         return rot + shear, aniso
@@ -270,23 +456,48 @@ class _GeoRun:
         return min(1.0, max(base, t / 2.0 + 12.0 / max(min(h, w), 1)))
 
     def multipass_ok(self, h: int, w: int) -> bool:
+        """The multipass warp extracts rot90s on square frames only, and
+        its factorisation degenerates on non-square frames as the rotation
+        nears 90°; a shear bound beyond the full-dim canvas would clip."""
         if self._shear_tan_for(h == w) > 2.0 - 24.0 / max(min(h, w), 13):
             return False
         if h == w:
             return True
-        for s in self.nonelastic:
-            if s["name"].lower() != "affine":
+        for s, name in zip(self.geo, self.names):
+            if name == "rot90":
+                return False
+            if name != "affine":
                 continue
             r = (s.get("args") or {}).get("rotate")
             if r is None:
                 continue
             try:
-                if max(abs(float(v)) for v in
-                       (r if isinstance(r, (list, tuple)) else [r])) >= 60.0:
+                if max(abs(float(v)) for v in _as_list(r)) >= 60.0:
                     return False
             except (TypeError, ValueError):
                 return False
         return True
+
+    def route(self, h: int, w: int) -> str:
+        """The path this run takes at an H×W frame, as the JAX lowering
+        chooses it: "flips" (reverse + select), "multipass" (kernels X and
+        Y), "multipass+elastic" (X, Y, then the elastic kernel; "multipass
+        ye" under ``STP_FUSE_ELASTIC``: X and YE), "elastic" (a field
+        alone), or "gather" (the exact footprint gather)."""
+        if self.is_cheap(h, w):
+            return "flips"
+        has_disp = len(self.nonelastic) < len(self.geo)
+        if not self.multipass_ok(h, w):
+            return "gather"
+        if not has_disp:
+            return "multipass"
+        if self.kbound(h, w) > 64:
+            return "gather"
+        if not self.nonelastic:
+            return "elastic"
+        if os.environ.get("STP_FUSE_ELASTIC", "0") not in ("0", "false"):
+            return "multipass ye"
+        return "multipass+elastic"
 
     def sample(self, gen: torch.Generator, b: int, h: int, w: int) -> Draws:
         draws = []
@@ -294,6 +505,8 @@ class _GeoRun:
             args = s.get("args")
             if name in _FLIPS:
                 draws.append({"flip": _rand(gen, (b,)) < _flip_p(args)})
+            elif name == "rot90":
+                draws.append({"k": _sample_k(gen, args, b)})
             elif name == "affine":
                 a = args or {}
                 sx, sy = _sample_xy(gen, a.get("scale"), b, 1.0)
@@ -307,6 +520,26 @@ class _GeoRun:
                     shy = torch.zeros_like(shy)
                 draws.append(dict(sx=sx, sy=sy, tx=tx, ty=ty, rot=rot,
                                   shx=shx, shy=shy))
+            elif name in _CROPS:
+                spec = (args["px"] if isinstance(args, dict) and "px" in args
+                        else _percent_arg(args, [0, 0.1]))
+                draws.append({side: _sample(gen, spec, b, 0.0)
+                              for side in ("left", "right", "top", "bottom")})
+            elif name in _FIXED_SIZE:
+                draws.append({"ux": _rand(gen, (b,)), "uy": _rand(gen, (b,))})
+            elif name == "piecewiseaffine":
+                a = _bare(args, "scale")
+                rows, cols = int(a.get("nb_rows", 4)), int(a.get("nb_cols", 4))
+                draws.append({
+                    "scale": _sample(gen, a.get("scale", [0.01, 0.05]), b),
+                    "coarse": torch.randn((b, 2, rows, cols), generator=gen,
+                                          device=gen.device)})
+            elif name == "perspectivetransform":
+                a = _bare(args, "scale")
+                draws.append({
+                    "scale": _sample(gen, a.get("scale", [0.0, 0.06]), b),
+                    "offsets": torch.randn((b, 4, 2), generator=gen,
+                                           device=gen.device)})
             else:
                 a = args or {}
                 radius, stride = self.elastic[i]
@@ -316,64 +549,149 @@ class _GeoRun:
                     sigma=_sample(gen, a.get("sigma", 5.0), b),
                     noise_x=_rand(gen, shape) * 2.0 - 1.0,
                     noise_y=_rand(gen, shape) * 2.0 - 1.0))
+        if self.cval_spec is not None:
+            draws.append({"cval": _sample(gen, self.cval_spec, b, 0.0)})
         return draws
 
     def _apply_cheap(self, draws: Draws, images: Tensor, masks: Tensor):
-        """Flips as reverse + select — no warp."""
+        """Flips and square rot90s as reverse + select — no warp."""
         for name, d in zip(self.names, draws):
+            if name == "rot90":
+                images = FW.rot90_select(images, d["k"])
+                masks = FW.rot90_select(masks, d["k"])
+                continue
             f = d["flip"][:, None, None, None]
             axis = 2 if name in ("fliplr", "horizontalflip") else 1
             images = torch.where(f, images.flip(axis), images)
             masks = torch.where(f, masks.flip(axis), masks)
         return images, masks
 
-    def apply(self, draws: Draws, images: Tensor, masks: Tensor):
-        if self.cheap:
-            return self._apply_cheap(draws, images, masks)
-        b, h, w = images.shape[0], images.shape[1], images.shape[2]
+    def _matrix(self, name: str, a: Any, d: Dict[str, Tensor], b: int,
+                h: int, w: int, device) -> Optional[Tensor]:
+        """The inverse affine of one non-field op (None: the identity)."""
         cx, cy = (w - 1) / 2.0, (h - 1) / 2.0
+        if name in ("fliplr", "horizontalflip"):
+            return W.hflip(w, d["flip"])
+        if name in ("flipud", "verticalflip"):
+            return W.vflip(h, d["flip"])
+        if name == "rot90":
+            return W.rot90s(h, w, d["k"])
+        if name == "affine":
+            a = a or {}
+            m = W.scale_about(cx, cy, d["sx"], d["sy"])
+            tx, ty = d["tx"], d["ty"]
+            if "translate_percent" in a:
+                tx, ty = tx * w, ty * h
+            # inverse translation: src = dst − t
+            m = W.compose(W.translation(-tx, -ty), m)
+            m = W.compose(W.rotation_about(cx, cy,
+                                           d["rot"] * (math.pi / 180.0)), m)
+            return W.compose(W.shear_about(
+                cx, cy, d["shx"] * (math.pi / 180.0),
+                d["shy"] * (math.pi / 180.0)), m)
+        if name in _CROPS:
+            left, right, top, bot = (d["left"], d["right"], d["top"],
+                                     d["bottom"])
+            if isinstance(a, dict) and "px" in a:
+                left, right, top, bot = left / w, right / w, top / h, bot / h
+            if name == "crop":
+                # keep the window [left, 1 − right] × [top, 1 − bottom]
+                return W._mats(b, device, m00=1.0 - left - right,
+                               m11=1.0 - top - bot, m02=left * w,
+                               m12=top * h)
+            if name == "pad":
+                left, right = left.clamp(min=0.0), right.clamp(min=0.0)
+                top, bot = top.clamp(min=0.0), bot.clamp(min=0.0)
+            # imgaug CropAndPad (keep_size): a positive side pads, a
+            # negative one crops; src = (1 + pl + pr)·x − pl·w
+            return W._mats(b, device, m00=1.0 + left + right,
+                           m11=1.0 + top + bot, m02=-left * w, m12=-top * h)
+        a = a or {}
+        if name in ("croptofixedsize", "randomcrop",
+                    "centercroptofixedsize"):
+            # imgaug never crops beyond the image: a larger target no-ops
+            ch = min(float(a.get("height", h)) / h, 1.0)
+            cw = min(float(a.get("width", w)) / w, 1.0)
+            if name == "centercroptofixedsize":
+                if cw >= 1.0 and ch >= 1.0:
+                    return None
+                # the offsets in double precision, as Python numbers
+                return W._mats(b, device, m00=cw, m11=ch,
+                               m02=(1.0 - cw) / 2.0 * w,
+                               m12=(1.0 - ch) / 2.0 * h)
+            if a.get("position") == "center":
+                offx = torch.full((b,), (1.0 - cw) / 2.0, device=device)
+                offy = torch.full((b,), (1.0 - ch) / 2.0, device=device)
+            else:
+                offx, offy = d["ux"] * (1.0 - cw), d["uy"] * (1.0 - ch)
+            return W._mats(b, device, m00=cw, m11=ch, m02=offx * w,
+                           m12=offy * h)
+        # padtofixedsize: pad to at least (height, width), the image at a
+        # random (default) or centred place of the canvas, resized back
+        fh = max(float(a.get("height", h)) / h, 1.0)
+        fw = max(float(a.get("width", w)) / w, 1.0)
+        if fw <= 1.0 and fh <= 1.0:
+            return None
+        if a.get("position") == "center":
+            offx = torch.full((b,), (fw - 1.0) / 2.0, device=device)
+            offy = torch.full((b,), (fh - 1.0) / 2.0, device=device)
+        else:
+            offx, offy = d["ux"] * (fw - 1.0), d["uy"] * (fh - 1.0)
+        return W._mats(b, device, m00=fw, m11=fh, m02=-offx * w,
+                       m12=-offy * h)
+
+    def _field(self, i: int, name: str, d: Dict[str, Tensor], h: int,
+               w: int) -> Tuple[Tensor, Tensor]:
+        """The displacement field (dx, dy) of one field op."""
+        if name == "piecewiseaffine":
+            return piecewise_field(d["coarse"], d["scale"], h, w)
+        if name == "perspectivetransform":
+            return perspective_field(d["offsets"], d["scale"], h, w)
+        radius, stride = self.elastic[i]
+        return W.elastic_field(d["noise_x"], d["noise_y"], h, w, d["alpha"],
+                               d["sigma"], radius, stride)
+
+    def apply(self, draws: Draws, images: Tensor, masks: Tensor):
+        b, h, w = images.shape[0], images.shape[1], images.shape[2]
+        route = self.route(h, w)
+        if route == "flips":
+            return self._apply_cheap(draws, images, masks)
         images = images.float()
         mats = W.identity_mats(b, images.device)
         disp: Optional[Tuple[Tensor, Tensor]] = None
         for i, (s, name, d) in enumerate(zip(self.geo, self.names, draws)):
-            if name in ("fliplr", "horizontalflip"):
-                mats = W.compose(W.hflip(w, d["flip"]), mats)
-            elif name in ("flipud", "verticalflip"):
-                mats = W.compose(W.vflip(h, d["flip"]), mats)
-            elif name == "affine":
-                a = s.get("args") or {}
-                mats = W.compose(W.scale_about(cx, cy, d["sx"], d["sy"]),
-                                 mats)
-                tx, ty = d["tx"], d["ty"]
-                if "translate_percent" in a:
-                    tx, ty = tx * w, ty * h
-                # inverse translation: src = dst − t
-                mats = W.compose(W.translation(-tx, -ty), mats)
-                rot = d["rot"] * (math.pi / 180.0)
-                mats = W.compose(W.rotation_about(cx, cy, rot), mats)
-                mats = W.compose(W.shear_about(
-                    cx, cy, d["shx"] * (math.pi / 180.0),
-                    d["shy"] * (math.pi / 180.0)), mats)
-            else:
-                radius, stride = self.elastic[i]
-                dx, dy = W.elastic_field(d["noise_x"], d["noise_y"], h, w,
-                                         d["alpha"], d["sigma"], radius,
-                                         stride)
+            if name in _DISP_NAMES:
+                dx, dy = self._field(i, name, d, h, w)
                 disp = (dx, dy) if disp is None else (disp[0] + dx,
                                                       disp[1] + dy)
-        if not self.multipass_ok(h, w):
-            raise not_ported("the exact footprint-gather warp (needed for "
-                             f"this shear/rotation range at {h}x{w})")
+                continue
+            m = self._matrix(name, s.get("args"), d, b, h, w, images.device)
+            if m is not None:
+                mats = W.compose(m, mats)
+        cv = None
+        if self.cval_spec is not None:
+            # one warp has one fill: warp(image − cval) + cval
+            cv = draws[len(self.geo)]["cval"][:, None, None, None]
+            images = images - cv
+        images, masks = self._warp(route, images, masks, mats, disp, h, w,
+                                   gather_u8=self.integer_input and cv is None)
+        if cv is not None:
+            images = images + cv
+        return images, masks
+
+    def _warp(self, route: str, images: Tensor, masks: Tensor, mats: Tensor,
+              disp: Optional[Tuple[Tensor, Tensor]], h: int, w: int,
+              gather_u8: bool):
+        if route == "gather":
+            return W.warp_joint(images, masks, mats, disp,
+                                gather_u8=gather_u8)
         pad_frac = self.pad_frac(h, w)
-        if disp is None:
+        if route == "multipass":
             return FW.warp_joint_multipass(images, masks, mats,
                                            pad_frac=pad_frac)
-        k = self.kbound
-        if k > 64:
-            raise not_ported(f"the exact footprint-gather warp (needed for "
-                             f"displacement bound K={k} > 64)")
-        if not self.nonelastic:
-            # elastic only: the affine is the identity — raw field
+        k = self.kbound(h, w)
+        if route == "elastic":
+            # a field alone: the affine is the identity — the raw field
             return EL.warp_elastic_joint(images, masks,
                                          disp[1].clamp(-k, k),
                                          disp[0].clamp(-k, k), k)
@@ -386,7 +704,7 @@ class _GeoRun:
         dxf, dyf = disp
         dxp = ((a11 * dxf - a01 * dyf) / det).clamp(-k, k)
         dyp = ((-a10 * dxf + a00 * dyf) / det).clamp(-k, k)
-        if os.environ.get("STP_FUSE_ELASTIC", "0") not in ("0", "false"):
+        if route == "multipass ye":
             return FW.warp_joint_multipass(images, masks, mats,
                                            pad_frac=pad_frac,
                                            disp=(dxp, dyp), disp_k=k)
@@ -433,8 +751,10 @@ class Augmentation:
                     self.segments.append([s])
             else:
                 self.segments.append(s)
-        self.segments = [_GeoRun(g) if isinstance(g, list) else _Photo(g)
-                         for g in self.segments]
+        # uint8 gather taps only in the first segment (decoded images)
+        self.segments = [_GeoRun(g, integer_input=i == 0)
+                         if isinstance(g, list) else _Photo(g)
+                         for i, g in enumerate(self.segments)]
 
     def sample(self, gen: torch.Generator, b: int, h: int, w: int,
                c: int = 3) -> Draws:

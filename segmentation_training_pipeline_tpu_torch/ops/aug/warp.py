@@ -1,12 +1,17 @@
-"""Inverse-affine matrix algebra and the elastic displacement field.
+"""Inverse-affine matrix algebra, the elastic displacement field and the
+exact footprint-gather warp.
 
-Counterpart of ``segmentation_training_pipeline_tpu/ops/aug/warp.py``
-(``identity_mats`` … ``elastic_field``).  Every geometric augmenter of a
-run contributes a per-image 3×3 INVERSE affine (x = column, y = row); the
-composed matrix and an optional displacement field drive one warp of
-images (bilinear) and masks (nearest).  The exact footprint-gather sampler
-of the JAX module (``warp_joint``) is not ported: configurations that need
-it raise in ``lowering``.
+Counterpart of ``segmentation_training_pipeline_tpu/ops/aug/warp.py``.
+Every geometric augmenter of a run contributes a per-image 3×3 INVERSE
+affine (x = column, y = row); the composed matrix and an optional
+displacement field drive one warp of images (bilinear) and masks
+(nearest).  ``warp_joint`` is the exact single-pass sampler: one gather of
+each output pixel's 2×2 source footprint serves the image (bilinear) and
+the mask (nearest) alike.  The lowering sends it what the hand-written
+kernels cannot take, where the JAX lowering sends its gather: displacement
+bounds K > 64, and frames and rotations the multipass warp cannot
+factor.  It is a PyTorch gather, as the reference's is an XLA gather, not
+a kernel.
 
 All matrix products are f32 multiply-adds written out element by element
 (the reference sets ``precision=HIGHEST``; a TF32 matmul here would move
@@ -16,7 +21,7 @@ coordinates enough to flip nearest-tap mask pixels).
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -81,6 +86,19 @@ def hflip(w: int, flip: Tensor) -> Tensor:
 def vflip(h: int, flip: Tensor) -> Tensor:
     f = flip.float()
     return _mats(f.shape[0], f.device, m11=1.0 - 2.0 * f, m12=f * (h - 1.0))
+
+
+def rot90s(h: int, w: int, k: Tensor) -> Tensor:
+    """Inverse of rot90 applied k ∈ {0, 1, 2, 3} times (``np.rot90``'s
+    direction).  On a non-square frame an odd k also scales so that the
+    output keeps its shape (rot90 + resize, the reference's static-shape
+    deviation from imgaug)."""
+    cx, cy = (w - 1) / 2.0, (h - 1) / 2.0
+    theta = -k.float() * (math.pi / 2.0)
+    odd = (k % 2 == 1).float()
+    sx = 1.0 + odd * ((w / h) - 1.0)
+    sy = 1.0 + odd * ((h / w) - 1.0)
+    return compose(scale_about(cx, cy, sx, sy), rotation_about(cx, cy, theta))
 
 
 # ---------------------------------------------------------------------------
@@ -168,3 +186,106 @@ def displacement_bound(a_max: float, sig_min: float) -> float:
     """Static 6-sigma bound on |displacement| of one elastic op: the
     smoothed-noise std is about alpha / (2·sqrt(pi)·sigma)."""
     return 6.0 * a_max / (2.0 * math.sqrt(math.pi) * max(sig_min, 0.5)) + 1.0
+
+
+# ---------------------------------------------------------------------------
+# the exact sampler
+# ---------------------------------------------------------------------------
+
+def _source_coords(mats: Tensor, h: int, w: int,
+                   disp: Optional[Tuple[Tensor, Tensor]]
+                   ) -> Tuple[Tensor, Tensor]:
+    """Output grid → source (x, y) float coordinates, (B, H, W) each."""
+    gx = torch.arange(w, dtype=torch.float32, device=mats.device)[None, :]
+    gy = torch.arange(h, dtype=torch.float32, device=mats.device)[:, None]
+    a = mats[:, None, None, :, :]
+    x_src = a[..., 0, 0] * gx + a[..., 0, 1] * gy + a[..., 0, 2]
+    y_src = a[..., 1, 0] * gx + a[..., 1, 1] * gy + a[..., 1, 2]
+    if disp is not None:
+        x_src = x_src + disp[0]
+        y_src = y_src + disp[1]
+    return x_src, y_src
+
+
+def _gather2d(img: Tensor, iy: Tensor, ix: Tensor) -> Tensor:
+    """img (B, H, W, C), iy/ix (B, H', W') integer → (B, H', W', C)."""
+    b, h, w = img.shape[:3]
+    flat = img.reshape(b, h * w, -1)
+    rows = torch.arange(b, device=img.device)[:, None, None]
+    return flat[rows, iy * w + ix]
+
+
+def _footprint(x_src: Tensor, y_src: Tensor, h: int, w: int):
+    """Top-left tap (y0, x0) of each 2×2 footprint, kept inside the frame,
+    and the fractional offsets (fy, fx), (B, H, W, 1) each, in [0, 1]."""
+    x0 = torch.clamp(torch.floor(x_src), 0, w - 2)
+    y0 = torch.clamp(torch.floor(y_src), 0, h - 2)
+    fx = torch.clamp(x_src - x0, 0.0, 1.0)[..., None]
+    fy = torch.clamp(y_src - y0, 0.0, 1.0)[..., None]
+    return y0.long(), x0.long(), fy, fx
+
+
+def _taps(joint: Tensor, y0: Tensor, x0: Tensor):
+    """The four footprint taps (00, 01, 10, 11) of ``joint``."""
+    return (_gather2d(joint, y0, x0), _gather2d(joint, y0, x0 + 1),
+            _gather2d(joint, y0 + 1, x0), _gather2d(joint, y0 + 1, x0 + 1))
+
+
+def _bilinear(p00: Tensor, p01: Tensor, p10: Tensor, p11: Tensor,
+              fy: Tensor, fx: Tensor) -> Tensor:
+    return ((1 - fy) * ((1 - fx) * p00 + fx * p01)
+            + fy * ((1 - fx) * p10 + fx * p11))
+
+
+def _outside(x_src: Tensor, y_src: Tensor, h: int, w: int) -> Tensor:
+    return ((x_src < -0.5) | (x_src > w - 0.5)
+            | (y_src < -0.5) | (y_src > h - 0.5))[..., None]
+
+
+def warp_joint(images: Tensor, masks: Tensor, mats: Tensor,
+               disp: Optional[Tuple[Tensor, Tensor]] = None,
+               fill: float = 0.0, gather_u8: bool = False
+               ) -> Tuple[Tensor, Tensor]:
+    """One footprint gather for the image AND mask channels together:
+    bilinear for the image, exact nearest for the mask (the footprint
+    corner the rounded offsets select), so both see the same source
+    coordinates by construction.  Outside the source frame both take
+    ``fill``.  images (B, H, W, C) on 0..255, masks (B, H, W, M) →
+    (images float32, masks in their dtype).
+
+    ``gather_u8``: gather uint8 taps instead of float32, a quarter of the
+    random-access traffic; lossless only for integer images and masks in
+    0..255 (the first segment of the block, on decoded uint8 images)."""
+    b, h, w, c = images.shape
+    x_src, y_src = _source_coords(mats, h, w, disp)
+    gdt = torch.uint8 if gather_u8 else torch.float32
+    joint = torch.cat([images.to(gdt), masks.to(gdt)], dim=-1)
+    y0, x0, fy, fx = _footprint(x_src, y_src, h, w)
+    t00, t01, t10, t11 = _taps(joint, y0, x0)
+    out_img = _bilinear(t00[..., :c].float(), t01[..., :c].float(),
+                        t10[..., :c].float(), t11[..., :c].float(), fy, fx)
+    ry, rx = fy >= 0.5, fx >= 0.5
+    out_mask = torch.where(ry, torch.where(rx, t11[..., c:], t10[..., c:]),
+                           torch.where(rx, t01[..., c:], t00[..., c:]))
+    oob = _outside(x_src, y_src, h, w)
+    out_img = torch.where(oob, torch.full_like(out_img, fill), out_img)
+    out_mask = torch.where(oob, torch.full_like(out_mask, fill), out_mask)
+    return out_img, out_mask.to(masks.dtype)
+
+
+def warp(images: Tensor, mats: Tensor,
+         disp: Optional[Tuple[Tensor, Tensor]] = None,
+         method: str = "bilinear", fill: float = 0.0) -> Tensor:
+    """The composed inverse transform of one tensor: images (B, H, W, C)
+    → float32 (bilinear) or the input dtype (nearest)."""
+    b, h, w, c = images.shape
+    x_src, y_src = _source_coords(mats, h, w, disp)
+    oob = _outside(x_src, y_src, h, w)
+    if method == "nearest":
+        ix = torch.clamp(torch.round(x_src), 0, w - 1).long()
+        iy = torch.clamp(torch.round(y_src), 0, h - 1).long()
+        out = _gather2d(images, iy, ix)
+        return torch.where(oob, torch.full_like(out, fill), out)
+    y0, x0, fy, fx = _footprint(x_src, y_src, h, w)
+    out = _bilinear(*_taps(images.float(), y0, x0), fy, fx)
+    return torch.where(oob, torch.full_like(out, fill), out)

@@ -2,7 +2,9 @@
 
 Counterpart of ``segmentation_training_pipeline_tpu/train/stage.py``
 (``fit_pipeline``): per fold, a model initialised at ``random_state +
-fold``; per stage, the encoder frozen or unfrozen, optional initial
+fold``, its encoder then loaded from ``encoder_weights`` when the config
+names them (``models/pretrained.py``; a named spec with no local file
+warns and trains from scratch); per stage, the encoder frozen or unfrozen, optional initial
 weights, the stage's batch, loss, lr, negatives plan and callbacks, a
 fresh optimizer state, then epochs of train steps and a validation pass.
 The best epoch (``primary_metric``) is checkpointed to
@@ -25,8 +27,8 @@ loss, gradient or parameter (``FloatingPointError``, as the JAX package's
 ``jax_debug_nans``); ``debug: checks`` also runs each step under
 autograd's anomaly mode (``train/step.py``).  Nothing is caught.
 
-Not ported yet (each raises ``NotImplementedError``): a ``mesh:`` of more
-than one device and ``encoder_weights``.
+Not ported yet (raises ``NotImplementedError``): a ``mesh:`` of more than
+one device.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ from ..data.datasets import (CropAndSplitDataSet, KFoldedDataSet,
                              expand_tile_indices)
 from ..models.factory import (init_model, model_from_config,
                               variant_from_checkpoint)
+from ..models.pretrained import load_into_model
 from ..ops import metrics as _metrics
 from ..ops.aug.lowering import build_transform_fn
 from ..ops.losses import build_loss
@@ -162,12 +165,12 @@ def fit_pipeline(cfg, dataset, foldsToExecute: Optional[Sequence[int]] = None,
 
         def ensure_variables(v, fold=fold):
             if v is None:
+                # drawn on the CPU, so the values do not depend on the
+                # device; then the encoder's pretrained weights, if any
+                init_model(model.cpu(), cfg.random_state + fold, "cpu")
                 if cfg.encoder_weights:
-                    raise _not_ported(f"encoder_weights "
-                                      f"{cfg.encoder_weights!r} "
-                                      "(models/pretrained.py)")
-                # drawn on the CPU, so the values do not depend on the device
-                init_model(model.cpu(), cfg.random_state + fold, device)
+                    load_into_model(model, cfg.backbone, cfg.encoder_weights)
+                model.to(device)
                 v = model.state_dict()
             return v
 

@@ -75,7 +75,7 @@ def test_non_square_affine_matches_jax(monkeypatch):
 
 def test_flips_only_is_reverse_select():
     aug = TL.build_augmentation({"Fliplr": 1.0})
-    assert aug.segments[0].cheap
+    assert aug.segments[0].route(16, 16) == "flips"
     imgs, masks = blob_batch(2, 16, 16)
     gen = torch.Generator().manual_seed(0)
     ti, tm = aug(gen, torch.from_numpy(imgs), torch.from_numpy(masks))
@@ -152,9 +152,10 @@ def test_sample_draws_distributions():
 
 
 @pytest.mark.parametrize("spec,match", [
-    ({"Rot90": [0, 3]}, "Rot90"),
+    ({"Sharpen": {"alpha": 0.5}}, "Sharpen"),
     ({"Add": 10}, "Add"),
-    ({"Affine": {"rotate": 10, "cval": 128}}, "cval"),
+    ({"Sometimes": {"p": 0.5, "then": [{"Affine": {"cval": 128}}]}},
+     "Sometimes"),
 ])
 def test_unported_configs_raise_at_build(spec, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -166,9 +167,20 @@ def test_unported_configs_raise_at_build(spec, match):
     # anisotropic scale doubles the shear factors: beyond the canvas
     {"Affine": {"rotate": [-45, 45], "scale": {"x": [0.5, 1.0], "y": 1.0}}},
 ])
-def test_footprint_gather_configs_raise(spec):
+def test_footprint_gather_configs_raise(spec, monkeypatch):
+    """The configurations the JAX package sends to its exact footprint
+    gather (they raised before the gather was ported) take the port's
+    gather, no kernel, and equal the reference on its draws."""
+    interpret_kernels(monkeypatch)
+    imgs, masks = blob_batch(2, 32, 32)
     aug = TL.build_augmentation(spec)
-    imgs, masks = blob_batch(1, 32, 32)
-    with pytest.raises(NotImplementedError, match="footprint-gather"):
-        aug(torch.Generator(), torch.from_numpy(imgs),
-            torch.from_numpy(masks))
+    assert aug.segments[0].route(32, 32) == "gather"
+    key = jax.random.PRNGKey(4)
+    ji, jm = JL.build_augmentation(JL._coerce_block(spec))(
+        key, jnp.asarray(imgs), jnp.asarray(masks))
+    K.reset_launches()
+    ti, tm = aug.apply(jax_draws(aug, key, 2, 32, 32),
+                       torch.from_numpy(imgs), torch.from_numpy(masks))
+    assert K.launch_counts() == {n: 0 for n in K.KERNELS}
+    np.testing.assert_allclose(ti.numpy(), np.asarray(ji), atol=1e-2, rtol=0)
+    np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))

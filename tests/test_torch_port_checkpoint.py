@@ -203,25 +203,23 @@ def test_both_packages_write_the_same_sidecar(jax_vars, tmp_path):
 
 
 @pytest.mark.parametrize("sidecar,want", [
-    (None, NotImplementedError), ({"encoder_variant": ""}, ""),
+    (None, ""), ({"encoder_variant": ""}, ""),
     ({"encoder_variant": "keras-preact"}, "keras-preact"),
-    ({"best": 0.5}, NotImplementedError)],
+    ({"best": 0.5}, "")],
     ids=["none", "plain", "preact", "no-variant"])
-def test_variant_follows_the_sidecar(tmp_path, sidecar, want):
-    """``encoder_weights`` on a pre-activation backbone implies the JAX
-    package's Keras graph (its ``.h5`` reader is not ported, so that
-    raises); a sidecar that records the variant decides instead, and the
-    ``keras-preact`` graph it pins builds."""
+def test_variant_follows_the_sidecar(tmp_path, monkeypatch, sidecar, want):
+    """``encoder_weights`` on a pre-activation backbone implies the Keras
+    graph only when the spec resolves to an ``.h5`` file; here
+    ``imagenet`` resolves to nothing, so without a sidecar that records
+    the variant both packages build the plain graph.  A sidecar that
+    records it decides, and the ``keras-preact`` graph it pins builds."""
+    monkeypatch.setenv("STP_PRETRAINED_DIR", str(tmp_path / "none"))
     d = {"architecture": "Unet", "backbone": "resnet34",
          "encoder_weights": "imagenet", "shape": [H, H, 3]}
     tcfg = TC.parse_dict(d, directory=str(tmp_path))
     jcfg = JC.parse_dict(d, directory=str(tmp_path))
     path = tcfg.weights_path(0, 0)
     TCK.save_checkpoint(path, {"b.bias": torch.zeros(1)}, sidecar)
-    if want is NotImplementedError:
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            TF.variant_from_checkpoint(tcfg, path)
-        return
     assert TF.variant_from_checkpoint(tcfg, [path]) == want
     assert JF.variant_from_checkpoint(jcfg, [path]) == want
     model = TF.model_from_config(tcfg, want)

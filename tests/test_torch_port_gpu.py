@@ -390,3 +390,82 @@ def test_scale_free_batchnorm_trains_on_the_card(card):
     for cpu, gpu in zip(out["cpu"], out[str(card)]):
         assert cpu.shape == gpu.shape
         torch.testing.assert_close(gpu, cpu, rtol=1e-5, atol=1e-5)
+
+
+def _to(x, device):
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    if isinstance(x, dict):
+        return {k: _to(v, device) for k, v in x.items()}
+    return [_to(v, device) for v in x]
+
+
+@pytest.mark.parametrize("b,c,m,h,w,fill,u8,disp", [
+    (2, 3, 1, 64, 64, 0.0, True, False), (1, 1, 1, 37, 101, 0.0, True, True),
+    (3, 5, 2, 96, 48, 9.0, False, True), (1, 3, 1, 2, 2, 0.0, False, False),
+    (2, 3, 1, 33, 1030, 0.0, True, True)])
+def test_exact_gather_on_card_matches_cpu(card, b, c, m, h, w, fill, u8,
+                                          disp):
+    """``warp.warp_joint`` on the card against the CPU: rotations past 90°,
+    zooms that sample outside the frame (the fill), a displacement field,
+    uint8 and f32 taps, a 2×2 frame, one image, odd sizes.  The gather is
+    PyTorch ops, one IEEE operation each on either device: images within
+    1e-4, masks equal."""
+    from segmentation_training_pipeline_tpu_torch.ops.aug import warp as W
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    r = np.random.RandomState(h + w)
+    imgs = torch.from_numpy((r.rand(b, h, w, c) * 255).round().astype(
+        np.float32))
+    masks = torch.from_numpy((r.rand(b, h, w, m) > 0.5).astype(np.float32))
+    theta = torch.from_numpy(r.uniform(-3.1, 3.1, b).astype(np.float32))
+    zoom = torch.from_numpy(r.uniform(0.6, 1.6, b).astype(np.float32))
+    mats = W.compose(W.rotation_about((w - 1) / 2, (h - 1) / 2, theta),
+                     W.scale_about((w - 1) / 2, (h - 1) / 2, zoom, zoom))
+    field = None
+    if disp:
+        field = tuple(torch.from_numpy((4 * r.randn(b, h, w)).astype(
+            np.float32)) for _ in range(2))
+    ci, cm = W.warp_joint(imgs, masks, mats, field, fill, gather_u8=u8)
+    gi, gm = W.warp_joint(imgs.to(card), masks.to(card), mats.to(card),
+                          None if field is None else _to(list(field), card),
+                          fill, gather_u8=u8)
+    assert float((gi.cpu() - ci).abs().max()) <= 1e-4
+    assert torch.equal(gm.cpu(), cm)
+    if h > 2:
+        assert (ci == fill).any()
+
+
+@pytest.mark.parametrize("spec,route,launches", [
+    ({"Rot90": [0, 3]}, "flips", {}),
+    ({"CropAndPad": {"percent": [-0.08, 0.08]}, "Pad": {"px": [0, 9]}},
+     "multipass", {"warp_x": 1, "warp_y": 1}),
+    ({"CenterCropToFixedSize": {"width": 80, "height": 70},
+      "PadToFixedSize": {"width": 120, "height": 120, "pad_cval": 16}},
+     "multipass", {"warp_x": 1, "warp_y": 1}),
+    ({"PiecewiseAffine": {"scale": [0.01, 0.02]}}, "elastic",
+     {"elastic": 1}),
+    ({"Affine": {"rotate": [-10, 10], "cval": [0, 255]},
+      "PerspectiveTransform": {"scale": [0.0, 0.02]}}, "multipass+elastic",
+     {"warp_x": 1, "warp_y": 1, "elastic": 1}),
+    ({"PerspectiveTransform": {"scale": [0.05, 0.1]}}, "gather", {}),
+], ids=["rot90", "crop-pad", "fixed-size", "piecewise", "affine-perspective",
+        "gather"])
+def test_geometric_routes_on_card(card, spec, route, launches):
+    """Each route of the new names launches the kernels it should, and
+    the block on the card agrees with the CPU on the same draws (as the
+    config-2 block: images within 0.05, masks differing in at most 1e-3
+    of the pixels)."""
+    b, h = 2, 96
+    aug = LW.build_augmentation(spec)
+    assert aug.segments[0].route(h, h) == route
+    r = np.random.RandomState(3)
+    imgs = torch.from_numpy((r.rand(b, h, h, 3) * 255).astype(np.uint8))
+    masks = torch.from_numpy((r.rand(b, h, h, 1) > 0.5).astype(np.float32))
+    draws = aug.sample(torch.Generator().manual_seed(2), b, h, h)
+    ci, cm = aug.apply(draws, imgs, masks)
+    K.reset_launches()
+    gi, gm = aug.apply(_to(draws, card), imgs.to(card), masks.to(card))
+    assert K.launch_counts() == {n: launches.get(n, 0) for n in K.KERNELS}
+    assert float((gi.cpu() - ci).abs().max()) <= 0.05
+    assert float((gm.cpu() != cm).float().mean()) <= 1e-3

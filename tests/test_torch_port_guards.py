@@ -99,6 +99,7 @@ def test_sources_import_no_jax(path):
         assert top not in ("jax", "jaxlib", "flax", "optax", "msgpack",
                            "segmentation_training_pipeline_tpu"), top
         assert top != "cv2" or in_function, f"{path.name}: cv2 at import"
+        assert top != "h5py" or in_function, f"{path.name}: h5py at import"
 
 
 def test_entry_points_default_to_the_card(tmp_path):
@@ -161,12 +162,13 @@ def test_config_parses_the_fpn_example():
       "augmentation": {"CoarseDropout": {"p": 0.1}}}, NotImplementedError,
      "augmenter 'CoarseDropout' is not yet ported"),
     ({"backbone": "efficientnetb0", "architecture": "DeepLabV3",
-      "augmentation": {"Rot90": [1, 3]}}, NotImplementedError,
-     "augmenter 'Rot90' is not yet ported"),
+      "augmentation": {"Rot90": {"k": [1, 3], "keep_sizes": True}}},
+     TC.ConfigError, "Did you mean 'keep_size'"),
     ({"backbone": "resnet43"}, TC.ConfigError, "Did you mean"),
     ({"optimizer": "SGDD"}, TC.ConfigError, "Did you mean 'SGD'"),
-    ({"augmentation": {"PiecewiseAffine": {"scale": 0.01}}},
-     NotImplementedError, "augmenter 'PiecewiseAffine' is not yet ported"),
+    ({"augmentation": {"PiecewiseAffine": {"scale": 0.01,
+                                           "absolute_scale": True}}},
+     TC.ConfigError, "'absolute_scale' is a real imgaug parameter"),
     ({"loss": "dice_los"}, ValueError, "Did you mean 'dice_loss'"),
     ({"backbone": "vgg16", "augmentation": {"AdditiveGaussianNoise":
                                             {"scale": 5}}},
@@ -276,3 +278,46 @@ def test_name_tables_match_the_jax_config():
     assert TC._TTA_VALUES == JC._TTA_VALUES
     assert TLo.KNOWN == set(JC.LOSSES._canonical)
     assert TM.KNOWN == set(JC.METRICS._canonical)
+
+
+def test_geometric_tables_match_the_jax_lowering():
+    """The port's copies of the lowering's geometric name tables and of
+    the argument schemas of those names (the keys allowed and the imgaug
+    keys refused) list what the JAX package's do."""
+    from segmentation_training_pipeline_tpu.ops.aug import arg_schema as JA
+    from segmentation_training_pipeline_tpu.ops.aug import lowering as JL
+    from segmentation_training_pipeline_tpu_torch.ops.aug import (
+        arg_schema as TA)
+    from segmentation_training_pipeline_tpu_torch.ops.aug import (
+        lowering as TL)
+
+    assert TL._GEOMETRIC == JL._GEOMETRIC
+    assert TL._CHEAP_GEO == JL._CHEAP_GEO
+    assert TL._GEOMETRIC <= TL.PORTED_AUGMENTERS
+    for name in TL._GEOMETRIC | {"multiply"}:
+        key = JA._LOOKUP[name]
+        assert TA._LOOKUP[name] == key, name
+        (t_allowed, t_unsup), (j_allowed, j_unsup) = (TA._SCHEMA[key],
+                                                      JA._SCHEMA[key])
+        assert t_allowed == j_allowed and set(t_unsup) == set(j_unsup), name
+
+
+def test_encoder_weights_names_match_the_jax_reader(tmp_path, monkeypatch):
+    """The named ``encoder_weights`` specs and the extensions tried under
+    $STP_PRETRAINED_DIR, pinned to the JAX reader's by behaviour: each
+    name finds each extension's file, in the same order, on both sides,
+    and any other spec is a path."""
+    from segmentation_training_pipeline_tpu.models import pretrained as JP
+    from segmentation_training_pipeline_tpu_torch.models import (
+        pretrained as TP)
+
+    monkeypatch.setenv("STP_PRETRAINED_DIR", str(tmp_path))
+    for ext in reversed(TP.NAMED_EXTENSIONS):
+        (tmp_path / f"resnet34{ext}").write_bytes(b"")
+        for spec in TP.NAMED_SPECS:
+            want = str(tmp_path / f"resnet34{ext}")
+            assert TP.resolve_pretrained_path("resnet34", spec) == want
+            assert JP.resolve_pretrained_path("resnet34", spec) == want
+    for spec in ("imagenet22k", "noisy-student", str(tmp_path / "w.npz")):
+        assert (TP.resolve_pretrained_path("resnet34", spec)
+                == JP.resolve_pretrained_path("resnet34", spec) == spec)

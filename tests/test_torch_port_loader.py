@@ -25,7 +25,7 @@ from segmentation_training_pipeline_tpu_torch.data import loader as TL
 from segmentation_training_pipeline_tpu_torch.data.datasets import (
     DirectoryDataSet as TDir, LambdaDataSet)
 
-from torch_port_util import few_torch_threads
+from torch_port_util import few_torch_threads, private_native_library
 
 H, W = 32, 40
 # (stem, image extension, image size (h, w), gray on disk, mask kind)
@@ -68,7 +68,7 @@ def files(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def native():
+def native(private_native_library):
     loader = NativeLoader()
     yield loader
     loader.close()
@@ -138,8 +138,9 @@ def test_pool_threads_default_to_the_cpus_and_lower_their_priority():
 
 @pytest.mark.parametrize("classes,activation,c,batch", [
     (1, "sigmoid", 3, 3), (2, "sigmoid", 1, 4), (3, "softmax", 3, 5)])
-def test_make_batches_equals_jax_on_a_directory(files, classes, activation,
-                                                c, batch):
+def test_make_batches_equals_jax_on_a_directory(files, private_native_library,
+                                                classes, activation, c,
+                                                batch):
     """Same order, bytes, one-hot masks, weights and wrap padding; the
     plan is out of order and the last batch partial."""
     plan = [6, 1, 4, 0, 5, 2, 3]

@@ -6,9 +6,15 @@ draws with ``jax.random`` along the reference lowering's key schedule and
 hand the same values to the port:
 
   * ``aug_fn``: one key per segment (lowering.py:313);
-  * geo run: one key per op plus one (lowering.py:649); the flips-only fast
-    path splits the last one per op (``_apply_cheap_geo``);
+  * geo run: one key per op plus one (lowering.py:649); the flips and
+    square-rot90 fast path splits the last one per op
+    (``_apply_cheap_geo``); otherwise the last one draws the run's
+    ``cval``;
   * Affine: 4 keys — scale, translate, rotate, shear (lowering.py:687);
+  * Crop/CropAndPad/Pad: 4 keys, one per side; the fixed-size crops and
+    pads: 2 keys, the x and y offsets; PiecewiseAffine and
+    PerspectiveTransform: 2 keys, the scale and the normal draws of the
+    control points or corners;
   * ElasticTransformation: 3 keys — alpha, sigma, field (lowering.py:812),
     the field key split into the x and y noise (warp.py:191-196);
   * Multiply: the segment key (lowering.py:1491-1494).
@@ -58,6 +64,70 @@ def _t(v):
     return torch.from_numpy(np.array(v))
 
 
+def _jax_rot90_k(k, args, b):
+    """JAX's Rot90 k per image (``_apply_cheap_geo`` and the warp path
+    draw alike)."""
+    spec = args if args is not None else [0, 3]
+    spec = spec.get("k") if isinstance(spec, dict) else spec
+    if isinstance(spec, (list, tuple)) and len(spec) == 2:
+        return jax.random.randint(k, (b,), int(spec[0]), int(spec[1]) + 1)
+    if isinstance(spec, (list, tuple)):
+        arr = jnp.asarray([int(v) for v in spec], jnp.int32)
+        return arr[jax.random.randint(k, (b,), 0, len(spec))]
+    return jnp.full((b,), int(spec), jnp.int32)
+
+
+def _jax_geo_draw(seg, i, name, a, k, b, h, w):
+    """One geometric op's draws from its key ``k``, as the reference's
+    ``_make_geo_run`` splits and samples it."""
+    if name in TL._FLIPS:
+        return {"flip": jax.random.bernoulli(k, TL._flip_p(a), (b,))}
+    if name == "rot90":
+        return {"k": _jax_rot90_k(k, a, b)}
+    if name == "affine":
+        a = a or {}
+        k1, k2, k3, k4 = jax.random.split(k, 4)
+        sx, sy = JL._sample_xy(k1, a.get("scale"), b, 1.0)
+        tkey = ("translate_percent" if "translate_percent" in a
+                else "translate_px")
+        tx, ty = JL._sample_xy(k2, a.get(tkey), b, 0.0)
+        rot = JL._sample(k3, a.get("rotate"), b, 0.0)
+        shear = a.get("shear")
+        shx, shy = JL._sample_xy(k4, shear, b, 0.0)
+        if not isinstance(shear, dict):
+            shy = jnp.zeros_like(shy)
+        return dict(sx=sx, sy=sy, tx=tx, ty=ty, rot=rot, shx=shx, shy=shy)
+    if name in TL._CROPS:
+        spec = (a["px"] if isinstance(a, dict) and "px" in a
+                else JL._percent_arg(a, [0, 0.1]))
+        return {side: JL._sample(kk, spec, b, 0.0) for side, kk in
+                zip(("left", "right", "top", "bottom"),
+                    jax.random.split(k, 4))}
+    if name in TL._FIXED_SIZE:
+        k1, k2 = jax.random.split(k)
+        return {"ux": jax.random.uniform(k1, (b,)),
+                "uy": jax.random.uniform(k2, (b,))}
+    if name in ("piecewiseaffine", "perspectivetransform"):
+        a = JL._bare(a, "scale")
+        k1, k2 = jax.random.split(k)
+        if name == "piecewiseaffine":
+            shape = (b, 2, int(a.get("nb_rows", 4)), int(a.get("nb_cols", 4)))
+            return {"scale": JL._sample(k1, a.get("scale", [0.01, 0.05]), b),
+                    "coarse": jax.random.normal(k2, shape)}
+        return {"scale": JL._sample(k1, a.get("scale", [0.0, 0.06]), b),
+                "offsets": jax.random.normal(k2, (b, 4, 2))}
+    a = a or {}
+    k1, k2, k3 = jax.random.split(k, 3)
+    radius, stride = seg.elastic[i]
+    shape = TW.noise_shape(b, h, w, radius, stride)
+    kx, ky = jax.random.split(k3)
+    return dict(
+        alpha=JL._sample(k1, a.get("alpha", 20.0), b),
+        sigma=JL._sample(k2, a.get("sigma", 5.0), b),
+        noise_x=jax.random.uniform(kx, shape, minval=-1.0, maxval=1.0),
+        noise_y=jax.random.uniform(ky, shape, minval=-1.0, maxval=1.0))
+
+
 def jax_draws(aug, key, b, h, w, c=3):
     """Draws for the port's ``aug`` (a ``lowering.Augmentation``) made with
     jax.random exactly as the reference lowering draws them from ``key``."""
@@ -70,41 +140,12 @@ def jax_draws(aug, key, b, h, w, c=3):
             out.append({"mul": _t(mul)})
             continue
         gk = jax.random.split(k, len(seg.geo) + 1)
-        if seg.cheap:
+        if seg.is_cheap(h, w):
             gk = jax.random.split(gk[-1], len(seg.geo))
-        draws = []
-        for i, (s, name) in enumerate(zip(seg.geo, seg.names)):
-            a = s.get("args")
-            if name in TL._FLIPS:
-                draws.append({"flip": jax.random.bernoulli(
-                    gk[i], TL._flip_p(a), (b,))})
-            elif name == "affine":
-                a = a or {}
-                k1, k2, k3, k4 = jax.random.split(gk[i], 4)
-                sx, sy = JL._sample_xy(k1, a.get("scale"), b, 1.0)
-                tkey = ("translate_percent" if "translate_percent" in a
-                        else "translate_px")
-                tx, ty = JL._sample_xy(k2, a.get(tkey), b, 0.0)
-                rot = JL._sample(k3, a.get("rotate"), b, 0.0)
-                shear = a.get("shear")
-                shx, shy = JL._sample_xy(k4, shear, b, 0.0)
-                if not isinstance(shear, dict):
-                    shy = jnp.zeros_like(shy)
-                draws.append(dict(sx=sx, sy=sy, tx=tx, ty=ty, rot=rot,
-                                  shx=shx, shy=shy))
-            else:
-                a = a or {}
-                k1, k2, k3 = jax.random.split(gk[i], 3)
-                radius, stride = seg.elastic[i]
-                shape = TW.noise_shape(b, h, w, radius, stride)
-                kx, ky = jax.random.split(k3)
-                draws.append(dict(
-                    alpha=JL._sample(k1, a.get("alpha", 20.0), b),
-                    sigma=JL._sample(k2, a.get("sigma", 5.0), b),
-                    noise_x=jax.random.uniform(kx, shape, minval=-1.0,
-                                               maxval=1.0),
-                    noise_y=jax.random.uniform(ky, shape, minval=-1.0,
-                                               maxval=1.0)))
+        draws = [_jax_geo_draw(seg, i, name, s.get("args"), gk[i], b, h, w)
+                 for i, (s, name) in enumerate(zip(seg.geo, seg.names))]
+        if seg.cval_spec is not None:
+            draws.append({"cval": JL._sample(gk[-1], seg.cval_spec, b, 0.0)})
         out.append([{n: _t(v) for n, v in d.items()} for d in draws])
     return out
 
@@ -186,6 +227,33 @@ def few_torch_threads():
     torch.set_num_threads(min(2, before))
     yield
     torch.set_num_threads(before)
+
+
+@pytest.fixture(scope="module")
+def private_native_library(tmp_path_factory):
+    """The JAX package's native loader, built into a directory of this
+    module's own and loaded in this process, whatever other processes do.
+
+    ``native/build.py`` compiles ``libstploader.so`` next to its source
+    when the file is absent (it is git-ignored), writing one shared
+    ``libstploader.so.tmp``; several pytest workers building at once on a
+    fresh tree race on that file, and a worker whose build failed keeps
+    ``_TRIED`` set and no library for the rest of its run.  The fixture
+    points the build at a private path, clears the module's cache and the
+    JAX batcher's cached loader, builds, and restores all of it after the
+    module.  It fails, and never skips, when the library does not load."""
+    from segmentation_training_pipeline_tpu.data import batcher as JB
+    from segmentation_training_pipeline_tpu.native import build as NB
+
+    saved = NB._SO, NB._LIB, NB._TRIED, JB._NATIVE_LOADER
+    NB._SO = str(tmp_path_factory.mktemp("native") / "libstploader.so")
+    NB._LIB, NB._TRIED, JB._NATIVE_LOADER = None, False, None
+    try:
+        lib = NB.load_native_library()
+        assert lib is not None, "the native loader did not build or load"
+        yield lib
+    finally:
+        NB._SO, NB._LIB, NB._TRIED, JB._NATIVE_LOADER = saved
 
 
 def random_weights(module, seed):
