@@ -121,16 +121,30 @@ line with its seconds; any failure raises and the script exits non-zero:
      gather's blocks the card against the CPU on the same draws, and
      ``warp_joint`` itself on one set of matrices and field on both
      devices (TF32 off);
-  13. the ``kernels`` summary line, then the last line
+  12d. train_photo: ``train``'s model, loss, optimizer and batch under
+     ``PHOTO_BLOCK`` (Fliplr, the Affine sugar Rotate, ElasticTransformation
+     in a Sometimes child, OneOf contrasts, SomeOf of noise and dropouts,
+     Resize) parsed by the port: X, Y and elastic once a step (their
+     routes read from the block), each held bit for bit on the first
+     step's arguments; each segment of the block in f32 on the card
+     against the CPU on the same draws and input, a segment that warps
+     also on the CPU's matrices and fields (``_segments_vs_cpu``), the
+     block's ms, a falling loss, img/s and peak memory;
+  12e. photo_paths: each name of the slice alone at 512² B16
+     (``PHOTO_CASES``; the combinators with a child that reaches a
+     kernel): its launches, each launch held bit for bit, the block's ms
+     and the card against the CPU on the same draws;
+  13. the ``kernels`` summary line (``launches`` from ``train``, beside
+     them ``launches_train_photo``), then the last line
      ``{"ok": true, "device": {...}}``.
 
 ``--profile FILE`` profiles three more steps of each train phase and
 three more ``predict_probs`` calls of the serve phase (``FILE`` for Unet,
-``FILE`` with ``_fpn``, ``_deeplab``, ``_psp``, ``_serve`` or
-``_pretrained`` before its suffix for FPN, DeepLab, PSPNet, serve and the
-pretrained phase, whose three steps are profiled in every run), and traces
-epoch 1 of each fit stage (the fits' own ``profile:``) for its device busy
-time.
+``FILE`` with ``_fpn``, ``_deeplab``, ``_psp``, ``_serve``, ``_photo`` or
+``_pretrained`` before its suffix for FPN, DeepLab, PSPNet, serve,
+``train_photo`` and the pretrained phase, whose three steps are profiled
+in every run), and traces epoch 1 of each fit stage (the fits' own
+``profile:``) for its device busy time.
 """
 
 from __future__ import annotations
@@ -298,6 +312,83 @@ ROUTE_KERNELS = {"flips": (), "gather": (), "multipass": ("warp_x", "warp_y"),
 # the exact gather on the card against the CPU on the same matrices and
 # field: one IEEE operation per PyTorch op on either side
 GATHER_IMG_ATOL = 1e-4
+
+# the train_photo block: the Affine sugar (Rotate: kernels X and Y), the
+# elastic kernel in a Sometimes child, the choice combinators and the
+# pixelwise photometrics, then Resize
+PHOTO_BLOCK = [
+    {"Fliplr": 0.5},
+    {"Rotate": [-15, 15]},
+    {"Sometimes": {"p": 0.5, "then": [{"ElasticTransformation": {
+        "alpha": [0, 40], "sigma": 6}}]}},
+    {"OneOf": [{"GammaContrast": [0.7, 1.4]}, {"LinearContrast": [0.9, 1.1]},
+               {"SigmoidContrast": {"gain": [6, 10]}}]},
+    {"SomeOf": {"n": [0, 2], "children": [
+        {"AdditiveGaussianNoise": {"scale": [0, 10]}}, {"SaltAndPepper": 0.02},
+        {"CoarseDropout": {"p": 0.05}},
+        {"Cutout": {"nb_iterations": [1, 3], "size": 0.15, "cval": 128}}]}},
+    {"Resize": 0.75},
+]
+# the photo_paths phase: each name of the slice alone at 512² (the
+# combinators with a child that reaches a kernel)
+PHOTO_CASES = [
+    ("rotate", {"Rotate": [-15, 15]}),
+    ("translatex", {"TranslateX": [-0.1, 0.1]}),
+    ("translatey", {"TranslateY": {"px": [-20, 20]}}),
+    ("scalex", {"ScaleX": [0.8, 1.2]}),
+    ("scaley", {"ScaleY": [0.8, 1.2]}),
+    ("shearx", {"ShearX": [-10, 10]}),
+    ("sheary", {"ShearY": [-10, 10]}),
+    ("resize", {"Resize": 0.75}),
+    ("sometimes", {"Sometimes": {"p": 0.5, "then": [
+        {"ElasticTransformation": {"alpha": [0, 40], "sigma": 6}}]}}),
+    ("oneof", {"OneOf": [{"Rotate": [-10, 10]}, {"Add": 20},
+                         {"Invert": 1.0}]}),
+    ("someof", {"SomeOf": {"n": [0, 2], "children": [
+        {"Flipud": 1.0}, {"Salt": 0.05}, {"ShearX": [-5, 5]}]}}),
+    ("add", {"Add": {"value": [-20, 20], "per_channel": True}}),
+    ("addelementwise", {"AddElementwise": [-20, 20]}),
+    ("multiplyelementwise", {"MultiplyElementwise": [0.8, 1.2]}),
+    ("linearcontrast", {"LinearContrast": [0.6, 1.4]}),
+    ("gammacontrast", {"GammaContrast": {"gamma": [0.7, 1.7],
+                                         "per_channel": True}}),
+    ("sigmoidcontrast", {"SigmoidContrast": {"gain": [5, 10],
+                                             "cutoff": [0.3, 0.6]}}),
+    ("logcontrast", {"LogContrast": [0.4, 1.6]}),
+    ("invert", {"Invert": 0.5}),
+    ("solarize", {"Solarize": {"p": [0.2, 0.8], "threshold": [64, 192]}}),
+    ("posterize", {"Posterize": [1, 8]}),
+    ("additivegaussiannoise", {"AdditiveGaussianNoise": [0, 15]}),
+    ("additivelaplacenoise", {"AdditiveLaplaceNoise": [0, 15]}),
+    ("additivepoissonnoise", {"AdditivePoissonNoise": [0, 15]}),
+    ("impulsenoise", {"ImpulseNoise": 0.1}),
+    ("salt", {"Salt": 0.1}),
+    ("pepper", {"Pepper": 0.1}),
+    ("saltandpepper", {"SaltAndPepper": 0.1}),
+    ("coarsesaltandpepper", {"CoarseSaltAndPepper": 0.2}),
+    ("coarsesalt", {"CoarseSalt": {"p": 0.2, "size_percent": 0.05}}),
+    ("coarsepepper", {"CoarsePepper": 0.2}),
+    ("dropout", {"Dropout": [0, 0.2]}),
+    ("dropout2d", {"Dropout2d": 0.5}),
+    ("totaldropout", {"TotalDropout": 0.5}),
+    ("coarsedropout", {"CoarseDropout": {"p": 0.3, "size_percent": 0.1}}),
+    ("cutout", {"Cutout": {"nb_iterations": [1, 3], "size": 0.15,
+                           "cval": 128}}),
+    ("replaceelementwise", {"ReplaceElementwise": {
+        "mask": 0.1, "replacement": [0, 255], "per_channel": True}}),
+    ("channelshuffle", {"ChannelShuffle": 0.5}),
+    ("noop", {"Noop": None}),
+]
+# photo_paths and train_photo, each segment on the card against the port on
+# the CPU on the same draws and the same input: images within 1e-3 on
+# 0..255 (pow, exp and log2 round differently there), masks equal.  A
+# segment that warps computes its matrices and fields (sin, cos, the
+# elastic blur) on each device: from the draws its images are held to the
+# reference phase's REF_IMG_ATOL, and on the CPU's matrices and fields on
+# both devices to 1e-3; masks equal in both.  The same warp on geometry
+# moved by WARP_FAULT_PX must read above REF_IMG_ATOL
+PHOTO_IMG_ATOL = 1e-3
+WARP_FAULT_PX = 1.0 / 64.0
 
 # the three paths of the warp and the environment that selects each
 PATHS = {"default": {}, "fuse_elastic": {"STP_FUSE_ELASTIC": "1"},
@@ -1627,6 +1718,157 @@ def _gather_vs_cpu(aug, draws, imgs, masks, out_i, out_m, case) -> dict:
                                warp_joint_img_atol=GATHER_IMG_ATOL))
 
 
+def block_launches(aug, h: int, w: int) -> dict:
+    """The kernels ``aug`` launches once at H×W: those of each geometric
+    run's route, children's included (a combinator runs every child)."""
+    out = {n: 0 for n in K.KERNELS}
+    for run in aug.geo_runs():
+        for n in ROUTE_KERNELS[run.route(h, w)]:
+            out[n] += 1
+    return out
+
+
+def _warps(seg, h: int, w: int) -> bool:
+    """Whether a segment runs a warp at H×W (a geometric run past flips,
+    or one in a combinator's child)."""
+    runs = ([seg] if isinstance(seg, LW._GeoRun) else
+            [r for ch in seg.children for r in ch.geo_runs()]
+            if isinstance(seg, LW._Meta) else [])
+    return any(r.route(h, w) != "flips" for r in runs)
+
+
+@contextlib.contextmanager
+def cpu_geometry(shift: float = 0.0):
+    """Every ``_GeoRun`` in a block computes its matrices and fields on
+    the CPU from the CPU's copy of its draws, then moves them to the
+    draws' device; ``shift`` px is added to each (a deliberate fault)."""
+    original = LW._GeoRun.geometry
+
+    def on_cpu(run, draws, b, h, w, device):
+        mats, disp = original(run, _to(draws, "cpu"), b, h, w, "cpu")
+        if shift:
+            mats = WP.compose(WP.translation(torch.full((b,), shift),
+                                             torch.full((b,), shift)), mats)
+            disp = None if disp is None else tuple(v + shift for v in disp)
+        return mats.to(device), (None if disp is None
+                                 else tuple(v.to(device) for v in disp))
+
+    LW._GeoRun.geometry = on_cpu
+    try:
+        yield
+    finally:
+        LW._GeoRun.geometry = original
+
+
+def _vs(gi, gm, ci, cm) -> tuple:
+    return float((gi.cpu() - ci).abs().max()), mask_mismatch(gm.cpu(), cm)
+
+
+def _segments_vs_cpu(aug, draws, imgs, masks) -> list:
+    """Each segment of ``aug`` on the card against the port on the CPU,
+    both on the card's input to it and on the same draws (TF32 off): its
+    errors and whether they are within its tolerance.  A segment that
+    warps is also run on the card with the CPU's matrices and fields
+    (``same_geometry_*``), and with them moved by WARP_FAULT_PX
+    (``fault_max_err``, which must exceed REF_IMG_ATOL)."""
+    rows = []
+    x, m = imgs.cuda(), masks.cuda()
+    with no_tf32():
+        for seg, d in zip(aug.segments, draws):
+            gd = _to(d, "cuda")
+            gi, gm = seg.apply(gd, x, m)
+            ci, cm = seg.apply(d, x.cpu(), m.cpu())
+            err, mis = _vs(gi, gm, ci, cm)
+            warps = _warps(seg, x.shape[1], x.shape[2])
+            row = dict(segment=seg.name if hasattr(seg, "name")
+                       else "+".join(seg.names), warps=warps,
+                       cpu_max_err=err, cpu_mask_mismatch=mis)
+            ok = mis == 0.0 and err <= (REF_IMG_ATOL if warps
+                                        else PHOTO_IMG_ATOL)
+            if warps:
+                with cpu_geometry():
+                    same_err, same_mis = _vs(*seg.apply(gd, x, m), ci, cm)
+                with cpu_geometry(WARP_FAULT_PX):
+                    fault_err, _ = _vs(*seg.apply(gd, x, m), ci, cm)
+                row.update(same_geometry_max_err=same_err,
+                           same_geometry_mask_mismatch=same_mis,
+                           fault_px=WARP_FAULT_PX, fault_max_err=fault_err)
+                ok = (ok and same_err <= PHOTO_IMG_ATOL and same_mis == 0.0
+                      and fault_err > REF_IMG_ATOL)
+            rows.append(dict(row, ok=ok))
+            x, m = gi, gm
+    return rows
+
+
+def phase_photo_paths(seed: int) -> dict:
+    """Each name of the slice alone through ``Augmentation.apply`` at 512²
+    B16: its launches (those of its routes), each launch held bit for bit
+    against its plain version, the block's ms (CUDA events, median of 10)
+    and the card against the port on the CPU on the same draws
+    (``_segments_vs_cpu``)."""
+    out, failed = {}, []
+    imgs, masks = synthetic_batch(BATCH, SIZE, SIZE, seed + 5)
+    imgs, masks = torch.from_numpy(imgs), torch.from_numpy(masks)
+    gi, gm = imgs.cuda(), masks.cuda()
+    for case, spec in PHOTO_CASES:
+        aug = LW.build_augmentation(spec)
+        draws = aug.sample(torch.Generator().manual_seed(seed), BATCH, SIZE,
+                           SIZE)
+        gd = _to(draws, "cuda")
+        K.reset_launches()
+        with captured(list(WRAPPERS), {}) as calls, no_tf32():
+            out_i, out_m = aug.apply(gd, gi, gm)
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        _check_augmented(out_i, out_m, case)
+        want = block_launches(aug, SIZE, SIZE)
+        check(launches == want, (case, launches, want))
+        (vs,) = _segments_vs_cpu(aug, draws, imgs, masks)
+        row = dict(launches={n: v for n, v in launches.items() if v},
+                   held_to_plain=held_to_plain(calls, case),
+                   block_ms=cuda_ms(lambda: aug.apply(gd, gi, gm), 10),
+                   masks_moved=not torch.equal(out_m, gm), **vs)
+        if not vs["ok"]:
+            failed.append(case)
+        out[case] = row
+        emit("photo_paths", case=case, **row)
+    check(not failed, ("photo_paths card vs CPU", failed))
+    return out
+
+
+def phase_train_photo(imgs, masks, seed: int, profile: str) -> dict:
+    """``train``'s model, loss, optimizer and batch under PHOTO_BLOCK,
+    parsed by the port: the block's launches (X and Y for Rotate, elastic
+    in the Sometimes child: once each a step), the block's ms and each of
+    its segments in f32 on the card against the CPU on the same draws;
+    then 10 bf16 train steps, X, Y and elastic held bit for bit on the
+    first step's arguments."""
+    cfg = CF.parse_dict({"architecture": "Unet", "backbone": "resnet34",
+                         "loss": LOSS, "optimizer": "Adam", "lr": LR,
+                         "batch": BATCH, "augmentation": PHOTO_BLOCK,
+                         "metrics": ["dice", "iou"]})
+    aug = LW.build_augmentation(cfg.augmentation)
+    per_block = block_launches(aug, SIZE, SIZE)
+    x_y_elastic = {"warp_x": 1, "warp_y": 1, "elastic": 1}
+    check(per_block == {n: x_y_elastic.get(n, 0) for n in K.KERNELS},
+          ("train_photo block launches", per_block))
+    draws = aug.sample(torch.Generator().manual_seed(seed + 4), BATCH, SIZE,
+                       SIZE)
+    gd = _to(draws, "cuda")
+    out_i, out_m = aug.apply(gd, imgs, masks)
+    torch.cuda.synchronize()
+    _check_augmented(out_i, out_m, "train_photo block")
+    segments = _segments_vs_cpu(aug, draws, imgs, masks)
+    block_ms = cuda_ms(lambda: aug.apply(gd, imgs, masks), 10)
+    out = phase_train("train_photo", cfg, imgs, masks, STEPS, seed,
+                      x_y_elastic, profile, hold=tuple(x_y_elastic),
+                      block_ms=block_ms, segments_vs_cpu=segments,
+                      routes=[r.route(SIZE, SIZE) for r in aug.geo_runs()])
+    check(all(r["ok"] for r in segments),
+          ("train_photo segments card vs CPU", segments))
+    return out
+
+
 def _profile_path(base: str, tag: str) -> str:
     """``base`` with ``_tag`` before its suffix ("" when not profiling)."""
     if not base:
@@ -1692,12 +1934,16 @@ def main(argv=None) -> int:
     timed("pretrained", phase_pretrained, imgs, masks, SEED,
           _profile_path(a.profile, "pretrained"))
     timed("geo_paths", phase_geo_paths, SEED)
+    photo = timed("train_photo", phase_train_photo, imgs, masks, SEED,
+                  _profile_path(a.profile, "photo"))
+    timed("photo_paths", phase_photo_paths, SEED)
     # launches on each kernel's main path: X, Y and elastic in the Unet
     # step, YE in the FPN step, the shear in the unfused warp path
     launches = dict(train["launches"], warp_ye=train_fpn["launches"][
         "warp_ye"], shear=paths["unfused"]["launches"]["shear"])
     for name, row in rows.items():
         row["launches"] = launches[name]
+        row["launches_train_photo"] = photo["launches"][name]
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}),

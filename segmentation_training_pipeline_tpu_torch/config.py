@@ -144,7 +144,9 @@ def _check_keys(d: Dict[str, Any], allowed: set, where: str):
 
 def _resolve(registry: Registry, name: str, ported: set) -> str:
     """Canonical name; ConfigError (with suggestion) for an unknown one,
-    NotImplementedError for a known one not ported yet."""
+    NotImplementedError for a known one not ported yet.  The config keeps
+    the user's spelling of the architecture and the optimizer, as the
+    reference does; the backbone is stored canonical."""
     if name not in registry:
         hint = registry.suggest(name)
         extra = f" Did you mean {hint!r}?" if hint else ""
@@ -188,9 +190,22 @@ def _normalize_callbacks(spec) -> List[Dict[str, Any]]:
     return out
 
 
+# real imgaug names the reference intentionally does not lower: a
+# migrating config that uses one gets a pointed answer, not a bare
+# "unknown augmenter"
+_KNOWN_UNSUPPORTED_AUGMENTERS = frozenset({
+    "Voronoi", "AveragePool", "ElasticTransformationApprox",
+    "Lambda", "AssertShape", "AssertLambda",
+    "BlendAlphaMask", "BlendAlphaBoundingBoxes",
+})
+_UNSUPPORTED_AUG_PREFIXES = ("pillike", "imgcorruptlike")
+
+
 def _normalize_augmentation(spec) -> List[Dict[str, Any]]:
     """``{Fliplr: 0.5, Affine: {...}}`` → [{"name", "args"}], names and
-    argument keys validated."""
+    argument keys validated; the choice combinators' child blocks are
+    validated and normalised recursively, as the reference does, so a
+    typo'd or unported child name fails at parse."""
     if spec is None:
         return []
     items: List[Tuple[str, Any]] = []
@@ -209,6 +224,14 @@ def _normalize_augmentation(spec) -> List[Dict[str, Any]]:
     out = []
     for name, args in items:
         if name not in AUGMENTERS:
+            if name in _KNOWN_UNSUPPORTED_AUGMENTERS or any(
+                    name.startswith(p) for p in _UNSUPPORTED_AUG_PREFIXES):
+                raise ConfigError(
+                    f"augmenter {name!r} is a real imgaug name this "
+                    "pipeline intentionally does not lower (see the "
+                    "'imgaug names we do not lower' list in "
+                    "docs/schema.md for why and for the nearest "
+                    "supported equivalent)")
             hint = AUGMENTERS.suggest(name)
             extra = f" Did you mean {hint!r}?" if hint else ""
             raise ConfigError(f"unknown augmenter {name!r}.{extra}")
@@ -218,6 +241,38 @@ def _normalize_augmentation(spec) -> List[Dict[str, Any]]:
             validate_args(name, args)
         except ValueError as e:
             raise ConfigError(str(e)) from None
+        low = name.lower()
+        if low == "sometimes":
+            if not isinstance(args, dict):
+                raise ConfigError(
+                    f"Sometimes expects {{p: ..., then: {{...}}}}, got {args!r}")
+            args = dict(args)
+            child = (args.pop("then", None) or args.pop("then_list", None)
+                     or args.pop("children", None))
+            args["then"] = _normalize_augmentation(child)
+            els = (args.pop("else", None) or args.pop("else_list", None)
+                   or args.pop("otherwise", None))
+            if els is not None:
+                args["else"] = _normalize_augmentation(els)
+            if not args["then"] and els is None:
+                raise ConfigError(
+                    "Sometimes has neither a then: nor an else: child "
+                    "block — it would lower to a no-op")
+        elif low == "oneof":
+            if not isinstance(args, list) or not args:
+                raise ConfigError(
+                    f"OneOf expects a non-empty list of augmenters, got {args!r}")
+            args = [_normalize_augmentation(e if isinstance(e, (dict, list))
+                                            else [e]) for e in args]
+        elif low == "someof":
+            if not isinstance(args, dict) or "children" not in args:
+                raise ConfigError(
+                    f"SomeOf expects {{n: ..., children: [...]}}, got {args!r}")
+            args = dict(args)
+            args["children"] = [
+                _normalize_augmentation(e if isinstance(e, (dict, list))
+                                        else [e])
+                for e in args["children"]]
         out.append({"name": name, "args": args})
     return out
 
@@ -326,12 +381,12 @@ class PipelineConfig:
             shape = (*shape, 3)
         if len(shape) != 3:
             raise ConfigError(f"shape must be [H, W, C], got {shape!r}")
-        arch = _resolve(ARCHITECTURES, str(d.get("architecture", "Unet")),
-                        PORTED_ARCHITECTURES)
+        arch = str(d.get("architecture", "Unet"))
+        _resolve(ARCHITECTURES, arch, PORTED_ARCHITECTURES)
         backbone = _resolve(BACKBONES, str(d.get("backbone", "resnet34")),
                             PORTED_BACKBONES)
-        opt = _resolve(OPTIMIZERS, str(d.get("optimizer", "Adam")),
-                       PORTED_OPTIMIZERS)
+        opt = str(d.get("optimizer", "Adam"))
+        _resolve(OPTIMIZERS, opt, PORTED_OPTIMIZERS)
         activation = str(d.get("activation", "sigmoid"))
         if activation not in ("sigmoid", "softmax", "linear", "none"):
             raise ConfigError(f"unknown activation {activation!r}")

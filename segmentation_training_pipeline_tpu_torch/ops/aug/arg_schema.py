@@ -78,10 +78,154 @@ _def("PerspectiveTransform", {"scale", "cval", "mode", "keep_size"},
      {"fit_output": _STATIC_SHAPE})
 _def("Multiply", {"mul", "per_channel"})
 
+# --- Affine sugar (rewritten to Affine by the lowering) ---------------------
+_AFFINE_ALLOWED = _SCHEMA["affine"][0]
+_AFFINE_UNSUP = _SCHEMA["affine"][1]
+_def("Rotate", _AFFINE_ALLOWED | {"value"}, _AFFINE_UNSUP)
+_def("TranslateX", {"px", "percent"})
+_def("TranslateY", {"px", "percent"})
+_def("ScaleX", {"scale", "value"})
+_def("ScaleY", {"scale", "value"})
+_def("ShearX", {"shear", "value"})
+_def("ShearY", {"shear", "value"})
+
+# --- pixelwise photometrics -------------------------------------------------
+_def("Add", {"value", "per_channel"})
+_def("LinearContrast", {"alpha", "per_channel"},
+     aliases=("ContrastNormalization",))
+_def("GammaContrast", {"gamma", "per_channel"})
+_def("SigmoidContrast", {"gain", "cutoff", "per_channel"})
+_def("LogContrast", {"gain", "per_channel"})
+_def("AdditiveGaussianNoise", {"scale", "per_channel"},
+     {"loc": "a non-zero noise mean is not lowered — compose with "
+             "`Add: <loc>`"})
+_def("AdditivePoissonNoise", {"lam", "per_channel"})
+_def("CoarseDropout", {"p", "size_percent", "per_channel"},
+     {"size_px": "grid sizes are static here — use `size_percent`",
+      "min_size": "grid sizes are static here — use `size_percent`"})
+_def("Cutout", {"nb_iterations", "size", "cval", "squared", "fill_mode"},
+     {"position": "cutout rectangles land on a static grid here (uniform "
+                  "positions) — remove it",
+      "fill_per_channel": "fill is per-image constant `cval` here — "
+                          "remove it"})
+_def("Invert", {"p", "per_channel"},
+     {"min_value": "only full-range 255−v inversion is lowered — use "
+                   "Solarize for thresholded inversion",
+      "max_value": "only full-range 255−v inversion is lowered — use "
+                   "Solarize for thresholded inversion",
+      "threshold": "use Solarize for thresholded inversion",
+      "invert_above_threshold": "use Solarize for thresholded inversion"})
+_def("Solarize", {"p", "threshold"})
+_def("Dropout2d", {"p", "nb_keep_channels"}, aliases=("ChannelDropout",))
+_def("TotalDropout", {"p"})
+_def("Noop", set(), aliases=("Identity",))
+_def("Dropout", {"p", "per_channel"})
+_def("SaltAndPepper", {"p", "per_channel"}, aliases=("SaltPepper",))
+_def("Salt", {"p", "per_channel"})
+_def("Pepper", {"p", "per_channel"})
+_def("ReplaceElementwise", {"mask", "replacement", "per_channel"})
+_def("ImpulseNoise", {"p"})
+_COARSE_SP_UNSUP = {
+    "size_px": "grid sizes are static here — use `size_percent`",
+    "min_size": "grid sizes are static here — use `size_percent`",
+}
+_def("CoarseSaltAndPepper", {"p", "size_percent", "per_channel"},
+     _COARSE_SP_UNSUP)
+_def("CoarseSalt", {"p", "size_percent", "per_channel"}, _COARSE_SP_UNSUP)
+_def("CoarsePepper", {"p", "size_percent", "per_channel"}, _COARSE_SP_UNSUP)
+_def("AdditiveLaplaceNoise", {"scale", "per_channel"},
+     {"loc": "a non-zero noise mean is not lowered — compose with "
+             "`Add: <loc>`"})
+_def("Posterize", {"nb_bits"},
+     {"to_colorspace": "posterize runs on RGB directly here",
+      "from_colorspace": "posterize runs on RGB directly here",
+      "max_size": _STATIC_SHAPE})
+_def("ChannelShuffle", {"p"},
+     {"channels": "always permutes all channels here — use WithChannels "
+                  "to scope other photometrics"})
+_def("AddElementwise", {"value", "per_channel"})
+_def("MultiplyElementwise", {"mul", "per_channel"})
+_def("Resize", {"size", "percent"},
+     {"interpolation": _FIXED_INTERP}, aliases=("Scale",))
+
+# --- choice combinators -----------------------------------------------------
+_def("Sometimes",
+     {"p", "then", "then_list", "children", "else", "else_list",
+      "otherwise"})
+_def("OneOf", set())  # args form is a list; config rejects dicts
+_def("SomeOf", {"n", "children", "then"},
+     {"random_order": "children apply in declaration order here — "
+                      "remove it"})
+
+
+def _check_values(name: str, canon: str, args: Dict[str, Any]) -> None:
+    """Value-shape checks for traps that would otherwise lower to
+    something silently different from imgaug (the reference's, for the
+    names ported so far)."""
+    if not bool(args.get("keep_size", True)):
+        raise ValueError(
+            f"{name}: keep_size=false cannot lower — output shapes are "
+            "static, the pipeline always resizes back to the input shape")
+    for mk in ("mode", "pad_mode"):
+        mv = args.get(mk)
+        if mv not in (None, "constant"):
+            raise ValueError(
+                f"{name}: only {mk}='constant' fill is lowered (got "
+                f"{mv!r}); edge/reflect/wrap border modes would need "
+                "per-mode samplers in every warp path")
+    if canon in ("crop", "cropandpad", "pad"):
+        for pk in ("px", "percent"):
+            pv = args.get(pk)
+            if isinstance(pv, (list, tuple)) and len(pv) == 4:
+                raise ValueError(
+                    f"{name}: the imgaug 4-tuple per-side {pk} form "
+                    "(top, right, bottom, left) is not lowered — each side "
+                    "samples independently from a scalar or [lo, hi] range "
+                    "here; give per-side control via separate Crop/Pad ops "
+                    "or use the 2-range form")
+    if canon == "cutout":
+        if args.get("fill_mode") not in (None, "constant"):
+            raise ValueError(
+                f"{name}: only fill_mode='constant' is lowered (gaussian "
+                "fill is not) — remove it or use AdditiveGaussianNoise "
+                "inside a BlendAlpha mask instead")
+        if "squared" in args and not bool(args["squared"]):
+            raise ValueError(
+                f"{name}: squared=false is not lowered — cutout cells are "
+                "square grid cells here")
+    if canon in ("croptofixedsize", "padtofixedsize"):
+        pos = args.get("position")
+        if pos not in (None, "uniform", "center"):
+            raise ValueError(
+                f"{name}: position must be 'uniform' or 'center' here "
+                f"(got {pos!r}); imgaug's edge-anchored positions are not "
+                "lowered")
+    if canon in ("padtofixedsize", "centercroptofixedsize",
+                 "croptofixedsize"):
+        for dk in ("width", "height"):
+            dv = args.get(dk)
+            if dv is not None and (isinstance(dv, bool)
+                                   or not isinstance(dv, int) or dv < 1):
+                raise ValueError(
+                    f"{name}: {dk} must be a static positive integer "
+                    f"(output shapes are static), got {dv!r}")
+    if canon in ("affine", "rotate"):
+        # the per-axis dict forms accept ONLY x/y — a typo'd axis key
+        # ({sx: ...}) would silently default both axes
+        for pk in ("scale", "translate_percent", "translate_px", "shear"):
+            pv = args.get(pk)
+            if isinstance(pv, dict):
+                bad = [k for k in pv if k not in ("x", "y")]
+                if bad:
+                    raise ValueError(
+                        f"{name}: {pk} axis dict takes only 'x'/'y' keys, "
+                        f"got {bad} (a typo here silently no-ops the axis)")
+
 
 def validate_args(name: str, args: Any) -> None:
-    """Raise ValueError for unknown/unsupported argument keys of a dict
-    ``args`` (bare scalars/ranges are validated by the lowering)."""
+    """Raise ValueError for unknown/unsupported argument keys and for the
+    values ``_check_values`` refuses, of a dict ``args`` (bare
+    scalars/ranges are validated by the lowering)."""
     if not isinstance(args, dict):
         return
     canon = _LOOKUP.get(name.lower())
@@ -101,17 +245,10 @@ def validate_args(name: str, args: Any) -> None:
         m = difflib.get_close_matches(k, sorted(allowed | set(unsupported)),
                                       n=1)
         hint = f" Did you mean {m[0]!r}?" if m else ""
+        allowed_desc = (", ".join(sorted(allowed)) if allowed
+                        else "none — this augmenter takes a bare "
+                             "scalar/range")
         raise ValueError(
             f"augmenter {name}: unknown argument {k!r} (allowed: "
-            f"{', '.join(sorted(allowed))}).{hint}")
-    if canon == "affine":
-        # the per-axis dict forms take ONLY x/y — a typo'd axis key would
-        # silently default both axes
-        for pk in ("scale", "translate_percent", "translate_px", "shear"):
-            pv = args.get(pk)
-            if isinstance(pv, dict):
-                bad = [k for k in pv if k not in ("x", "y")]
-                if bad:
-                    raise ValueError(
-                        f"{name}: {pk} axis dict takes only 'x'/'y' keys, "
-                        f"got {bad} (a typo here silently no-ops the axis)")
+            f"{allowed_desc}).{hint}")
+    _check_values(name, canon, args)

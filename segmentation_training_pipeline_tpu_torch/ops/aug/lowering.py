@@ -52,6 +52,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ...models.layers import resize_to
 from . import elastic as EL
 from . import fast_warp as FW
 from . import photometric as ph
@@ -74,7 +75,6 @@ _FIXED_SIZE = {"croptofixedsize", "randomcrop", "padtofixedsize",
 _ELASTIC_NAMES = {"elastictransformation", "elastictransform", "elastic"}
 # ops that contribute a displacement FIELD, not an affine factor
 _DISP_NAMES = _ELASTIC_NAMES | {"piecewiseaffine", "perspectivetransform"}
-PORTED_AUGMENTERS = _GEOMETRIC | {"multiply"}
 
 
 def not_ported(what: str) -> NotImplementedError:
@@ -84,13 +84,15 @@ def not_ported(what: str) -> NotImplementedError:
 
 def _coerce_block(spec) -> List[Dict[str, Any]]:
     """Accept raw YAML aug blocks ({Name: args} / list) or config-normalised
-    [{"name", "args"}] lists and return the normalised list form."""
+    [{"name", "args"}] lists and return the normalised list form, the
+    Affine sugar names rewritten (``_desugar``)."""
     if spec is None:
         return []
     if isinstance(spec, dict):
         if "name" in spec and "args" in spec and len(spec) == 2:
-            return [spec]
-        return [{"name": n, "args": a} for n, a in spec.items()]
+            spec = [spec]
+        else:
+            spec = [{"name": n, "args": a} for n, a in spec.items()]
     out: List[Dict[str, Any]] = []
     for entry in spec:
         if isinstance(entry, str):
@@ -106,7 +108,48 @@ def _coerce_block(spec) -> List[Dict[str, Any]]:
                 f"children, got {entry!r}")
         else:
             raise ValueError(f"bad augmentation entry {entry!r}")
-    return out
+    return [_desugar(e) for e in out]
+
+
+def _desugar(e: Dict[str, Any]) -> Dict[str, Any]:
+    """Rotate, TranslateX/Y, ScaleX/Y and ShearX/Y are sugar for Affine
+    (imgaug 0.4 defines them so): the reference's rewrite, so that they
+    fuse into a geometric run and reach the warp.  Returns a new entry;
+    the caller's is left as it is."""
+    nm, a = e["name"].lower(), e["args"]
+    if nm == "rotate":
+        if isinstance(a, dict) and "rotate" in a:
+            args = a                   # already Affine-kwarg shaped
+        else:
+            if isinstance(a, dict):
+                a = a.get("value", [-30, 30])
+            args = {"rotate": a if a is not None else [-30, 30]}
+    elif nm in ("translatex", "translatey"):
+        ax = "x" if nm.endswith("x") else "y"
+        if isinstance(a, dict) and "px" in a:
+            args = {"translate_px": {ax: a["px"]}}
+        elif isinstance(a, dict):
+            args = {"translate_percent": {ax: a.get("percent",
+                                                    [-0.25, 0.25])}}
+        else:
+            args = {"translate_percent":
+                    {ax: a if a is not None else [-0.25, 0.25]}}
+    elif nm in ("scalex", "scaley"):
+        ax = "x" if nm.endswith("x") else "y"
+        if isinstance(a, dict):
+            a = a.get("scale", a.get("value"))
+        args = {"scale": {ax: a if a is not None else [0.75, 1.25]}}
+    elif nm in ("shearx", "sheary"):
+        if isinstance(a, dict):
+            a = a.get("shear", a.get("value"))
+        sh = a if a is not None else [-30, 30]
+        # the Affine shear dict samples x and y independently: pin the
+        # other axis to 0
+        args = {"shear": ({"x": sh, "y": 0} if nm == "shearx"
+                          else {"x": 0, "y": sh})}
+    else:
+        return e
+    return {"name": "Affine", "args": args}
 
 
 def _bare(args: Any, key: str) -> Dict[str, Any]:
@@ -499,7 +542,8 @@ class _GeoRun:
             return "multipass ye"
         return "multipass+elastic"
 
-    def sample(self, gen: torch.Generator, b: int, h: int, w: int) -> Draws:
+    def sample(self, gen: torch.Generator, b: int, h: int, w: int,
+               c: int = 3) -> Draws:
         draws = []
         for i, (s, name) in enumerate(zip(self.geo, self.names)):
             args = s.get("args")
@@ -651,13 +695,11 @@ class _GeoRun:
         return W.elastic_field(d["noise_x"], d["noise_y"], h, w, d["alpha"],
                                d["sigma"], radius, stride)
 
-    def apply(self, draws: Draws, images: Tensor, masks: Tensor):
-        b, h, w = images.shape[0], images.shape[1], images.shape[2]
-        route = self.route(h, w)
-        if route == "flips":
-            return self._apply_cheap(draws, images, masks)
-        images = images.float()
-        mats = W.identity_mats(b, images.device)
+    def geometry(self, draws: Draws, b: int, h: int, w: int, device
+                 ) -> Tuple[Tensor, Optional[Tuple[Tensor, Tensor]]]:
+        """The run's inverse affine (B, 3, 3) and its summed displacement
+        field (dx, dy), None without a field op, on ``device``."""
+        mats = W.identity_mats(b, device)
         disp: Optional[Tuple[Tensor, Tensor]] = None
         for i, (s, name, d) in enumerate(zip(self.geo, self.names, draws)):
             if name in _DISP_NAMES:
@@ -665,9 +707,18 @@ class _GeoRun:
                 disp = (dx, dy) if disp is None else (disp[0] + dx,
                                                       disp[1] + dy)
                 continue
-            m = self._matrix(name, s.get("args"), d, b, h, w, images.device)
+            m = self._matrix(name, s.get("args"), d, b, h, w, device)
             if m is not None:
                 mats = W.compose(m, mats)
+        return mats, disp
+
+    def apply(self, draws: Draws, images: Tensor, masks: Tensor):
+        b, h, w = images.shape[0], images.shape[1], images.shape[2]
+        route = self.route(h, w)
+        if route == "flips":
+            return self._apply_cheap(draws, images, masks)
+        images = images.float()
+        mats, disp = self.geometry(draws, b, h, w, images.device)
         cv = None
         if self.cval_spec is not None:
             # one warp has one fill: warp(image − cval) + cval
@@ -714,54 +765,507 @@ class _GeoRun:
 
 
 # ---------------------------------------------------------------------------
-# photometric augmenters
+# photometric augmenters: one (sample, apply) pair per name
 # ---------------------------------------------------------------------------
+#
+# Each pair mirrors one branch of the reference's ``_apply_photo``: the same
+# defaults for a bare ``Name:``, the same ``per_channel`` and scalar / range /
+# list semantics, the values it draws inside its photometric functions
+# drawn here instead.  ``sample(seg, gen, b, h, w, c)`` → the draws;
+# ``apply(seg, draws, images, masks)`` runs on float32 images.
+
+def _sample_shape(gen: torch.Generator, spec: Any, shape,
+                  default: float = 0.0) -> Tensor:
+    """``_sample`` for any static shape (per pixel, per cell)."""
+    if spec is None:
+        return torch.full(shape, float(default), device=gen.device)
+    if isinstance(spec, (int, float)):
+        return torch.full(shape, float(spec), device=gen.device)
+    vals = [float(v) for v in spec]
+    if len(vals) == 2:
+        return _rand(gen, shape) * (vals[1] - vals[0]) + vals[0]
+    idx = torch.randint(0, len(vals), shape, generator=gen, device=gen.device)
+    return torch.tensor(vals, device=gen.device)[idx]
+
+
+def _sample_pc(gen: torch.Generator, spec: Any, b: int, c: int,
+               per_channel: bool, default: float) -> Tensor:
+    """(B,), or (B, C) under imgaug's ``per_channel=True``."""
+    if not per_channel:
+        return _sample(gen, spec, b, default)
+    return _sample(gen, spec, b * c, default).reshape(b, c)
+
+
+def _sample_elementwise(gen: torch.Generator, spec: Any, shape,
+                        per_channel: bool, default) -> Tensor:
+    """A value per pixel, (B, H, W, 1), or per pixel and channel."""
+    b, h, w, c = shape
+    return _sample_shape(gen, default if spec is None else spec,
+                         (b, h, w, c if per_channel else 1))
+
+
+def _bernoulli(gen: torch.Generator, p, shape) -> Tensor:
+    return _rand(gen, shape) < p
+
+
+def _single(a: Any, key: str, default: Any) -> Any:
+    """The reference's ``args if not dict else args.get(key, default)``."""
+    return a.get(key, default) if isinstance(a, dict) else a
+
+
+def _coarse_args(a: Any, p_default: float = 0.05) -> Tuple[Any, float]:
+    """CoarseDropout / Coarse*: (p spec, size_percent); a bare scalar or
+    list is p at size 0.1."""
+    a = a or {}
+    if isinstance(a, (int, float, list, tuple)):
+        return a, 0.1
+    return a.get("p", p_default), float(a.get("size_percent", 0.1))
+
+
+def _p_u(per_value: bool = False):
+    """The sampler of a name that draws a per-image p (default 0.05) and a
+    uniform per pixel, (B, H, W, 1), or per value with ``per_value``."""
+    def sample(seg, gen, b, h, w, c):
+        return {"p": _sample(gen, _single(seg.args, "p", 0.05), b, 0.05),
+                "u": _rand(gen, (b, h, w, c if per_value else 1))}
+    return sample
+
+
+def _laplace(gen: torch.Generator, shape) -> Tensor:
+    """Standard Laplace by the inverse CDF of a uniform on (−1, 1), |u|
+    kept below 1 so every value is finite."""
+    u = _rand(gen, shape) * 2.0 - 1.0
+    return torch.sign(u) * torch.log1p(-u.abs().clamp(max=1.0 - 2.0 ** -24))
+
+
+def _cutout_args(a: Any) -> Tuple[Dict[str, Any], int]:
+    a = a or {}
+    if isinstance(a, (int, float, list, tuple)):
+        a = {"nb_iterations": a}
+    size = min(max(float(a.get("size", 0.2)), 1e-3), 1.0)
+    return a, max(1, int(round(1.0 / size)))
+
+
+def _cutout_sample(seg, gen, b, h, w, c):
+    a, g = _cutout_args(seg.args)
+    return {"nb": _sample(gen, a.get("nb_iterations", 1), b, 1.0),
+            "u": _rand(gen, (b, g, g, 1)),
+            "cval": _sample(gen, a.get("cval", 128), b, 128.0)}
+
+
+def _cutout_apply(seg, d, images, masks):
+    """imgaug Cutout on the reference's static grid of round(1/size)²
+    cells, each dropped with probability nb / cells, filled with cval."""
+    g = d["u"].shape[1]
+    p_cell = torch.clamp(d["nb"] / float(g * g), 0.0, 1.0)
+    drop = (d["u"] < p_cell[:, None, None, None]).float()
+    mask = ph.nearest_nhwc(drop, images.shape[1], images.shape[2])
+    cv = d["cval"][:, None, None, None]
+    return images * (1.0 - mask) + cv * mask, masks
+
+
+def _replace_sample(seg, gen, b, h, w, c):
+    a = _bare(seg.args, "mask")
+    shape = (b, h, w, c if seg.per_channel else 1)
+    return {"p": _sample(gen, a.get("mask", 0.05), b),
+            "u": _rand(gen, shape),
+            "replacement": _sample_shape(gen, a.get("replacement",
+                                                    [0.0, 255.0]), shape)}
+
+
+def _replace_apply(seg, d, images, masks):
+    """imgaug ReplaceElementwise: values whose uniform falls below the
+    per-image p take their drawn replacement."""
+    sel = d["u"] < d["p"][:, None, None, None]
+    return torch.where(sel, d["replacement"], images), masks
+
+
+def _solarize_sample(seg, gen, b, h, w, c):
+    """imgaug Solarize(p=1, threshold=128): a bare scalar is the
+    probability; a list p compares a uniform with a sampled p."""
+    a = _bare(seg.args, "p")
+    th = _sample(gen, a.get("threshold", 128), b, 128.0)
+    if isinstance(a.get("p"), (list, tuple)):
+        apply = _rand(gen, (b,)) < _sample(gen, a.get("p"), b, 1.0)
+    else:
+        p = float(a.get("p", 1.0))
+        apply = (torch.ones((b,), dtype=torch.bool, device=gen.device)
+                 if p >= 1.0 else _bernoulli(gen, p, (b,)))
+    return {"threshold": th, "apply": apply}
+
+
+def resize_size(a: Any) -> Tuple[Optional[float], Optional[int]]:
+    """Resize/Scale's static scalar → (factor, None) for a float, (None,
+    side) for an int (absolute pixels); the reference's refusals."""
+    if isinstance(a, dict):
+        a = a.get("size", a.get("percent", 1.0))
+    if not isinstance(a, (int, float)) or isinstance(a, bool):
+        raise ValueError(
+            "Resize/Scale takes a static scalar here (output shapes are "
+            "static; stochastic sizes can't lower) — use Affine "
+            "{scale: ...} for zoom jitter; see docs/schema.md")
+    if isinstance(a, int):
+        if a < 1:
+            raise ValueError(
+                f"Resize/Scale int means absolute pixels; got {a}")
+        return None, int(a)
+    if float(a) <= 0.0:
+        raise ValueError(f"Resize/Scale factor must be > 0, got {float(a)}")
+    return float(a), None
+
+
+def _nhwc_bilinear(x: Tensor, h: int, w: int) -> Tensor:
+    return resize_to(x.permute(0, 3, 1, 2), h, w,
+                     "bilinear").permute(0, 2, 3, 1)
+
+
+def _resize_apply(seg, d, images, masks):
+    """Down (or up) to the size and back to the frame: images bilinear
+    (antialiased when it shrinks, as ``jax.image.resize``), masks
+    nearest.  The weight products run in full f32."""
+    f, side = seg.resize
+    if f == 1.0:
+        return images, masks
+    h, w = images.shape[1], images.shape[2]
+    nh, nw = ((side, side) if f is None
+              else (max(1, int(round(h * f))), max(1, int(round(w * f)))))
+    with FW._exact_f32(images.device):
+        images = _nhwc_bilinear(_nhwc_bilinear(images, nh, nw), h, w)
+    m = ph.nearest_nhwc(masks.float(), nh, nw)
+    return images, ph.nearest_nhwc(m, h, w).to(masks.dtype)
+
+
+def _none(seg, gen, b, h, w, c):
+    return {}
+
+
+def _keep(seg, d, images, masks):
+    return images, masks
+
+
+def _image_only(fn):
+    """An ``apply`` that passes the masks through."""
+    def apply(seg, d, images, masks):
+        return fn(seg, d, images), masks
+    return apply
+
+
+_PHOTO: Dict[str, Tuple[Any, Any]] = {}
+
+
+def _photo(names: str, sample, apply) -> None:
+    for n in names.split():
+        _PHOTO[n] = (sample, apply)
+
+
+_photo("multiply",
+       lambda s, g, b, h, w, c: {"mul": _sample_pc(
+           g, _bare(s.args, "mul").get("mul", [0.8, 1.2]), b, c,
+           s.per_channel, 1.0)},
+       _image_only(lambda s, d, x: ph.multiply(x, d["mul"])))
+_photo("add",
+       lambda s, g, b, h, w, c: {"value": _sample_pc(
+           g, _bare(s.args, "value").get("value", [-20, 20]), b, c,
+           s.per_channel, 0.0)},
+       _image_only(lambda s, d, x: ph.add(x, d["value"])))
+_photo("linearcontrast contrastnormalization",
+       lambda s, g, b, h, w, c: {"alpha": _sample(
+           g, _bare(s.args, "alpha").get("alpha", [0.6, 1.4]), b, 1.0)},
+       _image_only(lambda s, d, x: ph.linear_contrast(x, d["alpha"])))
+_photo("gammacontrast",
+       lambda s, g, b, h, w, c: {"gamma": _sample_pc(
+           g, _bare(s.args, "gamma").get("gamma", [0.7, 1.7]), b, c,
+           s.per_channel, 1.0)},
+       _image_only(lambda s, d, x: ph.gamma_contrast(x, d["gamma"])))
+_photo("sigmoidcontrast",
+       lambda s, g, b, h, w, c: {
+           "gain": _sample(g, _bare(s.args, "gain").get("gain", 10.0), b,
+                           10.0),
+           "cutoff": _sample(g, _bare(s.args, "gain").get("cutoff", 0.5), b,
+                             0.5)},
+       _image_only(lambda s, d, x: ph.sigmoid_contrast(x, d["gain"],
+                                                       d["cutoff"])))
+_photo("logcontrast",
+       lambda s, g, b, h, w, c: {"gain": _sample_pc(
+           g, _bare(s.args, "gain").get("gain", [0.4, 1.6]), b, c,
+           s.per_channel, 1.0)},
+       _image_only(lambda s, d, x: ph.log_contrast(x, d["gain"])))
+_photo("additivegaussiannoise",
+       lambda s, g, b, h, w, c: {
+           "scale": _sample(g, _bare(s.args, "scale").get("scale", [0, 15]),
+                            b, 0.0),
+           "noise": torch.randn((b, h, w, c), generator=g, device=g.device)},
+       _image_only(lambda s, d, x: ph.additive_noise(x, d["noise"],
+                                                     d["scale"])))
+_photo("additivelaplacenoise",
+       lambda s, g, b, h, w, c: {
+           "scale": _sample(g, _bare(s.args, "scale").get("scale", [0, 15]),
+                            b, 0.0),
+           "noise": _laplace(g, (b, h, w, c))},
+       _image_only(lambda s, d, x: ph.additive_noise(x, d["noise"],
+                                                     d["scale"])))
+
+
+def _poisson_sample(seg, gen, b, h, w, c):
+    lam = _sample(gen, _bare(seg.args, "lam").get("lam", [0, 15]), b, 1.0)
+    rates = lam.clamp(min=0.0)[:, None, None, None].expand(b, h, w, c)
+    return {"counts": torch.poisson(rates.contiguous(), generator=gen)}
+
+
+_photo("additivepoissonnoise", _poisson_sample,
+       _image_only(lambda s, d, x: ph.additive_poisson_noise(x,
+                                                             d["counts"])))
+_photo("invert",
+       lambda s, g, b, h, w, c: {"flip": _bernoulli(g, _sample(
+           g, _bare(s.args, "p").get("p", 1.0), b, 1.0), (b,))},
+       _image_only(lambda s, d, x: ph.invert(x, d["flip"])))
+_photo("solarize", _solarize_sample,
+       _image_only(lambda s, d, x: torch.where(
+           d["apply"][:, None, None, None], ph.solarize(x, d["threshold"]),
+           x)))
+_photo("posterize",
+       lambda s, g, b, h, w, c: {"nb_bits": _sample(
+           g, _single(s.args, "nb_bits", [1, 8]), b, 4.0)},
+       _image_only(lambda s, d, x: ph.posterize(x, d["nb_bits"])))
+_photo("channelshuffle",
+       lambda s, g, b, h, w, c: {
+           "perm": torch.argsort(_rand(g, (b, c)), dim=1),
+           "sel": _bernoulli(g, _sample(g, _single(s.args, "p", 1.0), b,
+                                        1.0), (b,))},
+       _image_only(lambda s, d, x: ph.channel_shuffle(x, d["perm"],
+                                                      d["sel"])))
+_photo("addelementwise",
+       lambda s, g, b, h, w, c: {"value": _sample_elementwise(
+           g, _single(s.args, "value", None), (b, h, w, c), s.per_channel,
+           [-20, 20])},
+       _image_only(lambda s, d, x: x + d["value"]))
+_photo("multiplyelementwise",
+       lambda s, g, b, h, w, c: {"mul": _sample_elementwise(
+           g, _single(s.args, "mul", None), (b, h, w, c), s.per_channel,
+           [0.8, 1.2])},
+       _image_only(lambda s, d, x: x * d["mul"]))
+_photo("dropout", _p_u(),
+       _image_only(lambda s, d, x: ph.pixel_dropout(x, d["u"], d["p"])))
+_photo("saltandpepper saltpepper", _p_u(),
+       _image_only(lambda s, d, x: ph.salt_and_pepper(x, d["u"], d["p"])))
+_photo("salt", _p_u(),
+       _image_only(lambda s, d, x: ph.salt(x, d["u"], d["p"])))
+_photo("pepper", _p_u(),
+       _image_only(lambda s, d, x: ph.pepper(x, d["u"], d["p"])))
+_photo("impulsenoise", _p_u(per_value=True),
+       _image_only(lambda s, d, x: ph.impulse_noise(x, d["u"], d["p"])))
+
+
+def _coarse_sample(seg, gen, b, h, w, c):
+    p_spec, size = _coarse_args(seg.args)
+    return {"p": _sample(gen, p_spec, b),
+            "u": _rand(gen, (b, *ph.coarse_grid(h, w, size), 1))}
+
+
+_COARSE_MODE = {"coarsesalt": "salt", "coarsepepper": "pepper",
+                "coarsesaltandpepper": "both"}
+_photo("coarsedropout", _coarse_sample,
+       _image_only(lambda s, d, x: ph.coarse_dropout(x, d["u"], d["p"])))
+_photo("coarsesaltandpepper coarsesalt coarsepepper", _coarse_sample,
+       _image_only(lambda s, d, x: ph.coarse_salt_and_pepper(
+           x, d["u"], d["p"], _COARSE_MODE[s.name])))
+
+
+def _dropout2d_args(a: Any) -> Tuple[Any, int]:
+    a = a or {}
+    if isinstance(a, (int, float, list, tuple)):
+        return a, 1
+    return a.get("p", 0.1), int(a.get("nb_keep_channels", 1))
+
+
+_photo("dropout2d channeldropout",
+       lambda s, g, b, h, w, c: {
+           "p": _sample(g, _dropout2d_args(s.args)[0], b, 0.1),
+           "u": _rand(g, (b, c))},
+       _image_only(lambda s, d, x: ph.dropout2d(
+           x, d["u"], d["p"], _dropout2d_args(s.args)[1])))
+_photo("totaldropout",
+       lambda s, g, b, h, w, c: {
+           "p": _sample(g, _single(s.args, "p", 1.0), b, 1.0),
+           "u": _rand(g, (b,))},
+       _image_only(lambda s, d, x: ph.total_dropout(x, d["u"], d["p"])))
+_photo("cutout", _cutout_sample, _cutout_apply)
+_photo("replaceelementwise", _replace_sample, _replace_apply)
+_photo("noop identity", _none, _keep)
+_photo("resize scale", _none, _resize_apply)
+
+# names rewritten into Affine by ``_coerce_block``; the choice combinators
+_SUGAR = {"rotate", "translatex", "translatey", "scalex", "scaley",
+          "shearx", "sheary"}
+_META = {"sometimes", "oneof", "someof"}
+PORTED_AUGMENTERS = _GEOMETRIC | _SUGAR | set(_PHOTO) | _META
+
 
 class _Photo:
+    """One photometric augmenter (Resize among them: the reference lowers
+    it on the photometric path)."""
+
     def __init__(self, spec: Dict[str, Any]):
         self.name = spec["name"].lower()
-        if self.name not in PORTED_AUGMENTERS:
+        if self.name not in _PHOTO:
             raise not_ported(f"augmenter {spec['name']!r}")
-        args = spec.get("args")
-        self.per_channel = bool(isinstance(args, dict)
-                                and args.get("per_channel"))
-        self.mul = _bare(args, "mul").get("mul", [0.8, 1.2])
+        self.args = spec.get("args")
+        self.per_channel = bool(isinstance(self.args, dict)
+                                and self.args.get("per_channel"))
+        self._sample, self._apply = _PHOTO[self.name]
+        if self.name in ("resize", "scale"):
+            self.resize = resize_size(self.args)
 
-    def sample(self, gen: torch.Generator, b: int, c: int) -> Dict[str, Tensor]:
-        if self.per_channel:
-            return {"mul": _sample(gen, self.mul, b * c, 1.0).reshape(b, c)}
-        return {"mul": _sample(gen, self.mul, b, 1.0)}
+    def sample(self, gen: torch.Generator, b: int, h: int, w: int,
+               c: int) -> Dict[str, Tensor]:
+        return self._sample(self, gen, b, h, w, c)
 
     def apply(self, draws: Dict[str, Tensor], images: Tensor, masks: Tensor):
-        return ph.multiply(images.float(), draws["mul"]), masks
+        # photometrics run on 0..255 float32; the pipeline clips at its end
+        return self._apply(self, draws, images.float(), masks)
+
+
+# ---------------------------------------------------------------------------
+# choice combinators
+# ---------------------------------------------------------------------------
+
+class _Meta:
+    """Sometimes / OneOf / SomeOf: child blocks built recursively, each run
+    on the whole batch in order on the running batch, then a per-image
+    ``where`` selects (the reference's ``_make_meta``; the launch count of
+    a step does not depend on the draws).  ``integer_input`` is the
+    combinator's place in its block: it reaches the children's first
+    geometric run."""
+
+    def __init__(self, spec: Dict[str, Any], integer_input: bool = True):
+        self.name = spec["name"].lower()
+        args = spec.get("args")
+        if self.name == "sometimes":
+            a = args if isinstance(args, dict) else {}
+            self.p = float(a.get("p", 0.5))
+            then_spec = (a.get("then") or a.get("then_list")
+                         or a.get("children"))
+            else_spec = (a.get("else") or a.get("else_list")
+                         or a.get("otherwise"))
+            if not then_spec and not else_spec:
+                raise ValueError(
+                    "Sometimes needs a {then: {...}} (and/or else:) child "
+                    "block — without one it would be a silent no-op")
+            self.children = [Augmentation(then_spec, integer_input)]
+            if else_spec:
+                self.children.append(Augmentation(else_spec, integer_input))
+            return
+        if self.name == "oneof":
+            entries = args if isinstance(args, list) else [args]
+        else:
+            if not isinstance(args, dict):
+                raise ValueError("SomeOf expects {n: ..., children: [...]}, "
+                                 f"got {args!r}")
+            n_spec = args.get("n", 1)
+            entries = args.get("children") or args.get("then") or []
+            entries = entries if isinstance(entries, list) else [entries]
+            if isinstance(n_spec, (list, tuple)):
+                self.n_lo, n_hi = int(n_spec[0]), int(n_spec[1])
+            else:
+                self.n_lo = n_hi = int(n_spec)
+            self.n_hi = min(n_hi, len(entries))
+        self.children = [Augmentation(e if isinstance(e, list) else [e],
+                                      integer_input) for e in entries]
+
+    def sample(self, gen: torch.Generator, b: int, h: int, w: int,
+               c: int) -> Dict[str, Any]:
+        """The selector's draws and each child's draws."""
+        dev = gen.device
+        if self.name == "sometimes":
+            sel = {"sel": _bernoulli(gen, self.p, (b,))}
+        elif self.name == "oneof":
+            sel = {"choice": torch.randint(0, len(self.children), (b,),
+                                           generator=gen, device=dev)}
+        else:
+            n = (torch.full((b,), self.n_lo, dtype=torch.long, device=dev)
+                 if self.n_lo >= self.n_hi else
+                 torch.randint(self.n_lo, self.n_hi + 1, (b,),
+                               generator=gen, device=dev))
+            sel = {"n": n, "scores": _rand(gen, (b, len(self.children)))}
+        return {**sel, "children": [ch.sample(gen, b, h, w, c)
+                                    for ch in self.children]}
+
+    def include(self, draws: Dict[str, Any]) -> Tensor:
+        """(B, children) bool: which children each image keeps."""
+        if self.name == "oneof":
+            return draws["choice"][:, None] == torch.arange(
+                len(self.children), device=draws["choice"].device)
+        # exactly n per image: rank the uniform scores, keep the top n
+        order = torch.argsort(-draws["scores"], dim=1, stable=True)
+        ranks = torch.argsort(order, dim=1, stable=True)
+        return ranks < draws["n"][:, None]
+
+    def apply(self, draws: Dict[str, Any], images: Tensor, masks: Tensor):
+        kids = draws["children"]
+        if self.name == "sometimes":
+            out_i, out_m = self.children[0].apply(kids[0], images, masks)
+            if len(self.children) > 1:
+                images, masks = self.children[1].apply(kids[1], images,
+                                                        masks)
+            sel = draws["sel"][:, None, None, None]
+            return (torch.where(sel, out_i, images),
+                    torch.where(sel, out_m, masks))
+        keep = self.include(draws)
+        for i, (child, d) in enumerate(zip(self.children, kids)):
+            out_i, out_m = child.apply(d, images, masks)
+            sel = keep[:, i, None, None, None]
+            images = torch.where(sel, out_i, images)
+            masks = torch.where(sel, out_m, masks)
+        return images, masks
 
 
 class Augmentation:
-    """A compiled augmentation block: ``sample`` draws, ``apply`` warps."""
+    """A compiled augmentation block: ``sample`` draws, ``apply`` runs.
 
-    def __init__(self, specs):
+    ``integer_input=False`` marks a child block whose input may carry
+    non-integer values (a combinator after another segment): its first
+    geometric run then takes the float taps, not the uint8 gather."""
+
+    def __init__(self, specs, integer_input: bool = True):
         self.specs = _coerce_block(specs)
-        self.segments: List[Any] = []
+        groups: List[Tuple[str, Any]] = []
         for s in self.specs:
             name = s["name"].lower()
             if name in _GEOMETRIC:
-                if self.segments and isinstance(self.segments[-1], list):
-                    self.segments[-1].append(s)
+                if groups and groups[-1][0] == "geo":
+                    groups[-1][1].append(s)
                 else:
-                    self.segments.append([s])
+                    groups.append(("geo", [s]))
             else:
-                self.segments.append(s)
-        # uint8 gather taps only in the first segment (decoded images)
-        self.segments = [_GeoRun(g, integer_input=i == 0)
-                         if isinstance(g, list) else _Photo(g)
-                         for i, g in enumerate(self.segments)]
+                groups.append(("meta" if name in _META else "photo", s))
+        self.segments: List[Any] = []
+        for i, (kind, item) in enumerate(groups):
+            first = i == 0 and integer_input
+            if kind == "geo":
+                self.segments.append(_GeoRun(item, integer_input=first))
+            elif kind == "meta":
+                self.segments.append(_Meta(item, integer_input=first))
+            else:
+                self.segments.append(_Photo(item))
+
+    def geo_runs(self) -> List[_GeoRun]:
+        """Every geometric run of the block, children's included, in the
+        order ``apply`` runs them."""
+        out: List[_GeoRun] = []
+        for seg in self.segments:
+            if isinstance(seg, _GeoRun):
+                out.append(seg)
+            elif isinstance(seg, _Meta):
+                for child in seg.children:
+                    out.extend(child.geo_runs())
+        return out
 
     def sample(self, gen: torch.Generator, b: int, h: int, w: int,
                c: int = 3) -> Draws:
-        """Every random value of the block, one entry per segment, on the
-        generator's device."""
-        return [seg.sample(gen, b, h, w) if isinstance(seg, _GeoRun)
-                else seg.sample(gen, b, c) for seg in self.segments]
+        """Every random value of the block, one entry per segment (a
+        combinator's entry holds its children's), on the generator's
+        device."""
+        return [seg.sample(gen, b, h, w, c) for seg in self.segments]
 
     def apply(self, draws: Draws, images: Tensor, masks: Tensor):
         """images (B, H, W, C) uint8 or float on 0..255, masks

@@ -130,7 +130,9 @@ def fit_pipeline(cfg, dataset, foldsToExecute: Optional[Sequence[int]] = None,
     of its train loop (ended by the copy of its logs to the host), of the
     wait for its first batch within it, of validation and of the
     checkpoint, and its train steps and images."""
-    if cfg.mesh and math.prod(int(v) for v in cfg.mesh.values()) > 1:
+    # one device only: any axis over 1 (data or hosts -1/0 mean "all")
+    if any(int(cfg.mesh.get(axis) or 1) > 1
+           for axis in ("hosts", "data", "space")):
         raise _not_ported(f"`mesh: {cfg.mesh}` (more than one device)")
     verbose = cfg.verbose if verbose is None else verbose
     device = torch.device(device)

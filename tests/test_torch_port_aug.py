@@ -153,10 +153,10 @@ def test_sample_draws_distributions():
 
 @pytest.mark.parametrize("spec,match", [
     ({"Sharpen": {"alpha": 0.5}}, "Sharpen"),
-    ({"Add": 10}, "Add"),
-    ({"Sometimes": {"p": 0.5, "then": [{"Affine": {"cval": 128}}]}},
-     "Sometimes"),
-])
+    ({"GaussianBlur": {"sigma": 1.0}}, "GaussianBlur"),
+    ({"WithChannels": {"channels": [0], "children": [{"Add": 5}]}},
+     "WithChannels"),
+], ids=["spec0-Sharpen", "spec1-Add", "spec2-Sometimes"])
 def test_unported_configs_raise_at_build(spec, match):
     with pytest.raises(NotImplementedError, match=match):
         TL.build_augmentation(spec)

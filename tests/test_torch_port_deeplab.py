@@ -319,8 +319,11 @@ def test_every_alias_builds_the_jax_pairing(alias, backbone):
     with torch.no_grad():
         out = tm(torch.zeros(1, 32, 32, 3))
     assert out.shape == (1, 32, 32, 2)
+    # the config keeps the user's spelling, as the reference's does; the
+    # registry names the architecture it means
     cfg = TC.parse_dict({"architecture": alias, "backbone": backbone})
-    assert cfg.architecture == "DeepLabV3"
+    assert cfg.architecture == alias
+    assert TC.ARCHITECTURES.get(cfg.architecture) == "DeepLabV3"
 
 
 @pytest.mark.parametrize("alias", ["xception65", "xception_deeplab"])

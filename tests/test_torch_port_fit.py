@@ -1,7 +1,8 @@
 """The port's fit loop against the JAX package's, on the CPU.
 
 Both packages fit fold 0 of the same 12-image synthetic set (2 folds) with
-the same config: Unet-resnet18 at 32², float32, B4, bce + 0.25·dice, Adam,
+the same config: Unet-resnet18 at 32², float32, B4, bce + 0.25·dice, Adam
+(spelled ``unet`` and ``adam``: both keep the spelling in the sidecars),
 ``primary_metric: val_dice``, and two stages: the encoder frozen at lr 1e-3
 with ``negatives: none``, then unfrozen at lr 1e-4 with ``negatives: real``
 and ``ReduceLROnPlateau``.  Stage 0 starts both from the same variables, a
@@ -94,8 +95,8 @@ LOSS_RTOL, METRIC_ATOL, PARAM_ATOL, SHARE = 1e-2, 3e-2, 1e-2, 0.35
 DELTA_RATIO, DELTA_COS = (0.5, 2.0), 0.1
 LOSS = "binary_crossentropy + 0.25*dice_loss"
 CONFIG = {
-    "architecture": "Unet", "backbone": "resnet18", "shape": [H, H, 3],
-    "classes": 1, "activation": "sigmoid", "loss": LOSS, "optimizer": "Adam",
+    "architecture": "unet", "backbone": "resnet18", "shape": [H, H, 3],
+    "classes": 1, "activation": "sigmoid", "loss": LOSS, "optimizer": "adam",
     "batch": 4, "dtype": "float32", "metrics": ["dice", "iou"],
     "primary_metric": "val_dice", "folds_count": 2, "random_state": 33,
     "verbose": 0,
@@ -327,6 +328,33 @@ def test_fit_with_config4_augmentation_runs(tmp_path):
         rows = _rows(cfg.metrics_path(1, s))
         assert len(rows) == 2
         assert all(np.isfinite(float(v)) for v in rows[1][2:])
+
+
+@pytest.mark.parametrize("mesh,trains", [
+    ({"data": -1, "space": 2}, False), ({"hosts": 2, "data": -1}, False),
+    ({"data": 2}, False), ({"data": -1}, True),
+    ({"hosts": 1, "data": -1, "space": 1}, True)],
+    ids=["data-space2", "hosts2", "data2", "data-all", "kitchen-sink"])
+def test_fit_refuses_meshes_over_more_than_one_device(mesh, trains, tmp_path):
+    """A mesh with ``hosts``, ``data`` or ``space`` above 1 needs more
+    than one device: the fit refuses it before it reads the data (the
+    product of the axes, -2 for the first two, let them through before).
+    ``data: -1`` means every device, here one: those meshes train."""
+    xs, ys = _data()
+    cfg = TC.parse_dict({**CONFIG, "mesh": mesh,
+                         "stages": [{**CONFIG["stages"][0], "epochs": 1,
+                                     "initial_weights": None}]},
+                        directory=str(tmp_path))
+    if not trains:
+        with pytest.raises(NotImplementedError, match="more than one"):
+            TST.fit_pipeline(cfg, TLambda(xs, ys), foldsToExecute=[1],
+                             device="cpu")
+        assert not os.path.exists(cfg.weights_dir)
+        return
+    res = TST.fit_pipeline(cfg, TLambda(xs, ys), foldsToExecute=[1],
+                           device="cpu")
+    assert list(res) == ["fold1.stage0"]
+    assert TCK.checkpoint_meta(cfg.weights_path(1, 0))["done"] is True
 
 
 def test_cli_fit_then_predict(tmp_path, capsys):

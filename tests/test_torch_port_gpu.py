@@ -469,3 +469,116 @@ def test_geometric_routes_on_card(card, spec, route, launches):
     assert K.launch_counts() == {n: launches.get(n, 0) for n in K.KERNELS}
     assert float((gi.cpu() - ci).abs().max()) <= 0.05
     assert float((gm.cpu() != cm).float().mean()) <= 1e-3
+
+
+# each pixelwise name of the photometric slice in one of its forms
+PHOTO_ON_CARD = {
+    "add": {"Add": {"value": [-20, 20], "per_channel": True}},
+    "addelementwise": {"AddElementwise": [-20, 20]},
+    "multiplyelementwise": {"MultiplyElementwise": {
+        "mul": [0.8, 1.2], "per_channel": True}},
+    "linearcontrast": {"LinearContrast": [0.6, 1.4]},
+    "gammacontrast": {"GammaContrast": {"gamma": [0.7, 1.7],
+                                        "per_channel": True}},
+    "sigmoidcontrast": {"SigmoidContrast": {"gain": [5, 10],
+                                            "cutoff": [0.3, 0.6]}},
+    "logcontrast": {"LogContrast": [0.4, 1.6]},
+    "invert": {"Invert": 0.5},
+    "solarize": {"Solarize": {"p": [0.2, 0.8], "threshold": [64, 192]}},
+    "posterize": {"Posterize": [1, 8]},
+    "gaussian": {"AdditiveGaussianNoise": [0, 15]},
+    "laplace": {"AdditiveLaplaceNoise": [0, 15]},
+    "poisson": {"AdditivePoissonNoise": [0, 15]},
+    "impulse": {"ImpulseNoise": 0.1},
+    "salt": {"Salt": 0.1},
+    "pepper": {"Pepper": 0.1},
+    "saltandpepper": {"SaltAndPepper": 0.1},
+    "coarsesaltandpepper": {"CoarseSaltAndPepper": 0.2},
+    "coarsesalt": {"CoarseSalt": {"p": 0.2, "size_percent": 0.05}},
+    "coarsepepper": {"CoarsePepper": 0.2},
+    "dropout": {"Dropout": [0, 0.2]},
+    "dropout2d": {"Dropout2d": {"p": 0.7, "nb_keep_channels": 2}},
+    "totaldropout": {"TotalDropout": 0.5},
+    "coarsedropout": {"CoarseDropout": {"p": 0.3, "size_percent": 0.1}},
+    "cutout": {"Cutout": {"nb_iterations": [1, 3], "size": 0.15,
+                          "cval": [0, 255]}},
+    "replaceelementwise": {"ReplaceElementwise": {
+        "mask": 0.1, "replacement": [0, 255], "per_channel": True}},
+    "channelshuffle": {"ChannelShuffle": 0.5},
+    "noop": {"Noop": None},
+    "resize-float": {"Resize": 0.75},
+    "resize-int": {"Resize": 40},
+    "sometimes": {"Sometimes": {"p": 0.5, "then": [{"Add": 30}],
+                                "else": [{"GammaContrast": [0.5, 2.0]}]}},
+    "oneof": {"OneOf": [{"Invert": 1.0}, {"Salt": 0.1},
+                        {"LogContrast": [0.5, 1.5]}]},
+    "someof": {"SomeOf": {"n": [0, 2], "children": [
+        {"Pepper": 0.1}, {"Multiply": 0.8}, {"Cutout": 2}]}},
+}
+
+
+def _batch(b, h, w, seed):
+    r = np.random.RandomState(seed)
+    imgs = torch.from_numpy((r.rand(b, h, w, 3) * 255).astype(np.uint8))
+    masks = torch.from_numpy((r.rand(b, h, w, 1) > 0.5).astype(np.float32))
+    return imgs, masks
+
+
+@pytest.mark.parametrize("spec", list(PHOTO_ON_CARD.values()),
+                         ids=list(PHOTO_ON_CARD))
+def test_photometric_names_on_card(card, spec):
+    """Each name on the card against the port on the CPU on the same
+    draws (72×100, so the coarse grids and Resize's sizes are no
+    divisors of the frame): images within 1e-3 on 0..255 (pow, exp and
+    log2 round differently there), masks equal, no kernel launched; and
+    the name's draws made by a generator on the card."""
+    b, h, w = 3, 72, 100
+    aug = LW.build_augmentation(spec)
+    imgs, masks = _batch(b, h, w, 4)
+    draws = aug.sample(torch.Generator().manual_seed(5), b, h, w)
+    ci, cm = aug.apply(draws, imgs, masks)
+    K.reset_launches()
+    gi, gm = aug.apply(_to(draws, card), imgs.to(card), masks.to(card))
+    assert K.launch_counts() == {n: 0 for n in K.KERNELS}
+    assert float((gi.cpu() - ci).abs().max()) <= 1e-3
+    assert torch.equal(gm.cpu(), cm)
+    own = aug.sample(torch.Generator(device=card).manual_seed(5), b, h, w)
+    oi, om = aug.apply(own, imgs.to(card), masks.to(card))
+    assert oi.is_cuda and bool(torch.isfinite(oi).all())
+
+
+@pytest.mark.parametrize("spec,launches", [
+    ({"Rotate": [-15, 15]}, {"warp_x": 1, "warp_y": 1}),
+    ({"TranslateY": {"px": [-9, 9]}, "ShearX": [-10, 10]},
+     {"warp_x": 1, "warp_y": 1}),
+    ({"Add": 5, "Sometimes": {"p": 0.5, "then": [
+        {"Affine": {"rotate": [-10, 10], "cval": 128}}]}},
+     {"warp_x": 1, "warp_y": 1}),
+    ({"SomeOf": {"n": [0, 2], "children": [
+        {"Rotate": [-10, 10]}, {"ScaleY": [0.8, 1.2]}, {"Add": 3}]}},
+     {"warp_x": 2, "warp_y": 2}),
+    ({"Fliplr": 0.5, "Rotate": [-15, 15],
+      "Sometimes": {"p": 0.5, "then": [{"ElasticTransformation": {
+          "alpha": [0, 40], "sigma": 6}}]},
+      "OneOf": [{"GammaContrast": [0.7, 1.4]},
+                {"LinearContrast": [0.9, 1.1]}],
+      "Resize": 0.75},
+     {"warp_x": 1, "warp_y": 1, "elastic": 1}),
+], ids=["rotate", "sugar-run", "sometimes-after-photo", "someof-warps",
+        "train-photo"])
+def test_sugar_and_combinators_on_card(card, spec, launches):
+    """The sugar names and warps inside combinators launch their kernels
+    once per geometric run (a combinator runs every child), and the block
+    on the card agrees with the CPU on the same draws as the config-2
+    block does (images within 0.05, masks differing in at most 1e-3 of
+    the pixels)."""
+    b, h = 2, 96
+    aug = LW.build_augmentation(spec)
+    imgs, masks = _batch(b, h, h, 3)
+    draws = aug.sample(torch.Generator().manual_seed(2), b, h, h)
+    ci, cm = aug.apply(draws, imgs, masks)
+    K.reset_launches()
+    gi, gm = aug.apply(_to(draws, card), imgs.to(card), masks.to(card))
+    assert K.launch_counts() == {n: launches.get(n, 0) for n in K.KERNELS}
+    assert float((gi.cpu() - ci).abs().max()) <= 0.05
+    assert float((gm.cpu() != cm).float().mean()) <= 1e-3

@@ -14,6 +14,7 @@ and its small pure functions against the JAX package's.
 """
 
 import ast
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -159,8 +160,8 @@ def test_config_parses_the_fpn_example():
 @pytest.mark.parametrize("patch,exc,match", [
     ({"archtecture": "Unet"}, TC.ConfigError, "Did you mean 'architecture'"),
     ({"architecture": "FPN", "backbone": "senet154",
-      "augmentation": {"CoarseDropout": {"p": 0.1}}}, NotImplementedError,
-     "augmenter 'CoarseDropout' is not yet ported"),
+      "augmentation": {"Clouds": {}}}, NotImplementedError,
+     "augmenter 'Clouds' is not yet ported"),
     ({"backbone": "efficientnetb0", "architecture": "DeepLabV3",
       "augmentation": {"Rot90": {"k": [1, 3], "keep_sizes": True}}},
      TC.ConfigError, "Did you mean 'keep_size'"),
@@ -170,10 +171,9 @@ def test_config_parses_the_fpn_example():
                                            "absolute_scale": True}}},
      TC.ConfigError, "'absolute_scale' is a real imgaug parameter"),
     ({"loss": "dice_los"}, ValueError, "Did you mean 'dice_loss'"),
-    ({"backbone": "vgg16", "augmentation": {"AdditiveGaussianNoise":
-                                            {"scale": 5}}},
-     NotImplementedError, "augmenter 'AdditiveGaussianNoise' is not yet "
-     "ported"),
+    ({"backbone": "vgg16", "augmentation": {"Superpixels":
+                                            {"p_replace": 0.5}}},
+     NotImplementedError, "augmenter 'Superpixels' is not yet ported"),
     ({"augmentation": {"GaussianBlur": {"sigma": 1}}}, NotImplementedError,
      "not yet ported"),
     ({"augmentation": {"Fliplrr": 0.5}}, TC.ConfigError, "Did you mean"),
@@ -321,3 +321,137 @@ def test_encoder_weights_names_match_the_jax_reader(tmp_path, monkeypatch):
     for spec in ("imagenet22k", "noisy-student", str(tmp_path / "w.npz")):
         assert (TP.resolve_pretrained_path("resnet34", spec)
                 == JP.resolve_pretrained_path("resnet34", spec) == spec)
+
+
+def _head(msg: str) -> str:
+    """A refusal's statement, before its reason: the port's reasons leave
+    out the reference's words about XLA and its docs."""
+    return re.split(r" \(| —", msg)[0]
+
+
+VALUE_CHECKS = {
+    "rot90-keep-size": {"Rot90": {"k": 1, "keep_size": False}},
+    "crop-keep-size": {"Crop": {"px": [0, 4], "keep_size": False}},
+    "perspective-keep-size": {"PerspectiveTransform": {
+        "scale": 0.05, "keep_size": False}},
+    "left-top": {"CropToFixedSize": {"width": 32, "height": 32,
+                                     "position": "left-top"}},
+    "right-bottom": {"PadToFixedSize": {"width": 80, "height": 80,
+                                        "position": "right-bottom"}},
+    "width-32.5": {"CropToFixedSize": {"width": 32.5, "height": 32}},
+    "width-0": {"CenterCropToFixedSize": {"width": 0, "height": 32}},
+    "width-true": {"PadToFixedSize": {"width": True, "height": 80}},
+    "affine-reflect": {"Affine": {"rotate": 10, "mode": "reflect"}},
+    "pad-4-tuple": {"Pad": {"px": [1, 2, 3, 4]}},
+    "cutout-gaussian": {"Cutout": {"fill_mode": "gaussian"}},
+    "cutout-not-squared": {"Cutout": {"size": 0.2, "squared": False}},
+    "rotate-edge": {"Rotate": {"rotate": 5, "mode": "edge"}},
+    "rotate-axis-typo": {"Rotate": {"rotate": 5, "scale": {"sx": 1.1}}},
+    "child-keep-size": {"Sometimes": {"p": 0.5, "then": [
+        {"Rot90": {"keep_size": False}}]}},
+}
+
+
+@pytest.mark.parametrize("block", list(VALUE_CHECKS.values()),
+                         ids=list(VALUE_CHECKS))
+def test_value_checks_match_jax(block):
+    """The reference's value checks refuse the same specs at parse, with
+    the same statement; the port's parse refused none of them before."""
+    from segmentation_training_pipeline_tpu import config as JC
+
+    with pytest.raises(JC.ConfigError) as j:
+        JC.parse_dict({"augmentation": block})
+    with pytest.raises(TC.ConfigError) as t:
+        TC.parse_dict({"augmentation": block})
+    assert _head(str(t.value)) == _head(str(j.value))
+
+
+def _known_unsupported():
+    from segmentation_training_pipeline_tpu import config as JC
+
+    return sorted(JC._KNOWN_UNSUPPORTED_AUGMENTERS) + [
+        "pillike.Equalize", "imgcorruptlike.GaussianNoise"]
+
+
+@pytest.mark.parametrize("name", _known_unsupported())
+def test_known_unsupported_names_are_refused_as_jax(name):
+    """A real imgaug name the reference does not lower gets its pointed
+    refusal, at top level and as a combinator's child."""
+    from segmentation_training_pipeline_tpu import config as JC
+
+    assert TC._KNOWN_UNSUPPORTED_AUGMENTERS == \
+        JC._KNOWN_UNSUPPORTED_AUGMENTERS
+    assert TC._UNSUPPORTED_AUG_PREFIXES == JC._UNSUPPORTED_AUG_PREFIXES
+    for block in ({name: None}, {"OneOf": [{name: None}, {"Add": 3}]}):
+        with pytest.raises(JC.ConfigError) as j:
+            JC.parse_dict({"augmentation": block})
+        with pytest.raises(TC.ConfigError) as t:
+            TC.parse_dict({"augmentation": block})
+        assert str(t.value) == str(j.value)
+        assert "intentionally does not lower" in str(t.value)
+
+
+def test_slice_schemas_match_the_jax_schemas():
+    """Every name the port accepts has the reference's argument schema:
+    the keys allowed and the imgaug keys refused, under every alias."""
+    from segmentation_training_pipeline_tpu.ops.aug import arg_schema as JA
+    from segmentation_training_pipeline_tpu.ops.aug import lowering as JL
+    from segmentation_training_pipeline_tpu_torch.ops.aug import (
+        arg_schema as TA)
+    from segmentation_training_pipeline_tpu_torch.ops.aug import (
+        lowering as TL)
+
+    assert TL.PORTED_AUGMENTERS == set(TA._LOOKUP)
+    assert TL._META <= JL._META
+    for name in TL.PORTED_AUGMENTERS:
+        key = JA._LOOKUP[name]
+        assert TA._LOOKUP[name] == key, name
+        (t_allowed, t_unsup), (j_allowed, j_unsup) = (TA._SCHEMA[key],
+                                                      JA._SCHEMA[key])
+        assert t_allowed == j_allowed and set(t_unsup) == set(j_unsup), name
+    slice_names = set("""rotate translatex translatey scalex scaley shearx
+        sheary resize scale sometimes oneof someof add addelementwise
+        multiplyelementwise linearcontrast contrastnormalization
+        gammacontrast sigmoidcontrast logcontrast invert solarize posterize
+        additivegaussiannoise additivelaplacenoise additivepoissonnoise
+        impulsenoise salt pepper saltandpepper saltpepper coarsesaltandpepper
+        coarsesalt coarsepepper dropout dropout2d channeldropout totaldropout
+        coarsedropout cutout replaceelementwise channelshuffle noop
+        identity""".split())
+    assert TL.PORTED_AUGMENTERS - TL._GEOMETRIC == slice_names | {"multiply"}
+
+
+def test_package_root_matches_jax():
+    """The reference's public surface: the same ``__all__``, each name
+    bound at the package root."""
+    import segmentation_training_pipeline_tpu as J
+    import segmentation_training_pipeline_tpu_torch as T
+
+    assert T.__all__ == J.__all__
+    for name in T.__all__:
+        assert getattr(T, name) is not None, name
+    assert T.parse is TC.parse and T.PipelineConfig is TC.PipelineConfig
+    assert T.losses is TLo and T.metrics is TM
+
+
+@pytest.mark.parametrize("patch", [
+    {"architecture": "unet"}, {"architecture": "deeplab"},
+    {"architecture": "DeepLabV3+", "backbone": "xception_aligned"},
+    {"optimizer": "adam"}, {"optimizer": "nadam"},
+    {"architecture": "psp", "optimizer": "ADAM"}],
+    ids=["unet", "deeplab", "deeplabv3+", "adam", "nadam", "psp-ADAM"])
+def test_config_keeps_the_users_spelling(patch):
+    """``to_dict()`` equals the reference's for alias spellings: the
+    architecture and the optimizer are kept as written, and the model and
+    the optimizer the spelling names are the canonical ones."""
+    from segmentation_training_pipeline_tpu import config as JC
+
+    d = {"shape": [64, 64, 3], **patch}
+    cfg = TC.parse_dict(d)
+    assert cfg.to_dict() == JC.parse_dict(d).to_dict()
+    for k, v in patch.items():
+        assert getattr(cfg, k) == v
+    arch = TF.DECODERS[cfg.architecture.lower()]
+    assert arch is TF.DECODERS[TC.ARCHITECTURES.get(
+        cfg.architecture).lower()]
+    TO.build_optimizer(cfg)

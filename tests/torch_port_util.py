@@ -17,7 +17,11 @@ hand the same values to the port:
     control points or corners;
   * ElasticTransformation: 3 keys — alpha, sigma, field (lowering.py:812),
     the field key split into the x and y noise (warp.py:191-196);
-  * Multiply: the segment key (lowering.py:1491-1494).
+  * a photometric segment: its ``_apply_photo`` branch's split
+    (lowering.py:1480-2030), the values its photometric function draws
+    inside drawn from the same key (``_jax_photo_draw``);
+  * Sometimes / OneOf / SomeOf: ``_make_meta``'s split (lowering.py:
+    1353, 1371, 1404), each child block drawn as a block of its own.
 
 It also runs the reference's Pallas kernels in interpret mode inside the
 full lowering (the pattern of tests/test_pallas_elastic.py:132-141), and
@@ -128,16 +132,143 @@ def _jax_geo_draw(seg, i, name, a, k, b, h, w):
         noise_y=jax.random.uniform(ky, shape, minval=-1.0, maxval=1.0))
 
 
+def _jax_photo_draw(seg, k, b, h, w, c):
+    """One photometric segment's draws from its key ``k``, as the
+    reference's ``_apply_photo`` branch splits the key and as its
+    photometric functions draw inside (``photometric.py``)."""
+    name, a, pc = seg.name, seg.args, seg.per_channel
+    split = jax.random.split
+    uniform = jax.random.uniform
+    if name in ("multiply", "add", "gammacontrast", "logcontrast"):
+        key, spec, default = {
+            "multiply": ("mul", [0.8, 1.2], 1.0),
+            "add": ("value", [-20, 20], 0.0),
+            "gammacontrast": ("gamma", [0.7, 1.7], 1.0),
+            "logcontrast": ("gain", [0.4, 1.6], 1.0)}[name]
+        return {key: JL._sample_maybe_per_channel(
+            k, JL._bare(a, key).get(key, spec), b, c, pc, default)}
+    if name in ("linearcontrast", "contrastnormalization"):
+        return {"alpha": JL._sample(k, JL._bare(a, "alpha").get(
+            "alpha", [0.6, 1.4]), b, 1.0)}
+    if name == "sigmoidcontrast":
+        aa = JL._bare(a, "gain")
+        k1, k2 = split(k)
+        return {"gain": JL._sample(k1, aa.get("gain", 10.0), b, 10.0),
+                "cutoff": JL._sample(k2, aa.get("cutoff", 0.5), b, 0.5)}
+    if name in ("additivegaussiannoise", "additivelaplacenoise"):
+        k1, k2 = split(k)
+        draw = (jax.random.normal if name == "additivegaussiannoise"
+                else jax.random.laplace)
+        return {"scale": JL._sample(k1, JL._bare(a, "scale").get(
+                    "scale", [0, 15]), b, 0.0),
+                "noise": draw(k2, (b, h, w, c), jnp.float32)}
+    if name == "additivepoissonnoise":
+        k1, k2 = split(k)
+        lam = JL._sample(k1, JL._bare(a, "lam").get("lam", [0, 15]), b, 1.0)
+        return {"counts": jax.random.poisson(
+            k2, jnp.maximum(lam, 0.0)[:, None, None, None],
+            shape=(b, h, w, c)).astype(jnp.float32)}
+    if name == "invert":
+        k1, k2 = split(k)
+        p = JL._sample(k1, JL._bare(a, "p").get("p", 1.0), b, 1.0)
+        return {"flip": jax.random.bernoulli(k2, p, (b,))}
+    if name == "solarize":
+        aa = JL._bare(a, "p")
+        k1, k2, k3 = split(k, 3)
+        th = JL._sample(k2, aa.get("threshold", 128), b, 128.0)
+        if isinstance(aa.get("p"), (list, tuple)):
+            apply = uniform(k3, (b,)) < JL._sample(k1, aa.get("p"), b, 1.0)
+        elif float(aa.get("p", 1.0)) >= 1.0:
+            apply = jnp.ones((b,), bool)
+        else:
+            apply = jax.random.bernoulli(k1, float(aa.get("p", 1.0)), (b,))
+        return {"threshold": th, "apply": apply}
+    if name == "posterize":
+        return {"nb_bits": JL._sample(k, TL._single(a, "nb_bits", [1, 8]), b,
+                                      4.0)}
+    if name == "channelshuffle":
+        k1, k2 = split(k)
+        p = JL._sample(k1, TL._single(a, "p", 1.0), b, 1.0)
+        kk1, kk2 = split(k2)
+        return {"perm": jnp.argsort(uniform(kk1, (b, c)), axis=1),
+                "sel": jax.random.bernoulli(kk2, p, (b,))}
+    if name in ("addelementwise", "multiplyelementwise"):
+        key, default = (("value", [-20, 20]) if name == "addelementwise"
+                        else ("mul", [0.8, 1.2]))
+        return {key: JL._sample_elementwise(k, TL._single(a, key, None),
+                                            (b, h, w, c), pc, default)}
+    if name in ("dropout", "saltandpepper", "saltpepper", "salt", "pepper",
+                "impulsenoise"):
+        k1, k2 = split(k)
+        return {"p": JL._sample(k1, TL._single(a, "p", 0.05), b, 0.05),
+                "u": uniform(k2, (b, h, w, c if name == "impulsenoise"
+                                  else 1))}
+    if name in ("coarsedropout", "coarsesaltandpepper", "coarsesalt",
+                "coarsepepper"):
+        p_spec, size = TL._coarse_args(a)
+        k1, k2 = split(k)
+        gh = max(1, int(round(h * size)))
+        gw = max(1, int(round(w * size)))
+        return {"p": JL._sample(k1, p_spec, b),
+                "u": uniform(k2, (b, gh, gw, 1))}
+    if name in ("dropout2d", "channeldropout"):
+        k1, k2 = split(k)
+        return {"p": JL._sample(k1, TL._dropout2d_args(a)[0], b, 0.1),
+                "u": uniform(k2, (b, c))}
+    if name == "totaldropout":
+        k1, k2 = split(k)
+        return {"p": JL._sample(k1, TL._single(a, "p", 1.0), b, 1.0),
+                "u": uniform(k2, (b,))}
+    if name == "cutout":
+        aa, g = TL._cutout_args(a)
+        k1, k2, k3 = split(k, 3)
+        return {"nb": JL._sample(k1, aa.get("nb_iterations", 1), b, 1.0),
+                "u": uniform(k2, (b, g, g, 1)),
+                "cval": JL._sample(k3, aa.get("cval", 128), b, 128.0)}
+    if name == "replaceelementwise":
+        aa = JL._bare(a, "mask")
+        k1, k2, k3 = split(k, 3)
+        shape = (b, h, w, c if pc else 1)
+        return {"p": JL._sample(k1, aa.get("mask", 0.05), b),
+                "u": uniform(k2, shape),
+                "replacement": JL._sample_shape(
+                    k3, aa.get("replacement", [0.0, 255.0]), shape)}
+    assert name in ("noop", "identity", "resize", "scale"), name
+    return {}
+
+
+def _jax_meta_draw(seg, k, b, h, w, c):
+    """A combinator's draws as the reference's ``_make_meta`` splits its
+    key: k1, k2, k3 (selector, then, else) for Sometimes; kc and one key
+    per child for OneOf; kn, ks and one key per child for SomeOf."""
+    n = len(seg.children)
+    if seg.name == "sometimes":
+        k1, *kids = jax.random.split(k, 3)
+        sel = {"sel": _t(jax.random.bernoulli(k1, seg.p, (b,)))}
+    elif seg.name == "oneof":
+        kc, *kids = jax.random.split(k, n + 1)
+        sel = {"choice": _t(jax.random.randint(kc, (b,), 0, n))}
+    else:
+        kn, ks, *kids = jax.random.split(k, n + 2)
+        ns = (jnp.full((b,), seg.n_lo, jnp.int32) if seg.n_lo == seg.n_hi
+              else jax.random.randint(kn, (b,), seg.n_lo, seg.n_hi + 1))
+        sel = {"n": _t(ns), "scores": _t(jax.random.uniform(ks, (b, n)))}
+    return {**sel, "children": [jax_draws(ch, kk, b, h, w, c)
+                                for ch, kk in zip(seg.children, kids)]}
+
+
 def jax_draws(aug, key, b, h, w, c=3):
     """Draws for the port's ``aug`` (a ``lowering.Augmentation``) made with
     jax.random exactly as the reference lowering draws them from ``key``."""
     keys = jax.random.split(key, max(len(aug.segments), 1))
     out = []
     for seg, k in zip(aug.segments, keys):
-        if not isinstance(seg, TL._GeoRun):
-            mul = JL._sample_maybe_per_channel(k, seg.mul, b, c,
-                                               seg.per_channel, 1.0)
-            out.append({"mul": _t(mul)})
+        if isinstance(seg, TL._Meta):
+            out.append(_jax_meta_draw(seg, k, b, h, w, c))
+            continue
+        if isinstance(seg, TL._Photo):
+            out.append({n: _t(v) for n, v in _jax_photo_draw(
+                seg, k, b, h, w, c).items()})
             continue
         gk = jax.random.split(k, len(seg.geo) + 1)
         if seg.is_cheap(h, w):
@@ -147,6 +278,47 @@ def jax_draws(aug, key, b, h, w, c=3):
         if seg.cval_spec is not None:
             draws.append({"cval": JL._sample(gk[-1], seg.cval_spec, b, 0.0)})
         out.append([{n: _t(v) for n, v in d.items()} for d in draws])
+    return out
+
+
+def record_jax_warps(monkeypatch):
+    """Wrap the reference's three warps to record, in order, which ran:
+    "multipass" (" ye" with a field), "elastic", "gather" (" u8" with the
+    uint8 taps)."""
+    from segmentation_training_pipeline_tpu.ops.aug import warp as JW
+
+    ran = []
+
+    def wrap(mod, name, tag):
+        fn = getattr(mod, name)
+
+        def wrapped(*a, **kw):
+            extra = ((" ye" if kw.get("disp") is not None else "")
+                     + (" u8" if kw.get("gather_u8") else ""))
+            ran.append(tag + extra)
+            return fn(*a, **kw)
+
+        monkeypatch.setattr(mod, name, wrapped)
+
+    wrap(JFW, "warp_joint_multipass", "multipass")
+    wrap(JPE, "warp_elastic_joint", "elastic")
+    wrap(JW, "warp_joint", "gather")
+    return ran
+
+
+def port_warps(aug, h, w):
+    """The warps the port's ``aug`` runs at H×W, in order, named as
+    ``record_jax_warps`` names the reference's."""
+    out = []
+    for run in aug.geo_runs():
+        route = run.route(h, w)
+        if route == "gather":
+            u8 = run.integer_input and run.cval_spec is None
+            out.append("gather u8" if u8 else "gather")
+        elif route == "multipass+elastic":
+            out += ["multipass", "elastic"]
+        elif route != "flips":
+            out.append(route)
     return out
 
 
