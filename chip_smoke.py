@@ -132,8 +132,14 @@ line with its seconds; any failure raises and the script exits non-zero:
      block's ms, a falling loss, img/s and peak memory;
   12e. photo_paths: each name of the slice alone at 512² B16
      (``PHOTO_CASES``; the combinators with a child that reaches a
-     kernel): its launches, each launch held bit for bit, the block's ms
-     and the card against the CPU on the same draws;
+     kernel; the colour names, the histogram names and the four channel
+     and colourspace scopes): its launches, each launch held bit for bit,
+     the block's ms and peak memory above its inputs, and the card
+     against the CPU on the same draws;
+  12f. accuracy: ``examples/accuracy_evidence_torch.py`` config 1 cut to
+     64 images and 2 epochs through its ``main``: the evaluate dict,
+     finite and in [0, 1], no kernel launch, the fit's and evaluate's
+     seconds;
   13. the ``kernels`` summary line (``launches`` from ``train``, beside
      them ``launches_train_photo``), then the last line
      ``{"ok": true, "device": {...}}``.
@@ -378,6 +384,41 @@ PHOTO_CASES = [
         "mask": 0.1, "replacement": [0, 255], "per_channel": True}}),
     ("channelshuffle", {"ChannelShuffle": 0.5}),
     ("noop", {"Noop": None}),
+    # the colour names and their scopes
+    ("grayscale", {"Grayscale": [0.0, 1.0]}),
+    ("addtohueandsaturation", {"AddToHueAndSaturation": {
+        "value_hue": [-50, 50], "value_saturation": [-30, 30]}}),
+    ("addtohue", {"AddToHue": [-255, 255]}),
+    ("addtosaturation", {"AddToSaturation": [-75, 75]}),
+    ("multiplyhueandsaturation", {"MultiplyHueAndSaturation": [0.5, 1.5]}),
+    ("multiplyhue", {"MultiplyHue": [-3.0, 3.0]}),
+    ("multiplysaturation", {"MultiplySaturation": [0.0, 3.0]}),
+    ("removesaturation", {"RemoveSaturation": [0.2, 1.0]}),
+    ("changecolortemperature", {"ChangeColorTemperature": [1000, 11000]}),
+    ("changecolorspace_hsv", {"ChangeColorspace": "HSV"}),
+    ("changecolorspace_hls", {"ChangeColorspace": {
+        "to_colorspace": "HLS", "alpha": [0.5, 1.0]}}),
+    ("changecolorspace_ycrcb", {"ChangeColorspace": "YCrCb"}),
+    ("changecolorspace_gray", {"ChangeColorspace": "GRAY"}),
+    ("changecolorspace_bgr", {"ChangeColorspace": "BGR"}),
+    ("autocontrast", {"Autocontrast": {"cutoff": 2}}),
+    ("auto_contrast", {"auto_contrast": None}),
+    ("histogramequalization", {"HistogramEqualization": None}),
+    ("allchannelshistogramequalization",
+     {"AllChannelsHistogramEqualization": None}),
+    ("clahe", {"CLAHE": [1, 10]}),
+    # 5×5 tiles of 103 px: the frame pads (reflect-101), odd tiles
+    ("allchannelsclahe", {"AllChannelsCLAHE": {"clip_limit": 4,
+                                               "tile_grid_size": 5}}),
+    ("withchannels", {"WithChannels": {"channels": [0, 1], "children": [
+        {"Add": [-30, 30]}, {"GammaContrast": [0.7, 1.4]}]}}),
+    ("withhueandsaturation", {"WithHueAndSaturation": {"children": [
+        {"Add": {"value": [-40, 40], "per_channel": True}}]}}),
+    ("withbrightnesschannels", {"WithBrightnessChannels": {"children": [
+        {"Add": [-50, 50]}]}}),
+    ("withcolorspace", {"WithColorspace": {
+        "to_colorspace": "HSV", "children": [
+            {"Multiply": {"mul": [0.7, 1.3], "per_channel": True}}]}}),
 ]
 # photo_paths and train_photo, each segment on the card against the port on
 # the CPU on the same draws and the same input: images within 1e-3 on
@@ -1816,9 +1857,14 @@ def phase_photo_paths(seed: int) -> dict:
                            SIZE)
         gd = _to(draws, "cuda")
         K.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         with captured(list(WRAPPERS), {}) as calls, no_tf32():
             out_i, out_m = aug.apply(gd, gi, gm)
         torch.cuda.synchronize()
+        # the block's own peak, above what was resident before it
+        peak_mib = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
         launches = K.launch_counts()
         _check_augmented(out_i, out_m, case)
         want = block_launches(aug, SIZE, SIZE)
@@ -1827,6 +1873,7 @@ def phase_photo_paths(seed: int) -> dict:
         row = dict(launches={n: v for n, v in launches.items() if v},
                    held_to_plain=held_to_plain(calls, case),
                    block_ms=cuda_ms(lambda: aug.apply(gd, gi, gm), 10),
+                   peak_mib=peak_mib,
                    masks_moved=not torch.equal(out_m, gm), **vs)
         if not vs["ok"]:
             failed.append(case)
@@ -1866,6 +1913,40 @@ def phase_train_photo(imgs, masks, seed: int, profile: str) -> dict:
                       routes=[r.route(SIZE, SIZE) for r in aug.geo_runs()])
     check(all(r["ok"] for r in segments),
           ("train_photo segments card vs CPU", segments))
+    return out
+
+
+ACCURACY_SCRIPT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "examples", "accuracy_evidence_torch.py")
+
+
+def phase_accuracy(seed: int) -> dict:
+    """``examples/accuracy_evidence_torch.py``'s config 1 (Unet-resnet34
+    128², bce + 0.25·dice, the JAX script's dict) cut to 64 synthetic
+    images and 2 epochs through its ``main`` on the card: its evaluate
+    dict, every value finite and in [0, 1], and the launches (config 1
+    has no augmentation block: none)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("accuracy_evidence_torch",
+                                                  ACCURACY_SCRIPT)
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    with tempfile.TemporaryDirectory() as tmp:
+        K.reset_launches()
+        res = script.main(["--config", "1", "--n", "64", "--epochs", "2",
+                           "--seed", str(seed), "--out", tmp])
+        launches = K.launch_counts()
+        with open(os.path.join(tmp, "run.json")) as f:
+            seconds = json.load(f)["seconds"]
+    ev = res[script.KEYS["1"]]
+    check(set(ev) == {"iou", "dice"} and all(
+        math.isfinite(v) and 0.0 <= v <= 1.0 for v in ev.values()),
+        ("accuracy evaluate", ev))
+    check(not any(launches.values()), ("accuracy launches", launches))
+    out = dict(evaluate=ev, seconds=seconds[script.KEYS["1"]],
+               launches=launches)
+    emit("accuracy", **out)
     return out
 
 
@@ -1937,6 +2018,7 @@ def main(argv=None) -> int:
     photo = timed("train_photo", phase_train_photo, imgs, masks, SEED,
                   _profile_path(a.profile, "photo"))
     timed("photo_paths", phase_photo_paths, SEED)
+    timed("accuracy", phase_accuracy, SEED)
     # launches on each kernel's main path: X, Y and elastic in the Unet
     # step, YE in the FPN step, the shear in the unfused warp path
     launches = dict(train["launches"], warp_ye=train_fpn["launches"][

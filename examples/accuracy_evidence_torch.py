@@ -1,0 +1,167 @@
+"""Accuracy evidence for the ±0.2 pt val-IoU bar (BASELINE.md), on the port.
+
+Trains BASELINE acceptance configs 1-4 (scaled epochs) with the PyTorch
+port on the deterministic synthetic shapes datasets, with the same dicts,
+datasets, seeds, folds, stages and callbacks as
+``examples/accuracy_evidence.py``, then scores each with the full
+inference pipeline (``cfg.evaluate``).  On the card (the default):
+
+    python examples/accuracy_evidence_torch.py --config all --out OUT
+
+``OUT/accuracy.json`` holds the evaluate dicts under the JAX script's keys;
+``OUT/run.json`` the device, its power limit, ``--seed`` and each config's
+fit and evaluate wall seconds.  ``--seed`` seeds the augmentation draws
+(``cfg.fit(aug_seed=...)``); weights and folds come from ``random_state``
+as in the JAX script.  ``--device cpu`` runs on the CPU; ``--device cuda``
+on a host without a card raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+KEYS = {
+    "1": "config1_unet_resnet34_128",
+    "2": "config2_fpn_efficientnetb0_256",
+    "3": "config3_pspnet_resnet34_multiclass_128",
+    "4": "config4_unet_resnet34_5fold_stages_negatives",
+}
+
+_PLATEAU = {"ReduceLROnPlateau": {
+    "monitor": "val_iou", "factor": 0.5, "patience": 4}}
+_BINARY = dict(classes=1, activation="sigmoid",
+               loss="binary_crossentropy + 0.25*dice_loss",
+               optimizer="Adam", lr=1e-3, batch=16,
+               metrics=["iou", "dice"], primary_metric="val_iou",
+               folds_count=5, random_state=33)
+
+
+def config_dicts(epochs: int) -> dict:
+    """The four experiment dicts of ``examples/accuracy_evidence.py``."""
+    e1 = max(2, epochs // 4)
+    e2 = max(4, epochs - e1)
+    return {
+        # Unet-resnet34 128², BCE(+dice), single fold
+        "1": dict(architecture="Unet", backbone="resnet34",
+                  shape=[128, 128, 3], **_BINARY,
+                  stages=[{"epochs": epochs}], callbacks=_PLATEAU),
+        # FPN-efficientnetb0 256² with the Fliplr / Affine / elastic block
+        "2": dict(architecture="FPN", backbone="efficientnetb0",
+                  shape=[256, 256, 3], **_BINARY,
+                  augmentation={
+                      "Fliplr": 0.5,
+                      "Affine": {"rotate": [-15, 15], "scale": [0.9, 1.1]},
+                      "ElasticTransformation": {"alpha": [0, 25],
+                                                "sigma": 5},
+                  },
+                  stages=[{"epochs": epochs}], callbacks=_PLATEAU),
+        # PSPNet multiclass (softmax, 3 classes), CE + focal, class weights
+        "3": dict(architecture="PSPNet", backbone="resnet34",
+                  shape=[128, 128, 3], classes=3, activation="softmax",
+                  loss="categorical_crossentropy + 0.5*categorical_focal_loss",
+                  class_weights=[0.3, 1.0, 1.0],
+                  optimizer="Adam", lr=1e-3, batch=16,
+                  metrics=["iou", "dice"], primary_metric="val_iou",
+                  folds_count=5, random_state=33,
+                  stages=[{"epochs": epochs}], callbacks=_PLATEAU),
+        # 5-fold plan, freeze -> unfreeze with an LR drop, negatives=real
+        "4": dict(architecture="Unet", backbone="resnet34",
+                  shape=[128, 128, 3], **_BINARY,
+                  negatives="real", validation_negatives="real",
+                  stages=[{"epochs": e1, "freeze_encoder": True},
+                          {"epochs": e2, "unfreeze_encoder": True,
+                           "lr": 3e-4}]),
+    }
+
+
+def dataset(config: str, n: int):
+    """The JAX script's dataset for ``config`` (same generator, seed)."""
+    from segmentation_training_pipeline_tpu_torch.data.synthetic import (
+        generate_multiclass_shapes_dataset, generate_shapes_dataset)
+
+    if config == "1":
+        return generate_shapes_dataset(n, size=128, seed=7)
+    if config == "2":
+        return generate_shapes_dataset(n, size=256, seed=11)
+    if config == "3":
+        return generate_multiclass_shapes_dataset(n, size=128, seed=13)
+    return generate_shapes_dataset(n, size=128, seed=17, p_empty=0.25)
+
+
+def card_info(device: str) -> dict:
+    import torch
+
+    if torch.device(device).type != "cuda":
+        return {"platform": "cpu"}
+    if not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: no CUDA device on this host")
+    out = {"platform": "gpu", "kind": torch.cuda.get_device_name(0)}
+    try:
+        out["nvidia_smi"] = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30).stdout.strip().splitlines()[0]
+    except (OSError, IndexError, subprocess.SubprocessError):
+        out["nvidia_smi"] = None
+    return out
+
+
+def main(argv=None) -> dict:
+    p = argparse.ArgumentParser()
+    p.add_argument("--out", default="stp_accuracy_torch")
+    p.add_argument("--n", type=int, default=400)
+    p.add_argument("--epochs", type=int, default=25)
+    p.add_argument("--config", choices=["1", "2", "3", "4", "both", "all"],
+                   default="both")
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--seed", type=int, default=None,
+                   help="seed of the augmentation draws "
+                        "(default: random_state)")
+    args = p.parse_args(argv)
+
+    import segmentation_training_pipeline_tpu_torch as stp
+
+    card = card_info(args.device)
+    print("device:", json.dumps(card), flush=True)
+    wanted = {"all": "1234", "both": "12"}.get(args.config, args.config)
+    dicts = config_dicts(args.epochs)
+    results, seconds = {}, {}
+    for c in wanted:
+        d = os.path.join(args.out, f"config{c}")
+        os.makedirs(d, exist_ok=True)
+        ds = dataset(c, args.n)
+        cfg = stp.parse_dict(dicts[c], directory=d)
+        folds = [0, 1] if c == "4" else [0]
+        t0 = time.time()
+        cfg.fit(ds, foldsToExecute=folds, verbose=1, device=args.device,
+                aug_seed=args.seed)
+        t1 = time.time()
+        # full-pipeline eval (TTA off, original sizes)
+        ev = cfg.evaluate(ds, folds=folds if c == "4" else None,
+                          device=args.device)
+        seconds[KEYS[c]] = {"fit": t1 - t0, "evaluate": time.time() - t1}
+        results[KEYS[c]] = ev
+        print(f"config{c} evaluate:", ev, seconds[KEYS[c]], flush=True)
+
+    os.makedirs(args.out, exist_ok=True)
+    out_json = os.path.join(args.out, "accuracy.json")
+    with open(out_json, "w") as f:
+        json.dump(results, f, indent=2)
+    with open(os.path.join(args.out, "run.json"), "w") as f:
+        json.dump({"device": card, "seed": args.seed, "n": args.n,
+                   "epochs": args.epochs, "seconds": seconds}, f, indent=2)
+    print(json.dumps(results))
+    print(f"written to {out_json}")
+    return results
+
+
+if __name__ == "__main__":
+    # run as a file from a checkout: the package sits beside examples/
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    main()

@@ -25,7 +25,7 @@ from .models.encoders import ENCODERS as _ENCODERS
 from .ops import losses as _losses
 from .ops import metrics as _metrics
 from .ops.aug.arg_schema import validate_args
-from .ops.aug.lowering import PORTED_AUGMENTERS
+from .ops.aug.lowering import PORTED_AUGMENTERS, check_scope_children
 from .utils.registry import Registry
 
 ARCHITECTURES = Registry("architecture")
@@ -201,11 +201,15 @@ _KNOWN_UNSUPPORTED_AUGMENTERS = frozenset({
 _UNSUPPORTED_AUG_PREFIXES = ("pillike", "imgcorruptlike")
 
 
-def _normalize_augmentation(spec) -> List[Dict[str, Any]]:
+def _normalize_augmentation(spec, check_ported: bool = True
+                            ) -> List[Dict[str, Any]]:
     """``{Fliplr: 0.5, Affine: {...}}`` → [{"name", "args"}], names and
-    argument keys validated; the choice combinators' child blocks are
-    validated and normalised recursively, as the reference does, so a
-    typo'd or unported child name fails at parse."""
+    argument keys validated; the combinators' child blocks are validated
+    and normalised recursively, as the reference does, so a typo'd or
+    unported child name fails at parse.  A scope's children are held to
+    the reference's scope refusals (``lowering.check_scope_children``)
+    before a name not yet ported is refused (``check_ported=False`` defers
+    that refusal while they are normalised)."""
     if spec is None:
         return []
     items: List[Tuple[str, Any]] = []
@@ -235,7 +239,7 @@ def _normalize_augmentation(spec) -> List[Dict[str, Any]]:
             hint = AUGMENTERS.suggest(name)
             extra = f" Did you mean {hint!r}?" if hint else ""
             raise ConfigError(f"unknown augmenter {name!r}.{extra}")
-        if name.lower() not in PORTED_AUGMENTERS:
+        if check_ported and name.lower() not in PORTED_AUGMENTERS:
             raise _not_ported(f"augmenter {name!r}")
         try:
             validate_args(name, args)
@@ -249,11 +253,11 @@ def _normalize_augmentation(spec) -> List[Dict[str, Any]]:
             args = dict(args)
             child = (args.pop("then", None) or args.pop("then_list", None)
                      or args.pop("children", None))
-            args["then"] = _normalize_augmentation(child)
+            args["then"] = _normalize_augmentation(child, check_ported)
             els = (args.pop("else", None) or args.pop("else_list", None)
                    or args.pop("otherwise", None))
             if els is not None:
-                args["else"] = _normalize_augmentation(els)
+                args["else"] = _normalize_augmentation(els, check_ported)
             if not args["then"] and els is None:
                 raise ConfigError(
                     "Sometimes has neither a then: nor an else: child "
@@ -263,7 +267,8 @@ def _normalize_augmentation(spec) -> List[Dict[str, Any]]:
                 raise ConfigError(
                     f"OneOf expects a non-empty list of augmenters, got {args!r}")
             args = [_normalize_augmentation(e if isinstance(e, (dict, list))
-                                            else [e]) for e in args]
+                                            else [e], check_ported)
+                    for e in args]
         elif low == "someof":
             if not isinstance(args, dict) or "children" not in args:
                 raise ConfigError(
@@ -271,10 +276,52 @@ def _normalize_augmentation(spec) -> List[Dict[str, Any]]:
             args = dict(args)
             args["children"] = [
                 _normalize_augmentation(e if isinstance(e, (dict, list))
-                                        else [e])
+                                        else [e], check_ported)
                 for e in args["children"]]
+        elif low == "withchannels":
+            if not isinstance(args, dict) or "channels" not in args:
+                raise ConfigError(
+                    f"WithChannels expects {{channels: [...], children: "
+                    f"{{...}}}}, got {args!r}")
+            args = dict(args)
+            child = args.pop("children", None) or args.pop("then", None)
+            args["children"] = _scope_children(name, child, check_ported)
+        elif low in _COLOR_SCOPES:
+            if not isinstance(args, dict):
+                raise ConfigError(
+                    f"{name} expects {{children: {{...}}}}, got {args!r}")
+            args = dict(args)
+            if low == "withcolorspace":
+                cs = str(args.get("to_colorspace", "")).upper()
+                if cs != "HSV":
+                    raise ConfigError(
+                        "WithColorspace lowers only {to_colorspace: HSV} "
+                        f"here (got {args.get('to_colorspace')!r}) — see "
+                        "docs/schema.md")
+            child = args.pop("children", None) or args.pop("then", None)
+            if not child:
+                raise ConfigError(f"{name} needs a children: block")
+            args["children"] = _scope_children(name, child, check_ported)
         out.append({"name": name, "args": args})
     return out
+
+
+_COLOR_SCOPES = ("withhueandsaturation", "withbrightnesschannels",
+                 "withcolorspace")
+
+
+def _scope_children(scope: str, child, check_ported: bool):
+    """A scope's child block, normalised; the reference's refusals of its
+    children (a ``ValueError``, raised where the reference's lowering
+    raises it) come before the port's refusal of a name not yet
+    ported."""
+    children = _normalize_augmentation(child, check_ported=False)
+    check_scope_children(scope, children)
+    if check_ported:
+        for e in children:
+            if e["name"].lower() not in PORTED_AUGMENTERS:
+                raise _not_ported(f"augmenter {e['name']!r}")
+    return children
 
 
 @dataclass
@@ -509,14 +556,16 @@ class PipelineConfig:
 
     def fit(self, dataset, foldsToExecute: Optional[Sequence[int]] = None,
             start_from_stage: int = 0, verbose: Optional[int] = None,
-            device="cuda"):
+            device="cuda", aug_seed: Optional[int] = None):
         """Train all requested folds through all stages on ``device``.
-        See ``train/stage.py``."""
+        See ``train/stage.py`` (``aug_seed`` seeds the augmentation draws
+        in place of ``random_state``)."""
         from .train.stage import fit_pipeline
 
         return fit_pipeline(self, dataset, foldsToExecute=foldsToExecute,
                             start_from_stage=start_from_stage,
-                            verbose=verbose, device=device)
+                            verbose=verbose, device=device,
+                            aug_seed=aug_seed)
 
     # the serving surface (``infer.py``); each takes ``device="cuda"``
     def load(self, fold=0, stage: int = -1, device="cuda"):

@@ -148,6 +148,38 @@ _def("MultiplyElementwise", {"mul", "per_channel"})
 _def("Resize", {"size", "percent"},
      {"interpolation": _FIXED_INTERP}, aliases=("Scale",))
 
+# --- colour -------------------------------------------------------------------
+_def("Grayscale", {"alpha"})
+_def("AddToHueAndSaturation",
+     {"value", "value_hue", "value_saturation", "per_channel"})
+_def("MultiplyHueAndSaturation",
+     {"mul", "mul_hue", "mul_saturation", "per_channel"})
+_def("AddToHue", {"value"})
+_def("AddToSaturation", {"value"})
+_def("MultiplyHue", {"mul"})
+_def("MultiplySaturation", {"mul"})
+_def("RemoveSaturation", {"mul"})
+_def("ChangeColorTemperature", {"kelvin"},
+     {"to_colorspace": "runs on RGB directly here",
+      "from_colorspace": "runs on RGB directly here"})
+_def("ChangeColorspace", {"to_colorspace", "alpha"},
+     {"from_colorspace": "runs on RGB directly here",
+      "children": "ChangeColorspace converts the OUTPUT image; use "
+                  "WithColorspace for scoped child edits"})
+_def("Autocontrast", {"cutoff", "per_channel"}, aliases=("AutoContrast",))
+_def("HistogramEqualization", set(),
+     {"to_colorspace": "equalization is per-channel here (the "
+                       "AllChannels form)",
+      "from_colorspace": "equalization is per-channel here (the "
+                         "AllChannels form)"},
+     aliases=("AllChannelsHistogramEqualization",))
+_def("CLAHE", {"clip_limit", "tile_grid_size", "tile_grid_size_px"},
+     {"tile_grid_size_px_min": "the tile grid is a static scalar here",
+      "to_colorspace": "CLAHE runs per-channel here (the AllChannels form)",
+      "from_colorspace": "CLAHE runs per-channel here (the AllChannels "
+                         "form)"},
+     aliases=("AllChannelsCLAHE",))
+
 # --- choice combinators -----------------------------------------------------
 _def("Sometimes",
      {"p", "then", "then_list", "children", "else", "else_list",
@@ -156,6 +188,18 @@ _def("OneOf", set())  # args form is a list; config rejects dicts
 _def("SomeOf", {"n", "children", "then"},
      {"random_order": "children apply in declaration order here — "
                       "remove it"})
+
+# --- channel and colourspace scopes -------------------------------------------
+_def("WithChannels", {"channels", "children", "then"})
+_def("WithHueAndSaturation", {"children", "then"},
+     {"from_colorspace": "runs on RGB directly here"})
+_def("WithBrightnessChannels", {"children", "then"},
+     {"to_colorspaces": "the brightness channel is always HSV-V here "
+                        "(imgaug samples a colorspace per image) — see "
+                        "docs/schema.md deviations",
+      "from_colorspace": "runs on RGB directly here"})
+_def("WithColorspace", {"to_colorspace", "children", "then"},
+     {"from_colorspace": "runs on RGB directly here"})
 
 
 def _check_values(name: str, canon: str, args: Dict[str, Any]) -> None:
@@ -209,6 +253,16 @@ def _check_values(name: str, canon: str, args: Dict[str, Any]) -> None:
                 raise ValueError(
                     f"{name}: {dk} must be a static positive integer "
                     f"(output shapes are static), got {dv!r}")
+    if canon == "changecolorspace":
+        cs = args.get("to_colorspace")
+        if cs is not None and (not isinstance(cs, str) or cs.upper()
+                               not in ("RGB", "BGR", "GRAY", "HSV", "HLS",
+                                       "YCRCB")):
+            raise ValueError(
+                f"{name}: to_colorspace must be one static name of "
+                f"RGB/BGR/GRAY/HSV/HLS/YCrCb (got {cs!r}); imgaug's "
+                "per-image colorspace lists and Lab/Luv/CIE are not "
+                "lowered — see docs/schema.md")
     if canon in ("affine", "rotate"):
         # the per-axis dict forms accept ONLY x/y — a typo'd axis key
         # ({sx: ...}) would silently default both axes

@@ -36,6 +36,10 @@ switch routes a CUDA tensor to a plain version: each picks between
 hand-written kernels, as the JAX switches pick between Pallas kernels.
 A ``cval``/``pad_cval`` fill is applied as warp(image − cval) + cval, exact
 for a constant fill (the last one of a run wins: a warp has one fill).
+The choice combinators (``_Meta``) and the channel and colourspace scopes
+(``_Scope``) hold child blocks; a scope refuses, with the reference's
+``ValueError``, a child that is geometric, a combinator or moves the mask,
+and an RGB-only child where its children see 1 or 2 channels.
 Every augmenter not yet ported raises ``NotImplementedError``.
 
 Parameter forms: scalar → fixed value (probability for flips); [lo, hi] →
@@ -1094,11 +1098,170 @@ _photo("replaceelementwise", _replace_sample, _replace_apply)
 _photo("noop identity", _none, _keep)
 _photo("resize scale", _none, _resize_apply)
 
+# --- colour ----------------------------------------------------------------
+_photo("grayscale",
+       lambda s, g, b, h, w, c: {"alpha": _sample(
+           g, _single(s.args, "alpha", 1.0), b, 1.0)},
+       _image_only(lambda s, d, x: ph.grayscale(x, d["alpha"])))
+
+
+def _hue_sat(key: str, hue_default: Any, sat_default: Any):
+    """The sampler of AddToHueAndSaturation (``key`` "value") or
+    MultiplyHueAndSaturation ("mul"): hue then saturation, each from the
+    ``{key}_hue`` / ``{key}_saturation`` spec or the shared ``key``."""
+    def sample(seg, gen, b, h, w, c):
+        a = _bare(seg.args, key)
+        return {"hue": _sample(gen, a.get(f"{key}_hue",
+                                          a.get(key, hue_default)), b),
+                "sat": _sample(gen, a.get(f"{key}_saturation",
+                                          a.get(key, sat_default)), b)}
+    return sample
+
+
+def _one_of_hue_sat(key: str, default: Any, which: str, rest: float):
+    """AddToHue / AddToSaturation / MultiplyHue / MultiplySaturation: one
+    drawn value, the other component fixed at ``rest``."""
+    def sample(seg, gen, b, h, w, c):
+        v = _sample(gen, _bare(seg.args, key).get(key, default), b)
+        fixed = torch.full((b,), rest, device=gen.device)
+        return {"hue": v, "sat": fixed} if which == "hue" else {
+            "hue": fixed, "sat": v}
+    return sample
+
+
+_ADD_HS = _image_only(lambda s, d, x: ph.add_to_hue_and_saturation(
+    x, d["hue"], d["sat"]))
+_MUL_HS = _image_only(lambda s, d, x: ph.multiply_hue_and_saturation(
+    x, d["hue"], d["sat"]))
+_photo("addtohueandsaturation", _hue_sat("value", [-30, 30], [-30, 30]),
+       _ADD_HS)
+_photo("addtohue", _one_of_hue_sat("value", [-255, 255], "hue", 0.0),
+       _ADD_HS)
+_photo("addtosaturation", _one_of_hue_sat("value", [-75, 75], "sat", 0.0),
+       _ADD_HS)
+_photo("multiplyhueandsaturation", _hue_sat("mul", [0.8, 1.2], [0.8, 1.2]),
+       _MUL_HS)
+_photo("multiplyhue", _one_of_hue_sat("mul", [-3.0, 3.0], "hue", 1.0),
+       _MUL_HS)
+_photo("multiplysaturation", _one_of_hue_sat("mul", [0.0, 3.0], "sat", 1.0),
+       _MUL_HS)
+# imgaug RemoveSaturation(mul) == MultiplySaturation(1 - mul)
+_photo("removesaturation",
+       lambda s, g, b, h, w, c: {
+           "hue": torch.ones((b,), device=g.device),
+           "sat": 1.0 - _sample(g, _single(s.args, "mul", 1.0), b, 1.0)},
+       _MUL_HS)
+
+
+def _kelvin_sample(seg, gen, b, h, w, c):
+    a = _single(seg.args, "kelvin", None)
+    return {"kelvin": _sample(gen, [1000, 11000] if a is None else a, b,
+                              6600.0)}
+
+
+_photo("changecolortemperature", _kelvin_sample,
+       _image_only(lambda s, d, x: ph.change_color_temperature(
+           x, d["kelvin"])))
+
+_COLORSPACES = ("RGB", "BGR", "GRAY", "HSV", "HLS", "YCRCB")
+
+
+def colorspace_of(args: Any) -> str:
+    """ChangeColorspace's static ``to_colorspace``; the reference's
+    refusal of anything else."""
+    cs = _bare(args, "to_colorspace").get("to_colorspace")
+    if not isinstance(cs, str) or cs.upper() not in _COLORSPACES:
+        raise ValueError(
+            "ChangeColorspace to_colorspace must be one static name of "
+            f"RGB/BGR/GRAY/HSV/HLS/YCrCb here (got {cs!r}); imgaug's "
+            "per-image colorspace lists and Lab/Luv/CIE are not "
+            "lowered — see docs/schema.md")
+    return cs
+
+
+_photo("changecolorspace",
+       lambda s, g, b, h, w, c: {"alpha": _sample(
+           g, _bare(s.args, "to_colorspace").get("alpha", 1.0), b, 1.0)},
+       _image_only(lambda s, d, x: ph.change_colorspace(
+           x, s.colorspace, d["alpha"])))
+_photo("autocontrast auto_contrast", _none,
+       _image_only(lambda s, d, x: ph.autocontrast(x, s.cutoff)))
+_photo("histogramequalization allchannelshistogramequalization", _none,
+       _image_only(lambda s, d, x: ph.histogram_equalization(x)))
+
+
+def _clahe_grid(args: Any) -> int:
+    # imgaug's kwarg is tile_grid_size_px; both spellings are taken
+    a = _bare(args, "clip_limit")
+    return int(a.get("tile_grid_size", a.get("tile_grid_size_px", 8)))
+
+
+_photo("clahe allchannelsclahe",
+       lambda s, g, b, h, w, c: {"clip_limit": _sample(
+           g, _bare(s.args, "clip_limit").get("clip_limit", [1, 10]), b,
+           40.0)},
+       _image_only(lambda s, d, x: ph.clahe(x, d["clip_limit"],
+                                            _clahe_grid(s.args))))
+
 # names rewritten into Affine by ``_coerce_block``; the choice combinators
+# and the channel / colourspace scopes
 _SUGAR = {"rotate", "translatex", "translatey", "scalex", "scaley",
           "shearx", "sheary"}
-_META = {"sometimes", "oneof", "someof"}
+_SCOPES = {"withchannels", "withhueandsaturation", "withbrightnesschannels",
+           "withcolorspace"}
+_META = {"sometimes", "oneof", "someof"} | _SCOPES
 PORTED_AUGMENTERS = _GEOMETRIC | _SUGAR | set(_PHOTO) | _META
+
+# the reference's BlendAlpha family (not ported): combinators, refused as
+# scoped children like every other combinator
+_BLEND = {"blendalpha", "alpha",
+          "blendalphaelementwise", "alphaelementwise",
+          "blendalphaverticallineargradient",
+          "blendalphahorizontallineargradient",
+          "blendalpharegulargrid", "blendalphacheckerboard",
+          "blendalphasimplexnoise", "simplexnoisealpha",
+          "blendalphafrequencynoise", "frequencynoisealpha",
+          "blendalphasomecolors", "blendalphasegmapclassids"}
+# photo-path names that move pixels and transform the mask jointly —
+# refused under the scopes, which splice back only the child's image
+_JOINT_PHOTO = {"jigsaw"}
+# photometrics that assume a 3-channel RGB image — refused under the
+# scopes whose children see 1 or 2 channels (H/S or a brightness plane)
+_RGB_ONLY_PHOTO = {"grayscale", "addtohueandsaturation",
+                   "multiplyhueandsaturation", "addtohue", "addtosaturation",
+                   "multiplyhue", "multiplysaturation", "removesaturation",
+                   "changecolortemperature", "fastsnowylandscape",
+                   "jpegcompression", "bilateralblur",
+                   "canny", "changecolorspace", "cartoon"}
+# channels a scope's children see
+_SCOPE_CHANNELS = {"withchannels": 3, "withhueandsaturation": 2,
+                   "withbrightnesschannels": 1, "withcolorspace": 3}
+
+
+def check_scope_children(scope: str, child_spec) -> List[Dict[str, Any]]:
+    """The reference's refusals of a scope's children, in its order: a
+    geometric, combinator or joint image+mask child, then an RGB-only
+    photometric under a 1- or 2-channel scope (``ValueError``, its text).
+    Names not yet ported pass: the caller refuses them after.  Returns
+    the normalised children."""
+    children = _coerce_block(child_spec)
+    n_ch = _SCOPE_CHANNELS[scope.lower()]
+    for e in children:
+        nm = e["name"].lower()
+        if nm in _GEOMETRIC or nm in _META or nm in _BLEND \
+                or nm in _JOINT_PHOTO:
+            what = "selected channels" if scope.lower() == "withchannels" \
+                else "scoped channels"
+            raise ValueError(
+                f"{scope} child {e['name']!r}: only photometric "
+                f"children are supported (geometric ones would warp "
+                f"the {what} away from the mask)")
+        if n_ch != 3 and nm in _RGB_ONLY_PHOTO:
+            raise ValueError(
+                f"{scope} child {e['name']!r} assumes an RGB "
+                f"image, but {scope} children see {n_ch} "
+                "channel(s)")
+    return children
 
 
 class _Photo:
@@ -1115,6 +1278,10 @@ class _Photo:
         self._sample, self._apply = _PHOTO[self.name]
         if self.name in ("resize", "scale"):
             self.resize = resize_size(self.args)
+        elif self.name == "changecolorspace":
+            self.colorspace = colorspace_of(self.args)
+        elif self.name in ("autocontrast", "auto_contrast"):
+            self.cutoff = float(_single(self.args, "cutoff", 0) or 0)
 
     def sample(self, gen: torch.Generator, b: int, h: int, w: int,
                c: int) -> Dict[str, Tensor]:
@@ -1219,6 +1386,90 @@ class _Meta:
         return images, masks
 
 
+# ---------------------------------------------------------------------------
+# channel and colourspace scopes
+# ---------------------------------------------------------------------------
+
+class _Scope:
+    """WithChannels / WithHueAndSaturation / WithBrightnessChannels /
+    WithColorspace (the reference's ``_make_meta``).  The three colourspace
+    scopes run their photometric children on the scoped channels (H and
+    S; HSV-V; H, S and V) without the block's final clip, so hue can wrap
+    (H − 50 at H = 20 reaches −30 before the mod 180), then re-encode: hue
+    mod 180, S and V clipped to 0..255.  WithChannels runs its children as
+    a block (clipped) on the whole image and splices the selected channels
+    back.  The masks pass through."""
+
+    def __init__(self, spec: Dict[str, Any]):
+        self.name = spec["name"].lower()
+        args = spec.get("args")
+        a = args if isinstance(args, dict) else {}
+        if self.name == "withchannels":
+            chans = a.get("channels")
+            if chans is None:
+                raise ValueError("WithChannels needs {channels: [...], "
+                                 "children: {...}}")
+            self.channels = [int(c) for c in (
+                chans if isinstance(chans, (list, tuple)) else [chans])]
+            child_spec = check_scope_children(
+                spec["name"], a.get("children") or a.get("then"))
+            self.child = Augmentation(child_spec)
+            return
+        if self.name == "withcolorspace":
+            cs = str(a.get("to_colorspace", "")).upper()
+            if cs != "HSV":
+                raise ValueError(
+                    "WithColorspace lowers only {to_colorspace: HSV} here "
+                    f"(got {a.get('to_colorspace')!r}) — other colorspaces "
+                    "are not implemented; see docs/schema.md")
+        child_spec = check_scope_children(
+            spec["name"], a.get("children") or a.get("then"))
+        if not child_spec:
+            raise ValueError(
+                f"{spec['name']} needs a {{children: {{...}}}} block")
+        self.n_ch = _SCOPE_CHANNELS[self.name]
+        self.children = [_Photo(e) for e in child_spec]
+
+    def sample(self, gen: torch.Generator, b: int, h: int, w: int,
+               c: int) -> Dict[str, Any]:
+        """The children's draws, each child seeing the scoped channels."""
+        if self.name == "withchannels":
+            return {"children": self.child.sample(gen, b, h, w, c)}
+        return {"children": [ch.sample(gen, b, h, w, self.n_ch)
+                             for ch in self.children]}
+
+    def _run(self, draws, x: Tensor, masks: Tensor) -> Tensor:
+        for ch, d in zip(self.children, draws["children"]):
+            x, masks = ch.apply(d, x, masks)
+        return x
+
+    def apply(self, draws: Dict[str, Any], images: Tensor, masks: Tensor):
+        base = torch.clamp(images.float(), 0.0, 255.0)
+        if self.name == "withchannels":
+            out, _ = self.child.apply(draws["children"], images, masks)
+            sel = torch.zeros(images.shape[-1], dtype=torch.bool,
+                              device=images.device)
+            sel[self.channels] = True
+            return torch.where(sel, out, base), masks
+        if self.name == "withbrightnesschannels":
+            v = base.amax(-1, keepdim=True)
+            out = torch.clamp(self._run(draws, v, masks), 0.0, 255.0)
+            # scaling V scales every channel (H and S invariant); black
+            # (V = 0) brightens to gray
+            return torch.where(v > 0,
+                               base * (out / torch.clamp(v, min=1e-6)),
+                               out.expand(base.shape)), masks
+        h, s, v = ph.rgb_to_hsv(base)
+        if self.name == "withhueandsaturation":
+            out = self._run(draws, torch.stack([h, s], dim=-1), masks)
+        else:
+            out = self._run(draws, torch.stack([h, s, v], dim=-1), masks)
+            v = torch.clamp(out[..., 2], 0.0, 255.0)
+        return ph.hsv_to_rgb(torch.remainder(out[..., 0], 180.0),
+                             torch.clamp(out[..., 1], 0.0, 255.0),
+                             v), masks
+
+
 class Augmentation:
     """A compiled augmentation block: ``sample`` draws, ``apply`` runs.
 
@@ -1243,6 +1494,8 @@ class Augmentation:
             first = i == 0 and integer_input
             if kind == "geo":
                 self.segments.append(_GeoRun(item, integer_input=first))
+            elif kind == "meta" and item["name"].lower() in _SCOPES:
+                self.segments.append(_Scope(item))
             elif kind == "meta":
                 self.segments.append(_Meta(item, integer_input=first))
             else:

@@ -120,8 +120,8 @@ def _variables(state) -> Dict[str, Tensor]:
 
 def fit_pipeline(cfg, dataset, foldsToExecute: Optional[Sequence[int]] = None,
                  start_from_stage: int = 0, verbose: Optional[int] = None,
-                 device="cuda", timings: Optional[list] = None
-                 ) -> Dict[str, Dict]:
+                 device="cuda", timings: Optional[list] = None,
+                 aug_seed: Optional[int] = None) -> Dict[str, Dict]:
     """Train all requested folds through all stages on ``device``.  Returns
     per-(fold, stage) summary dicts (best metric, epochs run, checkpoint
     path), keyed ``fold{f}.stage{s}``.
@@ -129,7 +129,12 @@ def fit_pipeline(cfg, dataset, foldsToExecute: Optional[Sequence[int]] = None,
     ``timings``: a list that gets one dict per epoch with the wall seconds
     of its train loop (ended by the copy of its logs to the host), of the
     wait for its first batch within it, of validation and of the
-    checkpoint, and its train steps and images."""
+    checkpoint, and its train steps and images.
+
+    ``aug_seed``: replaces ``random_state`` in the seed of the augmentation
+    generators (``aug_seed·1000 + fold·10 + stage``), so two fits of one
+    config can draw different augmentations; weights and folds keep
+    ``random_state``."""
     # one device only: any axis over 1 (data or hosts -1/0 mean "all")
     if any(int(cfg.mesh.get(axis) or 1) > 1
            for axis in ("hosts", "data", "space")):
@@ -238,8 +243,9 @@ def fit_pipeline(cfg, dataset, foldsToExecute: Optional[Sequence[int]] = None,
             val_idx = kfold.val_indices(fold, val_negatives)
             if cfg.crops:
                 val_idx = expand_tile_indices(val_idx, cfg.crops)
+            seed0 = cfg.random_state if aug_seed is None else aug_seed
             gen = torch.Generator(device=device).manual_seed(
-                cfg.random_state * 1000 + fold * 10 + si)
+                seed0 * 1000 + fold * 10 + si)
 
             if verbose:
                 print(f"[fold {fold} stage {si}] epochs={stage.epochs} "

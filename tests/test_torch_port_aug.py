@@ -154,8 +154,8 @@ def test_sample_draws_distributions():
 @pytest.mark.parametrize("spec,match", [
     ({"Sharpen": {"alpha": 0.5}}, "Sharpen"),
     ({"GaussianBlur": {"sigma": 1.0}}, "GaussianBlur"),
-    ({"WithChannels": {"channels": [0], "children": [{"Add": 5}]}},
-     "WithChannels"),
+    ({"WithChannels": {"channels": [0], "children": [
+        {"GaussianBlur": 1.0}]}}, "GaussianBlur"),
 ], ids=["spec0-Sharpen", "spec1-Add", "spec2-Sometimes"])
 def test_unported_configs_raise_at_build(spec, match):
     with pytest.raises(NotImplementedError, match=match):

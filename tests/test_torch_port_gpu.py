@@ -471,7 +471,7 @@ def test_geometric_routes_on_card(card, spec, route, launches):
     assert float((gm.cpu() != cm).float().mean()) <= 1e-3
 
 
-# each pixelwise name of the photometric slice in one of its forms
+# each pixelwise and colour name in one of its forms
 PHOTO_ON_CARD = {
     "add": {"Add": {"value": [-20, 20], "per_channel": True}},
     "addelementwise": {"AddElementwise": [-20, 20]},
@@ -514,6 +514,34 @@ PHOTO_ON_CARD = {
                         {"LogContrast": [0.5, 1.5]}]},
     "someof": {"SomeOf": {"n": [0, 2], "children": [
         {"Pepper": 0.1}, {"Multiply": 0.8}, {"Cutout": 2}]}},
+    # the colour names, the histogram names (72×100: CLAHE pads to odd
+    # tiles) and the channel and colourspace scopes
+    "grayscale": {"Grayscale": [0.0, 1.0]},
+    "addtohueandsaturation": {"AddToHueAndSaturation": [-40, 40]},
+    "addtohue": {"AddToHue": [-255, 255]},
+    "addtosaturation": {"AddToSaturation": [-75, 75]},
+    "multiplyhueandsaturation": {"MultiplyHueAndSaturation": [0.5, 1.5]},
+    "multiplyhue": {"MultiplyHue": [-3.0, 3.0]},
+    "multiplysaturation": {"MultiplySaturation": [0.0, 3.0]},
+    "removesaturation": {"RemoveSaturation": [0.2, 1.0]},
+    "changecolortemperature": {"ChangeColorTemperature": [1000, 11000]},
+    "changecolorspace-hls": {"ChangeColorspace": {
+        "to_colorspace": "HLS", "alpha": [0.5, 1.0]}},
+    "changecolorspace-ycrcb": {"ChangeColorspace": "YCrCb"},
+    "autocontrast": {"Autocontrast": {"cutoff": 3}},
+    "histogramequalization": {"HistogramEqualization": None},
+    "clahe": {"CLAHE": [1, 10]},
+    "clahe-grid4": {"AllChannelsCLAHE": {"clip_limit": 3,
+                                         "tile_grid_size": 4}},
+    "withchannels": {"WithChannels": {"channels": [0, 2], "children": [
+        {"Add": [-30, 30]}]}},
+    "withhueandsaturation": {"WithHueAndSaturation": {"children": [
+        {"Add": {"value": [-40, 40], "per_channel": True}}]}},
+    "withbrightnesschannels": {"WithBrightnessChannels": {"children": [
+        {"LinearContrast": [0.5, 1.5]}]}},
+    "withcolorspace": {"WithColorspace": {"to_colorspace": "HSV",
+                                          "children": [{"Multiply": [0.7,
+                                                                     1.3]}]}},
 }
 
 

@@ -45,8 +45,10 @@ from torch_port_util import few_torch_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "segmentation_training_pipeline_tpu_torch"
-SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                       ROOT / "compare_kernels.py"]
+SOURCES = sorted(PKG.rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "compare_kernels.py",
+    ROOT / "examples" / "accuracy_evidence_torch.py",
+    ROOT / "examples" / "accuracy_gap_torch.py"]
 PORT_MODULES = sorted(
     ".".join(p.relative_to(ROOT).with_suffix("").parts).replace(
         ".__init__", "") for p in PKG.rglob("*.py"))
@@ -349,6 +351,9 @@ VALUE_CHECKS = {
     "rotate-axis-typo": {"Rotate": {"rotate": 5, "scale": {"sx": 1.1}}},
     "child-keep-size": {"Sometimes": {"p": 0.5, "then": [
         {"Rot90": {"keep_size": False}}]}},
+    "colorspace-lab": {"ChangeColorspace": {"to_colorspace": "Lab"}},
+    "colorspace-list": {"ChangeColorspace": {"to_colorspace": ["HSV",
+                                                               "HLS"]}},
 }
 
 
@@ -401,9 +406,13 @@ def test_slice_schemas_match_the_jax_schemas():
     from segmentation_training_pipeline_tpu_torch.ops.aug import (
         lowering as TL)
 
-    assert TL.PORTED_AUGMENTERS == set(TA._LOOKUP)
-    assert TL._META <= JL._META
-    for name in TL.PORTED_AUGMENTERS:
+    # ``auto_contrast``: a spelling the reference's lowering takes and its
+    # config does not know (no schema row on either side)
+    assert TL.PORTED_AUGMENTERS - {"auto_contrast"} == set(TA._LOOKUP)
+    assert TL._META <= JL._META and TL._BLEND == JL._BLEND
+    assert TL._JOINT_PHOTO == JL._JOINT_PHOTO
+    assert TL._RGB_ONLY_PHOTO == JL._RGB_ONLY_PHOTO
+    for name in TL.PORTED_AUGMENTERS - {"auto_contrast"}:
         key = JA._LOOKUP[name]
         assert TA._LOOKUP[name] == key, name
         (t_allowed, t_unsup), (j_allowed, j_unsup) = (TA._SCHEMA[key],
@@ -418,7 +427,15 @@ def test_slice_schemas_match_the_jax_schemas():
         coarsesalt coarsepepper dropout dropout2d channeldropout totaldropout
         coarsedropout cutout replaceelementwise channelshuffle noop
         identity""".split())
-    assert TL.PORTED_AUGMENTERS - TL._GEOMETRIC == slice_names | {"multiply"}
+    colour_names = set("""grayscale addtohueandsaturation addtohue
+        addtosaturation multiplyhueandsaturation multiplyhue
+        multiplysaturation removesaturation changecolortemperature
+        changecolorspace autocontrast auto_contrast histogramequalization
+        allchannelshistogramequalization clahe allchannelsclahe
+        withchannels withhueandsaturation withbrightnesschannels
+        withcolorspace""".split())
+    assert TL.PORTED_AUGMENTERS - TL._GEOMETRIC == (
+        slice_names | colour_names | {"multiply"})
 
 
 def test_package_root_matches_jax():

@@ -233,8 +233,60 @@ def _jax_photo_draw(seg, k, b, h, w, c):
                 "u": uniform(k2, shape),
                 "replacement": JL._sample_shape(
                     k3, aa.get("replacement", [0.0, 255.0]), shape)}
-    assert name in ("noop", "identity", "resize", "scale"), name
+    if name == "grayscale":
+        return {"alpha": JL._sample(k, TL._single(a, "alpha", 1.0), b, 1.0)}
+    if name in ("addtohueandsaturation", "multiplyhueandsaturation"):
+        key, spec = (("value", [-30, 30]) if name.startswith("add")
+                     else ("mul", [0.8, 1.2]))
+        aa = JL._bare(a, key)
+        k1, k2 = split(k)
+        return {"hue": JL._sample(k1, aa.get(f"{key}_hue",
+                                            aa.get(key, spec)), b),
+                "sat": JL._sample(k2, aa.get(f"{key}_saturation",
+                                            aa.get(key, spec)), b)}
+    if name in ("addtohue", "addtosaturation", "multiplyhue",
+                "multiplysaturation"):
+        key, spec, rest = {
+            "addtohue": ("value", [-255, 255], 0.0),
+            "addtosaturation": ("value", [-75, 75], 0.0),
+            "multiplyhue": ("mul", [-3.0, 3.0], 1.0),
+            "multiplysaturation": ("mul", [0.0, 3.0], 1.0)}[name]
+        v = JL._sample(k, JL._bare(a, key).get(key, spec), b)
+        fixed = jnp.full((b,), rest, jnp.float32)
+        return ({"hue": v, "sat": fixed} if name.endswith("hue")
+                else {"hue": fixed, "sat": v})
+    if name == "removesaturation":
+        return {"hue": jnp.ones((b,), jnp.float32),
+                "sat": 1.0 - JL._sample(k, TL._single(a, "mul", 1.0), b,
+                                        1.0)}
+    if name == "changecolortemperature":
+        kv = TL._single(a, "kelvin", None)
+        return {"kelvin": JL._sample(k, [1000, 11000] if kv is None else kv,
+                                     b, 6600.0)}
+    if name == "changecolorspace":
+        return {"alpha": JL._sample(k, JL._bare(a, "to_colorspace").get(
+            "alpha", 1.0), b, 1.0)}
+    if name in ("clahe", "allchannelsclahe"):
+        return {"clip_limit": JL._sample(k, JL._bare(a, "clip_limit").get(
+            "clip_limit", [1, 10]), b, 40.0)}
+    assert name in ("noop", "identity", "resize", "scale", "autocontrast",
+                    "auto_contrast", "histogramequalization",
+                    "allchannelshistogramequalization"), name
     return {}
+
+
+def _jax_scope_draw(seg, k, b, h, w, c):
+    """A scope's draws as the reference's ``_make_meta`` makes them:
+    WithChannels hands its key to its child block; the colourspace scopes
+    split it, one key per child, each child seeing the scoped
+    channels."""
+    if seg.name == "withchannels":
+        return {"children": jax_draws(seg.child, k, b, h, w, c)}
+    keys = jax.random.split(k, len(seg.children))
+    return {"children": [
+        {n: _t(v) for n, v in _jax_photo_draw(ch, kk, b, h, w,
+                                              seg.n_ch).items()}
+        for ch, kk in zip(seg.children, keys)]}
 
 
 def _jax_meta_draw(seg, k, b, h, w, c):
@@ -265,6 +317,9 @@ def jax_draws(aug, key, b, h, w, c=3):
     for seg, k in zip(aug.segments, keys):
         if isinstance(seg, TL._Meta):
             out.append(_jax_meta_draw(seg, k, b, h, w, c))
+            continue
+        if isinstance(seg, TL._Scope):
+            out.append(_jax_scope_draw(seg, k, b, h, w, c))
             continue
         if isinstance(seg, TL._Photo):
             out.append({n: _t(v) for n, v in _jax_photo_draw(
