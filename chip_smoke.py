@@ -133,22 +133,32 @@ line with its seconds; any failure raises and the script exits non-zero:
   12e. photo_paths: each name of the slice alone at 512² B16
      (``PHOTO_CASES``; the combinators with a child that reaches a
      kernel; the colour names, the histogram names and the four channel
-     and colourspace scopes): its launches, each launch held bit for bit,
-     the block's ms and peak memory above its inputs, and the card
-     against the CPU on the same draws;
-  12f. accuracy: ``examples/accuracy_evidence_torch.py`` config 1 cut to
+     and colourspace scopes; the filters, BilateralBlur and MeanShiftBlur
+     at radius 5): its launches, each launch held bit for bit, the
+     block's ms and peak memory above its inputs, and the card against
+     the CPU on the same draws, TF32 at its default (``CPU_HEAD``'s tap
+     loops on the first 4 images of the timed B16 output);
+  12f. train_filter: ``train``'s model, loss, optimizer and batch under
+     ``FILTER_BLOCK`` (Affine, ElasticTransformation, a OneOf of
+     GaussianBlur, MotionBlur, MedianBlur, Sharpen and JpegCompression):
+     X, Y and elastic once a step, each held bit for bit on the first
+     step's arguments; each segment in f32 on the card against the CPU,
+     the block's ms, a falling loss, img/s and peak memory;
+  12g. accuracy: ``examples/accuracy_evidence_torch.py`` config 1 cut to
      64 images and 2 epochs through its ``main``: the evaluate dict,
      finite and in [0, 1], no kernel launch, the fit's and evaluate's
      seconds;
   13. the ``kernels`` summary line (``launches`` from ``train``, beside
-     them ``launches_train_photo``), then the last line
+     them ``launches_train_photo`` and ``launches_train_filter``), then
+     the last line
      ``{"ok": true, "device": {...}}``.
 
 ``--profile FILE`` profiles three more steps of each train phase and
 three more ``predict_probs`` calls of the serve phase (``FILE`` for Unet,
-``FILE`` with ``_fpn``, ``_deeplab``, ``_psp``, ``_serve``, ``_photo`` or
-``_pretrained`` before its suffix for FPN, DeepLab, PSPNet, serve,
-``train_photo`` and the pretrained phase, whose three steps are profiled
+``FILE`` with ``_fpn``, ``_deeplab``, ``_psp``, ``_serve``, ``_photo``,
+``_filter`` or ``_pretrained`` before its suffix for FPN, DeepLab, PSPNet,
+serve, ``train_photo``, ``train_filter`` and the pretrained phase, whose
+three steps are profiled
 in every run), and traces epoch 1 of each fit stage (the fits' own
 ``profile:``) for its device busy time.
 """
@@ -419,6 +429,40 @@ PHOTO_CASES = [
     ("withcolorspace", {"WithColorspace": {
         "to_colorspace": "HSV", "children": [
             {"Multiply": {"mul": [0.7, 1.3], "per_channel": True}}]}}),
+    # the filters; BilateralBlur and MeanShiftBlur at their cap, radius 5
+    # (121 taps)
+    ("averageblur", {"AverageBlur": [1, 7]}),
+    ("gaussianblur", {"GaussianBlur": [0.0, 3.0]}),
+    ("sharpen", {"Sharpen": {"alpha": [0, 1], "lightness": [0.75, 1.5]}}),
+    ("emboss", {"Emboss": [0, 1]}),
+    ("edgedetect", {"EdgeDetect": [0, 0.75]}),
+    ("directededgedetect", {"DirectedEdgeDetect": None}),
+    ("motionblur", {"MotionBlur": {"k": [3, 7], "angle": [0, 360]}}),
+    ("averagepooling", {"AveragePooling": 2}),
+    ("maxpooling", {"MaxPooling": 3}),
+    ("minpooling", {"MinPooling": 2}),
+    ("medianpooling", {"MedianPooling": 2}),
+    ("medianblur", {"MedianBlur": 3}),
+    ("medianblur_k5", {"MedianBlur": 5}),
+    ("bilateralblur_r5", {"BilateralBlur": {"d": [3, 11]}}),
+    ("jpegcompression", {"JpegCompression": [0, 100]}),
+    ("canny", {"Canny": None}),
+    ("meanshiftblur_r5", {"MeanShiftBlur": None}),
+    ("cartoon", {"Cartoon": None}),
+]
+# cases whose timed B16 output is held to the CPU on its first CPU_IMAGES
+# images (same draws): the tap loops take tens of seconds for B16 512² on
+# the host
+CPU_HEAD = {"bilateralblur_r5", "meanshiftblur_r5", "cartoon"}
+CPU_IMAGES = 4
+# the train_filter block: Affine and ElasticTransformation (kernels X, Y
+# and elastic, one warp) and a OneOf of filters
+FILTER_BLOCK = [
+    {"Affine": {"rotate": [-15, 15], "scale": [0.85, 1.15]}},
+    {"ElasticTransformation": {"alpha": [0, 40], "sigma": 6}},
+    {"OneOf": [{"GaussianBlur": [0.0, 3.0]}, {"MotionBlur": {"k": [3, 7]}},
+               {"MedianBlur": 3}, {"Sharpen": [0.0, 0.5]},
+               {"JpegCompression": [50, 90]}]},
 ]
 # photo_paths and train_photo, each segment on the card against the port on
 # the CPU on the same draws and the same input: images within 1e-3 on
@@ -1801,43 +1845,64 @@ def cpu_geometry(shift: float = 0.0):
         LW._GeoRun.geometry = original
 
 
+def _head(draws, n: int):
+    """``draws`` with every per-image tensor cut to its first ``n``
+    images."""
+    if isinstance(draws, dict):
+        return {k: _head(v, n) for k, v in draws.items()}
+    if isinstance(draws, (list, tuple)):
+        return [_head(v, n) for v in draws]
+    if isinstance(draws, torch.Tensor) and draws.dim() and \
+            draws.shape[0] == BATCH:
+        return draws[:n]
+    return draws
+
+
 def _vs(gi, gm, ci, cm) -> tuple:
     return float((gi.cpu() - ci).abs().max()), mask_mismatch(gm.cpu(), cm)
 
 
-def _segments_vs_cpu(aug, draws, imgs, masks) -> list:
+def _segments_vs_cpu(aug, draws, imgs, masks, card=None) -> list:
     """Each segment of ``aug`` on the card against the port on the CPU,
-    both on the card's input to it and on the same draws (TF32 off): its
-    errors and whether they are within its tolerance.  A segment that
-    warps is also run on the card with the CPU's matrices and fields
-    (``same_geometry_*``), and with them moved by WARP_FAULT_PX
-    (``fault_max_err``, which must exceed REF_IMG_ATOL)."""
+    both on the card's input to it and on the same draws: its errors and
+    whether they are within its tolerance.  The card runs at the
+    training path's TF32 settings (cuDNN's TF32 on): the augmenters turn
+    it off where they need full f32.  ``card``, the card's output of a
+    lone segment that does not warp, is compared instead of running the
+    card again.  A segment that warps is also run on the card with the
+    CPU's matrices and fields (``same_geometry_*``), and with them moved
+    by WARP_FAULT_PX (``fault_max_err``, which must exceed
+    REF_IMG_ATOL)."""
     rows = []
     x, m = imgs.cuda(), masks.cuda()
-    with no_tf32():
-        for seg, d in zip(aug.segments, draws):
-            gd = _to(d, "cuda")
-            gi, gm = seg.apply(gd, x, m)
-            ci, cm = seg.apply(d, x.cpu(), m.cpu())
-            err, mis = _vs(gi, gm, ci, cm)
-            warps = _warps(seg, x.shape[1], x.shape[2])
-            row = dict(segment=seg.name if hasattr(seg, "name")
-                       else "+".join(seg.names), warps=warps,
-                       cpu_max_err=err, cpu_mask_mismatch=mis)
-            ok = mis == 0.0 and err <= (REF_IMG_ATOL if warps
-                                        else PHOTO_IMG_ATOL)
-            if warps:
-                with cpu_geometry():
-                    same_err, same_mis = _vs(*seg.apply(gd, x, m), ci, cm)
-                with cpu_geometry(WARP_FAULT_PX):
-                    fault_err, _ = _vs(*seg.apply(gd, x, m), ci, cm)
-                row.update(same_geometry_max_err=same_err,
-                           same_geometry_mask_mismatch=same_mis,
-                           fault_px=WARP_FAULT_PX, fault_max_err=fault_err)
-                ok = (ok and same_err <= PHOTO_IMG_ATOL and same_mis == 0.0
-                      and fault_err > REF_IMG_ATOL)
-            rows.append(dict(row, ok=ok))
-            x, m = gi, gm
+    if card is not None:
+        check(len(aug.segments) == 1
+              and not _warps(aug.segments[0], x.shape[1], x.shape[2]),
+              "a card output is compared only for a lone segment that "
+              "does not warp")
+    for seg, d in zip(aug.segments, draws):
+        gd = _to(d, "cuda")
+        gi, gm = card if card is not None else seg.apply(gd, x, m)
+        ci, cm = seg.apply(d, x.cpu(), m.cpu())
+        err, mis = _vs(gi, gm, ci, cm)
+        warps = _warps(seg, x.shape[1], x.shape[2])
+        row = dict(segment=seg.name if hasattr(seg, "name")
+                   else "+".join(seg.names), warps=warps,
+                   cpu_max_err=err, cpu_mask_mismatch=mis)
+        ok = mis == 0.0 and err <= (REF_IMG_ATOL if warps
+                                    else PHOTO_IMG_ATOL)
+        if warps:
+            with cpu_geometry():
+                same_err, same_mis = _vs(*seg.apply(gd, x, m), ci, cm)
+            with cpu_geometry(WARP_FAULT_PX):
+                fault_err, _ = _vs(*seg.apply(gd, x, m), ci, cm)
+            row.update(same_geometry_max_err=same_err,
+                       same_geometry_mask_mismatch=same_mis,
+                       fault_px=WARP_FAULT_PX, fault_max_err=fault_err)
+            ok = (ok and same_err <= PHOTO_IMG_ATOL and same_mis == 0.0
+                  and fault_err > REF_IMG_ATOL)
+        rows.append(dict(row, ok=ok))
+        x, m = gi, gm
     return rows
 
 
@@ -1860,7 +1925,7 @@ def phase_photo_paths(seed: int) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        with captured(list(WRAPPERS), {}) as calls, no_tf32():
+        with captured(list(WRAPPERS), {}) as calls:
             out_i, out_m = aug.apply(gd, gi, gm)
         torch.cuda.synchronize()
         # the block's own peak, above what was resident before it
@@ -1869,11 +1934,14 @@ def phase_photo_paths(seed: int) -> dict:
         _check_augmented(out_i, out_m, case)
         want = block_launches(aug, SIZE, SIZE)
         check(launches == want, (case, launches, want))
-        (vs,) = _segments_vs_cpu(aug, draws, imgs, masks)
+        n = CPU_IMAGES if case in CPU_HEAD else BATCH
+        (vs,) = _segments_vs_cpu(
+            aug, _head(draws, n), imgs[:n], masks[:n],
+            card=(out_i[:n], out_m[:n]) if case in CPU_HEAD else None)
         row = dict(launches={n: v for n, v in launches.items() if v},
                    held_to_plain=held_to_plain(calls, case),
                    block_ms=cuda_ms(lambda: aug.apply(gd, gi, gm), 10),
-                   peak_mib=peak_mib,
+                   peak_mib=peak_mib, cpu_images=n,
                    masks_moved=not torch.equal(out_m, gm), **vs)
         if not vs["ok"]:
             failed.append(case)
@@ -1913,6 +1981,39 @@ def phase_train_photo(imgs, masks, seed: int, profile: str) -> dict:
                       routes=[r.route(SIZE, SIZE) for r in aug.geo_runs()])
     check(all(r["ok"] for r in segments),
           ("train_photo segments card vs CPU", segments))
+    return out
+
+
+def phase_train_filter(imgs, masks, seed: int, profile: str) -> dict:
+    """``train``'s model, loss, optimizer and batch under FILTER_BLOCK,
+    parsed by the port: X, Y and elastic once a step (one warp), each
+    held bit for bit on the first step's arguments; each segment of the
+    block (the OneOf runs all five filters on the batch) in f32 on the
+    card against the CPU on the same draws; the block's ms, img/s, a
+    falling loss and peak memory over 10 bf16 steps."""
+    cfg = CF.parse_dict({"architecture": "Unet", "backbone": "resnet34",
+                         "loss": LOSS, "optimizer": "Adam", "lr": LR,
+                         "batch": BATCH, "augmentation": FILTER_BLOCK,
+                         "metrics": ["dice", "iou"]})
+    aug = LW.build_augmentation(cfg.augmentation)
+    per_block = block_launches(aug, SIZE, SIZE)
+    x_y_elastic = {"warp_x": 1, "warp_y": 1, "elastic": 1}
+    check(per_block == {n: x_y_elastic.get(n, 0) for n in K.KERNELS},
+          ("train_filter block launches", per_block))
+    draws = aug.sample(torch.Generator().manual_seed(seed + 6), BATCH, SIZE,
+                       SIZE)
+    gd = _to(draws, "cuda")
+    out_i, out_m = aug.apply(gd, imgs, masks)
+    torch.cuda.synchronize()
+    _check_augmented(out_i, out_m, "train_filter block")
+    segments = _segments_vs_cpu(aug, draws, imgs, masks)
+    block_ms = cuda_ms(lambda: aug.apply(gd, imgs, masks), 10)
+    out = phase_train("train_filter", cfg, imgs, masks, STEPS, seed,
+                      x_y_elastic, profile, hold=tuple(x_y_elastic),
+                      block_ms=block_ms, segments_vs_cpu=segments,
+                      routes=[r.route(SIZE, SIZE) for r in aug.geo_runs()])
+    check(all(r["ok"] for r in segments),
+          ("train_filter segments card vs CPU", segments))
     return out
 
 
@@ -2018,6 +2119,8 @@ def main(argv=None) -> int:
     photo = timed("train_photo", phase_train_photo, imgs, masks, SEED,
                   _profile_path(a.profile, "photo"))
     timed("photo_paths", phase_photo_paths, SEED)
+    filt = timed("train_filter", phase_train_filter, imgs, masks, SEED,
+                 _profile_path(a.profile, "filter"))
     timed("accuracy", phase_accuracy, SEED)
     # launches on each kernel's main path: X, Y and elastic in the Unet
     # step, YE in the FPN step, the shear in the unfused warp path
@@ -2026,6 +2129,7 @@ def main(argv=None) -> int:
     for name, row in rows.items():
         row["launches"] = launches[name]
         row["launches_train_photo"] = photo["launches"][name]
+        row["launches_train_filter"] = filt["launches"][name]
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}),

@@ -14,11 +14,29 @@ fit and evaluate wall seconds.  ``--seed`` seeds the augmentation draws
 (``cfg.fit(aug_seed=...)``); weights and folds come from ``random_state``
 as in the JAX script.  ``--device cpu`` runs on the CPU; ``--device cuda``
 on a host without a card raises.
+
+One initial weight file for both packages (the JAX side is
+``examples/accuracy_reference_jax.py``):
+
+    python examples/accuracy_evidence_torch.py --config all --write-init INIT
+    python examples/accuracy_evidence_torch.py --config all --init INIT
+
+``--write-init INIT`` writes, for each config, a fold-0 init as a
+flax-format checkpoint ``INIT/config{N}.weights`` and its sha256 beside it
+(``.sha256``), then stops.  The init has the laws of the port's
+``init_model`` (each conv kernel a truncated normal of flax's
+``lecun_normal`` scale, biases 0, BatchNorm 1/0/0/1), drawn from
+``numpy.random.default_rng(random_state + 0)`` in module order: torch's
+own generator gives other bytes across torch versions, numpy's stream the
+same bytes on every host (the sha256 says so).  ``--init INIT`` sets stage 0's
+``initial_weights`` of every config to that file, so every fold starts from
+it; the file's sha256 is printed and kept in ``run.json``.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -93,6 +111,71 @@ def dataset(config: str, n: int):
     return generate_shapes_dataset(n, size=128, seed=17, p_empty=0.25)
 
 
+def init_path(init_dir: str, config: str) -> str:
+    return os.path.join(os.path.abspath(init_dir), f"config{config}.weights")
+
+
+def sha256(path: str) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def numpy_init(model, seed: int):
+    """``init_model``'s laws on ``model`` (on the CPU), drawn from
+    ``numpy.random.default_rng(seed)``: each conv kernel, in module order,
+    std·z with z standard normal redrawn until inside [−2, 2] (float64,
+    then cast to float32), std = sqrt(1/fan_in) / _TRUNC_STD; biases and
+    BatchNorm reset as ``init_model`` resets them."""
+    import math
+
+    import numpy as np
+    import torch
+    from segmentation_training_pipeline_tpu_torch.models.layers import (
+        _TRUNC_STD, BatchNorm, Conv)
+
+    rng = np.random.default_rng(seed)
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.reset_parameters(None)       # constants: no generator drawn
+        elif isinstance(m, Conv):
+            w = m.weight
+            std = math.sqrt(1.0 / w[0].numel()) / _TRUNC_STD
+            z = rng.standard_normal(w.numel())
+            out = np.abs(z) > 2.0
+            while out.any():
+                z[out] = rng.standard_normal(int(out.sum()))
+                out = np.abs(z) > 2.0
+            with torch.no_grad():
+                w.copy_(torch.from_numpy(
+                    (std * z).astype(np.float32).reshape(w.shape)))
+                if m.bias is not None:
+                    m.bias.zero_()
+    return model
+
+
+def write_init(init_dir: str, config: str, epochs: int) -> str:
+    """Write ``config``'s fold-0 init (``numpy_init`` from
+    ``random_state + 0``); return its sha256 (also written beside the
+    file)."""
+    import segmentation_training_pipeline_tpu_torch as stp
+    from segmentation_training_pipeline_tpu_torch.models.factory import (
+        model_from_config)
+    from segmentation_training_pipeline_tpu_torch.train.checkpoint import (
+        save_checkpoint)
+
+    cfg = stp.parse_dict(config_dicts(epochs)[config], directory=init_dir)
+    model = numpy_init(model_from_config(cfg).cpu(), cfg.random_state + 0)
+    path = init_path(init_dir, config)
+    save_checkpoint(path, model.state_dict())
+    digest = sha256(path)
+    with open(path + ".sha256", "w") as f:
+        f.write(f"{digest}  {os.path.basename(path)}\n")
+    return digest
+
+
 def card_info(device: str) -> dict:
     import torch
 
@@ -122,14 +205,40 @@ def main(argv=None) -> dict:
     p.add_argument("--seed", type=int, default=None,
                    help="seed of the augmentation draws "
                         "(default: random_state)")
+    p.add_argument("--write-init", metavar="DIR", default=None,
+                   help="write each config's fold-0 init (init_model's "
+                        "laws drawn from numpy.random.default_rng("
+                        "random_state)) to DIR/config{N}.weights with its "
+                        "sha256, and stop")
+    p.add_argument("--init", metavar="DIR", default=None,
+                   help="start stage 0 of every fold of every config from "
+                        "DIR/config{N}.weights (as --write-init wrote it; "
+                        "examples/accuracy_reference_jax.py --init takes "
+                        "the same files)")
     args = p.parse_args(argv)
+    wanted = {"all": "1234", "both": "12"}.get(args.config, args.config)
+
+    if args.write_init:
+        inits = {c: write_init(args.write_init, c, args.epochs)
+                 for c in wanted}
+        for c, digest in inits.items():
+            print(f"init config{c}: {init_path(args.write_init, c)} "
+                  f"sha256 {digest}", flush=True)
+        return inits
 
     import segmentation_training_pipeline_tpu_torch as stp
 
     card = card_info(args.device)
     print("device:", json.dumps(card), flush=True)
-    wanted = {"all": "1234", "both": "12"}.get(args.config, args.config)
     dicts = config_dicts(args.epochs)
+    inits = {}
+    if args.init:
+        for c in wanted:
+            path = init_path(args.init, c)
+            dicts[c]["stages"][0]["initial_weights"] = path
+            inits[KEYS[c]] = sha256(path)
+            print(f"init config{c}: {path} sha256 {inits[KEYS[c]]}",
+                  flush=True)
     results, seconds = {}, {}
     for c in wanted:
         d = os.path.join(args.out, f"config{c}")
@@ -154,7 +263,8 @@ def main(argv=None) -> dict:
         json.dump(results, f, indent=2)
     with open(os.path.join(args.out, "run.json"), "w") as f:
         json.dump({"device": card, "seed": args.seed, "n": args.n,
-                   "epochs": args.epochs, "seconds": seconds}, f, indent=2)
+                   "epochs": args.epochs, "seconds": seconds,
+                   "init_sha256": inits}, f, indent=2)
     print(json.dumps(results))
     print(f"written to {out_json}")
     return results

@@ -180,6 +180,38 @@ _def("CLAHE", {"clip_limit", "tile_grid_size", "tile_grid_size_px"},
                          "form)"},
      aliases=("AllChannelsCLAHE",))
 
+# --- filters ------------------------------------------------------------------
+_def("GaussianBlur", {"sigma"})
+_def("AverageBlur", {"k"})
+_def("Sharpen", {"alpha", "lightness"})
+_def("Emboss", {"alpha", "strength"})
+_def("EdgeDetect", {"alpha"})
+_def("DirectedEdgeDetect", {"alpha", "direction"})
+_def("Canny",
+     {"alpha", "hysteresis_thresholds", "sobel_kernel_size",
+      "hysteresis_iters"},
+     {"colorizer": "arbitrary colorizer OBJECTS cannot enter a jitted "
+                   "pipeline; imgaug's default random-colors colorizer is "
+                   "built in (one uniform edge color + one background "
+                   "color per image)"})
+_def("Cartoon",
+     {"blur_ksize", "segmentation_size", "saturation", "edge_prevalence"},
+     {"from_colorspace": "runs on RGB directly here"})
+_def("MeanShiftBlur", {"spatial_radius", "color_radius"},
+     {"spatial_window_radius": "the imgaug 0.4 name is `spatial_radius`",
+      "color_window_radius": "the imgaug 0.4 name is `color_radius`"})
+_def("AveragePooling", {"k", "keep_size"})
+_def("MaxPooling", {"k", "keep_size"})
+_def("MinPooling", {"k", "keep_size"})
+_def("MotionBlur", {"k", "angle"},
+     {"direction": "the blur line is always centered on the kernel — "
+                   "remove it",
+      "order": _FIXED_INTERP})
+_def("MedianBlur", {"k"})
+_def("MedianPooling", {"k", "keep_size"})
+_def("BilateralBlur", {"d", "sigma_color", "sigma_space"})
+_def("JpegCompression", {"compression"})
+
 # --- choice combinators -----------------------------------------------------
 _def("Sometimes",
      {"p", "then", "then_list", "children", "else", "else_list",
@@ -253,6 +285,27 @@ def _check_values(name: str, canon: str, args: Dict[str, Any]) -> None:
                 raise ValueError(
                     f"{name}: {dk} must be a static positive integer "
                     f"(output shapes are static), got {dv!r}")
+    if canon == "canny":
+        sk = args.get("sobel_kernel_size")
+        if sk is not None and (isinstance(sk, bool) or sk not in (3, 5, 7)):
+            raise ValueError(
+                f"{name}: sobel_kernel_size must be a static 3, 5 or 7 "
+                "(conv kernels are compile-time shapes; imgaug's sampled "
+                f"sizes can't lower), got {sk!r} — see docs/schema.md")
+        it = args.get("hysteresis_iters")
+        if it is not None and (isinstance(it, bool)
+                               or not isinstance(it, int) or it < 1):
+            raise ValueError(
+                f"{name}: hysteresis_iters must be a static integer >= 1 "
+                f"(bounded edge-propagation rounds), got {it!r}")
+    if canon == "cartoon":
+        bk = args.get("blur_ksize")
+        if bk is not None and (isinstance(bk, bool)
+                               or not isinstance(bk, int) or bk < 1):
+            raise ValueError(
+                f"{name}: blur_ksize must be a static integer >= 1 "
+                "(median windows are compile-time shapes; imgaug samples "
+                f"it per image), got {bk!r} — see docs/schema.md")
     if canon == "changecolorspace":
         cs = args.get("to_colorspace")
         if cs is not None and (not isinstance(cs, str) or cs.upper()

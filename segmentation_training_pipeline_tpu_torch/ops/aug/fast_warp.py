@@ -181,16 +181,21 @@ def _resample_matrices(e: Tensor, t: Tensor, n_dst: int, n_src: int,
 
 @contextmanager
 def _exact_f32(device: torch.device):
-    """Full f32 products inside: autocast off and the matmul precision
-    pinned to "highest" (no TF32), whatever the caller set; restored on
-    exit.  The JAX pass asks for ``precision=HIGHEST``."""
+    """Full f32 products and convolutions inside: autocast off, the matmul
+    precision pinned to "highest" and cuDNN's TF32 off, whatever the
+    caller set; restored on exit.  The JAX pass asks for
+    ``precision=HIGHEST``; the filters' convolutions
+    (``photometric.py``) run in f32 in the reference."""
     before = torch.get_float32_matmul_precision()
+    conv = torch.backends.cudnn.allow_tf32
     torch.set_float32_matmul_precision("highest")
+    torch.backends.cudnn.allow_tf32 = False
     try:
         with torch.autocast(device.type, enabled=False):
             yield
     finally:
         torch.set_float32_matmul_precision(before)
+        torch.backends.cudnn.allow_tf32 = conv
 
 
 def _scale_pass(img: Tensor, mask: Tensor, e1: Tensor, tx: Tensor,

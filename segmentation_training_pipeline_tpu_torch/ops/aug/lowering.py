@@ -1203,6 +1203,220 @@ _photo("clahe allchannelsclahe",
        _image_only(lambda s, d, x: ph.clahe(x, d["clip_limit"],
                                             _clahe_grid(s.args))))
 
+
+# --- filters -------------------------------------------------------------------
+# Their static windows (a tap radius, a pooling or median width, Canny's
+# aperture and rounds, Cartoon's median) come from the arguments when the
+# block is built (``_FILTER_STATIC``), with the reference's ValueErrors.
+
+def _spec_max(spec: Any, fallback: float) -> float:
+    """The largest value of a scalar or list spec; ``fallback`` for any
+    other form (the reference's try/except)."""
+    try:
+        return (float(spec) if isinstance(spec, (int, float))
+                else max(float(v) for v in spec))
+    except (TypeError, ValueError):
+        return fallback
+
+
+def _box_radius(spec: Any) -> int:
+    """AverageBlur's and MotionBlur's static radius from k's maximum."""
+    return int(min(max(1, math.ceil((_spec_max(spec, 7.0) - 1) / 2)), 64))
+
+
+def _pool_k(name: str):
+    def check(args: Any) -> int:
+        a = _single(args, "k", 2)
+        ok = (isinstance(a, (int, float)) and not isinstance(a, bool)
+              and float(a) == int(a) and int(a) >= 1)
+        if not ok:
+            what = "MedianPooling" if name == "medianpooling" else name
+            raise ValueError(
+                f"{what} k must be a static integer >= 1 here (pooling "
+                "windows are compile-time shapes); got "
+                f"{a!r} — see docs/schema.md deviations")
+        return int(a)
+    return check
+
+
+def _median_k(args: Any) -> int:
+    a = _single(args, "k", 3)
+    if a is None:
+        a = 3  # bare `MedianBlur: ~` → cv2's default window
+    ok = (isinstance(a, (int, float)) and not isinstance(a, bool)
+          and math.isfinite(float(a)) and float(a) == int(a)
+          and int(a) >= 1 and int(a) % 2 == 1)
+    if not ok:
+        raise ValueError(
+            "MedianBlur k must be a static ODD integer >= 1 here "
+            "(even windows are off-center; per-image sampled widths "
+            "would need data-dependent sort extents); "
+            f"got {a!r} — see docs/schema.md deviations")
+    return int(a)
+
+
+def _canny_static(args: Any) -> Tuple[int, int]:
+    a = _bare(args, "alpha")
+    sk = a.get("sobel_kernel_size", 3)
+    if isinstance(sk, bool) or sk not in (3, 5, 7):
+        raise ValueError(
+            "Canny sobel_kernel_size must be a static 3, 5 or 7 here "
+            f"(conv kernels are compile-time shapes; imgaug's sampled "
+            f"sizes can't lower), got {sk!r} — see docs/schema.md")
+    it = a.get("hysteresis_iters", 16)
+    if isinstance(it, bool) or not isinstance(it, int) or it < 1:
+        raise ValueError(
+            f"Canny hysteresis_iters must be a static integer >= 1 "
+            f"(bounded edge propagation rounds), got {it!r}")
+    return int(sk), it
+
+
+def _cartoon_k(args: Any) -> int:
+    bk = (args if isinstance(args, dict) else {}).get("blur_ksize", 3)
+    if isinstance(bk, bool) or not isinstance(bk, int) or bk < 1:
+        raise ValueError(
+            "Cartoon blur_ksize must be a static integer >= 1 here "
+            "(median windows are compile-time shapes; imgaug samples "
+            f"it per image), got {bk!r} — see docs/schema.md")
+    return bk
+
+
+_FILTER_STATIC = {
+    "averageblur": lambda a: _box_radius(_bare(a, "k").get("k", [1, 7])),
+    "gaussianblur": lambda a: int(min(max(3, math.ceil(2.5 * _spec_max(
+        _bare(a, "sigma").get("sigma", [0.0, 3.0]), 3.0))), 64)),
+    "motionblur": lambda a: _box_radius(_bare(a, "k").get("k", 5)),
+    "averagepooling": _pool_k("averagepooling"),
+    "maxpooling": _pool_k("maxpooling"),
+    "minpooling": _pool_k("minpooling"),
+    "medianpooling": _pool_k("medianpooling"),
+    "medianblur": _median_k,
+    # tap windows capped at radius 5 (121 taps)
+    "bilateralblur": lambda a: int(min(max(0, int(_spec_max(
+        _bare(a, "d").get("d", 3), 9.0)) // 2), 5)),
+    "meanshiftblur": lambda a: int(min(max(1, int(_spec_max(
+        _bare(a, "spatial_radius").get("spatial_radius", [5.0, 40.0]),
+        5.0))), 5)),
+    "canny": _canny_static,
+    "cartoon": _cartoon_k,
+}
+
+
+def _alpha_and(key: str, default: Any):
+    """Sharpen (``lightness``) and Emboss (``strength``): a dict gives
+    both specs; any other form is alpha's spec, ``key`` at its default."""
+    def sample(seg, gen, b, h, w, c):
+        a = seg.args or {}
+        is_dict = isinstance(a, dict)
+        return {"alpha": _sample(gen, a.get("alpha", [0.0, 1.0])
+                                 if is_dict else a, b),
+                key: _sample(gen, a.get(key, default) if is_dict
+                             else default, b)}
+    return sample
+
+
+_photo("averageblur",
+       lambda s, g, b, h, w, c: {"k": _sample(
+           g, _bare(s.args, "k").get("k", [1, 7]), b, 3.0)},
+       _image_only(lambda s, d, x: ph.average_blur(x, d["k"], s.static)))
+_photo("gaussianblur",
+       lambda s, g, b, h, w, c: {"sigma": _sample(
+           g, _bare(s.args, "sigma").get("sigma", [0.0, 3.0]), b, 0.0)},
+       _image_only(lambda s, d, x: ph.gaussian_blur(x, d["sigma"],
+                                                    s.static)))
+_photo("sharpen", _alpha_and("lightness", [0.75, 1.5]),
+       _image_only(lambda s, d, x: ph.sharpen(x, d["alpha"],
+                                              d["lightness"])))
+_photo("emboss", _alpha_and("strength", [0.5, 1.5]),
+       _image_only(lambda s, d, x: ph.emboss(x, d["alpha"], d["strength"])))
+_photo("edgedetect",
+       lambda s, g, b, h, w, c: {"alpha": _sample(
+           g, _bare(s.args, "alpha").get("alpha", [0.0, 0.75]), b)},
+       _image_only(lambda s, d, x: ph.edge_detect(x, d["alpha"])))
+_photo("directededgedetect",
+       lambda s, g, b, h, w, c: {
+           "alpha": _sample(g, _bare(s.args, "alpha").get(
+               "alpha", [0.0, 0.75]), b),
+           "direction": _sample(g, _bare(s.args, "alpha").get(
+               "direction", [0.0, 1.0]), b)},
+       _image_only(lambda s, d, x: ph.directed_edge_detect(
+           x, d["alpha"], d["direction"])))
+_photo("motionblur",
+       lambda s, g, b, h, w, c: {
+           "k": _sample(g, _bare(s.args, "k").get("k", 5), b, 5.0),
+           "angle": _sample(g, _bare(s.args, "k").get("angle", [0, 360]),
+                            b)},
+       _image_only(lambda s, d, x: ph.motion_blur(x, d["k"], d["angle"],
+                                                  s.static)))
+for _name, _mode in (("averagepooling", "avg"), ("maxpooling", "max"),
+                     ("minpooling", "min")):
+    _photo(_name, _none, _image_only(
+        lambda s, d, x, m=_mode: ph.keep_size_pooling(x, s.static, m)))
+_photo("medianpooling", _none,
+       _image_only(lambda s, d, x: ph.median_pooling(x, s.static)))
+_photo("medianblur", _none,
+       _image_only(lambda s, d, x: ph.median_blur(x, s.static)))
+_photo("bilateralblur",
+       lambda s, g, b, h, w, c: {
+           "d": _sample(g, _bare(s.args, "d").get("d", 3), b, 3.0),
+           "sigma_color": _sample(g, _bare(s.args, "d").get(
+               "sigma_color", [10, 250]), b, 75.0),
+           "sigma_space": _sample(g, _bare(s.args, "d").get(
+               "sigma_space", [10, 250]), b, 75.0)},
+       _image_only(lambda s, d, x: ph.bilateral_blur(
+           x, d["d"], d["sigma_color"], d["sigma_space"], s.static)))
+# imgaug maps compression c → codec quality 100 − c
+_photo("jpegcompression",
+       lambda s, g, b, h, w, c: {"compression": _sample(
+           g, _bare(s.args, "compression").get("compression", [0, 100]), b,
+           50.0)},
+       _image_only(lambda s, d, x: ph.jpeg_compression(
+           x, 100.0 - d["compression"])))
+
+
+def _canny_sample(seg, gen, b, h, w, c):
+    """Alpha, the two thresholds (one spec for both, or a pair of specs)
+    and the two colours the reference draws inside ``canny``."""
+    a = _bare(seg.args, "alpha")
+    ht = a.get("hysteresis_thresholds")
+    if ht is None:
+        lo_spec, hi_spec = [60, 140], [160, 240]
+    elif (isinstance(ht, (list, tuple)) and len(ht) == 2
+          and all(isinstance(e, (list, tuple)) for e in ht)):
+        lo_spec, hi_spec = ht[0], ht[1]
+    else:
+        lo_spec = hi_spec = ht
+    return {"alpha": _sample(gen, a.get("alpha", [0.0, 1.0]), b),
+            "lo": _sample(gen, lo_spec, b), "hi": _sample(gen, hi_spec, b),
+            "col_t": _rand(gen, (b, 1, 1, 3)) * 256.0,
+            "col_f": _rand(gen, (b, 1, 1, 3)) * 256.0}
+
+
+_photo("canny", _canny_sample,
+       _image_only(lambda s, d, x: ph.canny(
+           x, d["alpha"], d["lo"], d["hi"], d["col_t"], d["col_f"],
+           *s.static)))
+_photo("cartoon",
+       lambda s, g, b, h, w, c: {
+           key: _sample(g, (s.args if isinstance(s.args, dict) else {}).get(
+               key, spec), b, default)
+           for key, spec, default in (
+               ("segmentation_size", [0.8, 1.2], 1.0),
+               ("saturation", [1.5, 2.5], 2.0),
+               ("edge_prevalence", [0.9, 1.1], 1.0))},
+       _image_only(lambda s, d, x: ph.cartoon(
+           x, s.static, d["segmentation_size"], d["saturation"],
+           d["edge_prevalence"])))
+_photo("meanshiftblur",
+       lambda s, g, b, h, w, c: {
+           "spatial_radius": _sample(g, _bare(s.args, "spatial_radius").get(
+               "spatial_radius", [5.0, 40.0]), b, 5.0),
+           "color_radius": _sample(g, _bare(s.args, "spatial_radius").get(
+               "color_radius", [5.0, 40.0]), b, 10.0)},
+       _image_only(lambda s, d, x: ph.mean_shift_blur(
+           x, torch.clamp(d["spatial_radius"], max=float(s.static)),
+           d["color_radius"], max_radius=s.static)))
+
 # names rewritten into Affine by ``_coerce_block``; the choice combinators
 # and the channel / colourspace scopes
 _SUGAR = {"rotate", "translatex", "translatey", "scalex", "scaley",
@@ -1282,6 +1496,8 @@ class _Photo:
             self.colorspace = colorspace_of(self.args)
         elif self.name in ("autocontrast", "auto_contrast"):
             self.cutoff = float(_single(self.args, "cutoff", 0) or 0)
+        elif self.name in _FILTER_STATIC:
+            self.static = _FILTER_STATIC[self.name](self.args)
 
     def sample(self, gen: torch.Generator, b: int, h: int, w: int,
                c: int) -> Dict[str, Tensor]:

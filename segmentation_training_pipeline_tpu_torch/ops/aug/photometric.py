@@ -12,7 +12,17 @@ from a key, and the tests hand its draws to these.
 
 The colour functions keep the reference's order of float32 operations
 (the colour matrices are written out elementwise, not as a matmul that
-could run in TF32 on the card).  The histogram names count with
+could run in TF32 on the card).
+
+The filters convolve in full float32: cuDNN runs float32 convolutions in
+TF32 by default on the card, which rounds a blur of 0..255 values by
+~0.1, so every depthwise convolution runs under
+``fast_warp._exact_f32`` (TF32 off for it alone; the model keeps its own
+setting).  Where a threshold,
+a rounding or an order statistic follows the sum (Canny's gradient,
+JPEG's 8×8 transforms, the mean shift's colour gate), the sums are
+written out tap by tap in one fixed order instead, so the card and the
+CPU compute the same float32 value.  The histogram names count with
 ``scatter_add_`` and look up with ``torch.gather``: the reference's
 broadcast compare-reduces (written so because XLA:TPU serialises scatter
 and gather) would build a (…, N, 256) tensor in eager PyTorch.
@@ -20,12 +30,29 @@ and gather) would build a (…, N, 256) tensor in eager PyTorch.
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .fast_warp import _exact_f32
+
 Tensor = torch.Tensor
+
+_ON_DEVICE: dict = {}
+
+
+def _const(name: str, values: np.ndarray, device: torch.device) -> Tensor:
+    """The host constant ``values`` on ``device``, copied there once: a
+    host-to-card copy on every call would stall the host on the card."""
+    key = (name, torch.device(device))
+    t = _ON_DEVICE.get(key)
+    if t is None:
+        t = _ON_DEVICE[key] = torch.from_numpy(
+            np.ascontiguousarray(values)).to(device)
+    return t
 
 
 def _bcast(param: Tensor) -> Tensor:
@@ -493,3 +520,566 @@ def clahe(images: Tensor, clip_limit: Tensor, tile_grid: int = 8) -> Tensor:
            + wy * wx * tap(iy1, ix1))
     out = torch.round(out).reshape(b, c, big_h, big_w)[:, :, :h, :w]
     return out.permute(0, 2, 3, 1)
+
+
+
+# ---------------------------------------------------------------------------
+# filters (blurs, 3×3 kernels, pooling, medians, JPEG, Canny, mean shift)
+# ---------------------------------------------------------------------------
+
+def _pad_index(n: int, r: int, mode: str, device) -> Tensor:
+    """Source indices of [−r, n + r) under ``jnp.pad``'s "reflect"
+    (reflect-101, any width) or "edge"."""
+    i = torch.arange(-r, n + r, device=device)
+    if mode == "edge" or n == 1:
+        return torch.clamp(i, 0, n - 1)
+    period = 2 * (n - 1)
+    i = torch.remainder(i, period)
+    return torch.where(i > n - 1, period - i, i)
+
+
+def _pad(x: Tensor, dim: int, r: int, mode: str) -> Tensor:
+    if r == 0:
+        return x
+    return x.index_select(dim, _pad_index(x.shape[dim], r, mode, x.device))
+
+
+def _planes(images: Tensor) -> Tensor:
+    """(B, H, W, C) → (1, B·C, H, W): one plane per image and channel."""
+    b, h, w, c = images.shape
+    return images.permute(0, 3, 1, 2).reshape(1, b * c, h, w)
+
+
+def _from_planes(x: Tensor, b: int, c: int) -> Tensor:
+    return x.reshape(b, c, x.shape[-2], x.shape[-1]).permute(0, 2, 3, 1)
+
+
+def _depthwise(planes: Tensor, kern: Tensor, c: int) -> Tensor:
+    """A VALID depthwise convolution of padded planes (1, B·C, H, W) with
+    a per-image kernel ``kern`` (B, kh, kw), one grouped ``conv2d`` in
+    float32 (cross-correlation, as ``lax.conv_general_dilated``)."""
+    b, kh, kw = kern.shape
+    weight = kern[:, None].expand(b, c, kh, kw).reshape(b * c, 1, kh, kw)
+    with _exact_f32(planes.device):
+        return F.conv2d(planes, weight.contiguous(), groups=b * c)
+
+
+def _separable_filter(images: Tensor, kern: Tensor, radius: int) -> Tensor:
+    """A per-image separable 1-D kernel (B, K) along x then y with
+    reflect-101 padding (gaussian_blur / average_blur)."""
+    b, _, _, c = images.shape
+    x = _pad(_planes(images), 3, radius, "reflect")
+    x = _depthwise(x, kern[:, None, :], c)
+    x = _pad(x, 2, radius, "reflect")
+    return _from_planes(_depthwise(x, kern[:, :, None], c), b, c)
+
+
+def gaussian_blur(images: Tensor, sigma: Tensor, radius: int = 3) -> Tensor:
+    """Separable per-image gaussian blur, sigma (B,); sigma ≈ 0 is the
+    identity kernel."""
+    x = torch.arange(-radius, radius + 1, dtype=torch.float32,
+                     device=images.device)
+    k = torch.exp(-0.5 * (x[None, :] / torch.clamp(sigma[:, None], min=1e-3))
+                  ** 2)
+    return _separable_filter(images, k / k.sum(1, keepdim=True), radius)
+
+
+def average_blur(images: Tensor, k: Tensor, radius: int = 3) -> Tensor:
+    """imgaug AverageBlur: a k×k box, k (B,) rounded to the nearest odd
+    ≤ 2·radius + 1 (k ≤ 1 is the identity)."""
+    half = torch.clamp(torch.floor((k - 1.0) / 2.0 + 0.5), 0, radius)
+    x = torch.arange(-radius, radius + 1, dtype=torch.float32,
+                     device=images.device).abs()
+    kern = (x[None, :] <= half[:, None]).float()
+    return _separable_filter(images, kern / kern.sum(1, keepdim=True),
+                             radius)
+
+
+def _kxk(images: Tensor, kern: Tensor, radius: int) -> Tensor:
+    """Reflect-101-padded depthwise (2r+1)² convolution, kern (B, K, K)."""
+    b, _, _, c = images.shape
+    x = _pad(_pad(_planes(images), 2, radius, "reflect"), 3, radius,
+             "reflect")
+    return _from_planes(_depthwise(x, kern, c), b, c)
+
+
+def _blend(images: Tensor, alpha: Tensor, other: Tensor) -> Tensor:
+    a = alpha[:, None, None, None]
+    return (1.0 - a) * images + a * other
+
+
+def sharpen(images: Tensor, alpha: Tensor, lightness: Tensor) -> Tensor:
+    """imgaug Sharpen: blend with the unnormalised 3×3 kernel
+    [[-1,-1,-1],[-1, 8+l,-1],[-1,-1,-1]] (it sums to l)."""
+    lap = torch.full((images.shape[0], 3, 3), -1.0, device=images.device)
+    lap[:, 1, 1] = 8.0 + lightness
+    return _blend(images, alpha, _kxk(images, lap, 1))
+
+
+def emboss(images: Tensor, alpha: Tensor, strength: Tensor) -> Tensor:
+    """imgaug Emboss: blend with an embossing 3×3 response."""
+    s = strength
+    z, one = torch.zeros_like(s), torch.ones_like(s)
+    k = torch.stack([torch.stack([-1.0 - s, -s, z], -1),
+                     torch.stack([-s, one, s], -1),
+                     torch.stack([z, s, 1.0 + s], -1)], 1)
+    return _blend(images, alpha, _kxk(images, k, 1))
+
+
+_EDGE_KERNEL = np.array([[0.0, 1.0, 0.0], [1.0, -4.0, 1.0], [0.0, 1.0, 0.0]],
+                        np.float32)
+
+
+def edge_detect(images: Tensor, alpha: Tensor) -> Tensor:
+    """imgaug EdgeDetect: blend toward the 3×3 response
+    [[0,1,0],[1,-4,1],[0,1,0]]."""
+    k = _const("edge", _EDGE_KERNEL, images.device)
+    return _blend(images, alpha,
+                  _kxk(images, k.expand(images.shape[0], 3, 3), 1))
+
+
+_DIRECTED_CELLS = np.array([(x_, y_) for y_ in (-1, 0, 1) for x_ in (-1, 0, 1)
+                            if (x_, y_) != (0, 0)], np.float32)
+_DIRECTED_UNIT = _DIRECTED_CELLS / np.linalg.norm(_DIRECTED_CELLS, axis=1,
+                                                  keepdims=True)
+
+
+def directed_edge_detect(images: Tensor, alpha: Tensor,
+                         direction: Tensor) -> Tensor:
+    """imgaug DirectedEdgeDetect: a per-image 3×3 kernel whose 8 neighbour
+    cells weigh in by angular similarity (1 − angle/180°)⁴ to the
+    direction (``direction`` in [0, 1] ~ [0, 360) degrees, 0 up),
+    normalised, negated, centre 1, blended with the identity by alpha."""
+    deg = torch.remainder(torch.floor(direction * 360.0), 360.0)
+    rad = deg * (math.pi / 180.0) - 0.5 * math.pi
+    cu = _const("directed", _DIRECTED_UNIT, images.device)       # (8, 2)
+    # the (8, 2)·(2,) products written out: no matmul on the card
+    cosang = torch.clamp(cu[None, :, 0] * torch.cos(rad)[:, None]
+                         + cu[None, :, 1] * torch.sin(rad)[:, None],
+                         -1.0, 1.0)                               # (B, 8)
+    sim = (1.0 - torch.arccos(cosang) / math.pi) ** 4
+    sim = sim / sim.sum(1, keepdim=True)
+    b = sim.shape[0]
+    eff = torch.cat([-sim[:, :4], torch.ones((b, 1), device=sim.device),
+                     -sim[:, 4:]], 1).reshape(b, 3, 3)
+    ident = torch.zeros((3, 3), device=sim.device)
+    ident[1, 1] = 1.0
+    a = alpha[:, None, None]
+    return _kxk(images, (1.0 - a) * ident[None] + a * eff, 1)
+
+
+def motion_blur(images: Tensor, k: Tensor, angle: Tensor,
+                radius: int = 3) -> Tensor:
+    """imgaug MotionBlur: a (2·radius+1)² kernel with a 1-px anti-aliased
+    line through the centre at ``angle`` degrees (0 blurs vertically),
+    its taps beyond the per-image half length k//2 zero, normalised to
+    sum 1; one grouped convolution for the batch."""
+    coords = torch.arange(-radius, radius + 1, dtype=torch.float32,
+                          device=images.device)
+    gy, gx = torch.meshgrid(coords, coords, indexing="ij")
+    half = torch.clamp(torch.floor((k - 1.0) / 2.0 + 0.5), 1, radius)
+    a = angle * (math.pi / 180.0)
+    dx, dy = torch.sin(a)[:, None, None], torch.cos(a)[:, None, None]
+    proj = gx[None] * dx + gy[None] * dy
+    perp = torch.abs(gx[None] * dy - gy[None] * dx)
+    w = (torch.clamp(1.0 - perp, 0.0, 1.0)
+         * torch.clamp(half[:, None, None] + 1.0 - proj.abs(), 0.0, 1.0))
+    w = w / torch.clamp(w.sum((1, 2), keepdim=True), min=1e-8)
+    return _kxk(images, w, radius)
+
+
+def keep_size_pooling(images: Tensor, ksize: int, mode: str) -> Tensor:
+    """imgaug {Average,Max,Min}Pooling, keep_size: a k×k window at stride
+    k with XLA's SAME padding (the average over the frame's own pixels),
+    nearest-resized back."""
+    b, h, w, c = images.shape
+    k = int(ksize)
+    if k <= 1:
+        return images
+
+    def same(n):
+        out = -(-n // k)
+        total = max((out - 1) * k + k - n, 0)
+        return out, total // 2, total - total // 2
+
+    (ho, th, bh), (wo, lw, rw) = same(h), same(w)
+    fill = {"avg": 0.0, "max": -math.inf, "min": math.inf}[mode]
+    x = F.pad(images, (0, 0, lw, rw, th, bh), value=fill)
+    x = x.reshape(b, ho, k, wo, k, c)
+    if mode == "max":
+        red = x.amax((2, 4))
+    elif mode == "min":
+        red = x.amin((2, 4))
+    else:
+        ones = F.pad(torch.ones((1, h, w, 1), device=images.device),
+                     (0, 0, lw, rw, th, bh))
+        counts = ones.reshape(1, ho, k, wo, k, 1).sum((2, 4))
+        red = x.sum((2, 4)) / counts
+    return nearest_nhwc(red, h, w)
+
+
+def median_pooling(images: Tensor, ksize: int) -> Tensor:
+    """imgaug MedianPooling, keep_size: the median of each k×k block at
+    stride k (edge-padded at the bottom and right to a multiple of k),
+    nearest-resized back; an even k² averages the middle two."""
+    b, h, w, c = images.shape
+    k = int(ksize)
+    if k <= 1:
+        return images
+    x = _pad_end(_pad_end(images, 1, (-h) % k), 2, (-w) % k)
+    hb, wb = x.shape[1] // k, x.shape[2] // k
+    x = (x.reshape(b, hb, k, wb, k, c).permute(0, 1, 3, 5, 2, 4)
+          .reshape(b, hb, wb, c, k * k))
+    srt = torch.sort(x, dim=-1).values
+    k2 = k * k
+    med = (srt[..., k2 // 2] if k2 % 2
+           else 0.5 * (srt[..., k2 // 2 - 1] + srt[..., k2 // 2]))
+    return nearest_nhwc(med, h, w)
+
+
+def _pad_end(x: Tensor, dim: int, n: int) -> Tensor:
+    """Edge padding of ``n`` at the end of ``dim``."""
+    if n == 0:
+        return x
+    idx = torch.clamp(torch.arange(x.shape[dim] + n, device=x.device),
+                      max=x.shape[dim] - 1)
+    return x.index_select(dim, idx)
+
+
+# the 19-comparator median-of-9 network (Smith 1996 / Paeth), min for min
+_MEDIAN9 = [(1, 2), (4, 5), (7, 8), (0, 1), (3, 4), (6, 7),
+            (1, 2), (4, 5), (7, 8), (0, 3), (5, 8), (4, 7),
+            (3, 6), (1, 4), (2, 5), (4, 7), (4, 2), (6, 4), (4, 2)]
+# the images a median sort takes at once: its k² stack stays near 256 MiB
+_SORT_BYTES = 1 << 28
+
+
+def median_blur(images: Tensor, ksize: int = 3) -> Tensor:
+    """cv2/imgaug MedianBlur with a static odd ``ksize`` (edge border):
+    k = 3 through the median-of-9 network; a larger k sorts the k² taps
+    of a few images at a time and takes the middle one (k² is odd: the
+    middle element is the median, no average of two)."""
+    if ksize <= 1:
+        return images
+    r = ksize // 2
+    b, h, w, c = images.shape
+    pad = _pad(_pad(images, 1, r, "edge"), 2, r, "edge")
+
+    def taps(x):
+        return [x[:, dy:dy + h, dx:dx + w, :]
+                for dy in range(ksize) for dx in range(ksize)]
+
+    if ksize == 3:
+        t = taps(pad)
+        for i, j in _MEDIAN9:
+            t[i], t[j] = torch.minimum(t[i], t[j]), torch.maximum(t[i], t[j])
+        return t[4]
+    k2 = ksize * ksize
+    per = max(1, _SORT_BYTES // (k2 * h * w * c * 4))
+    return torch.cat([
+        torch.sort(torch.stack(taps(pad[i:i + per]), -1), dim=-1)
+        .values[..., k2 // 2] for i in range(0, b, per)])
+
+
+def bilateral_blur(images: Tensor, d: Tensor, sigma_color: Tensor,
+                   sigma_space: Tensor, max_radius: int) -> Tensor:
+    """cv2/imgaug BilateralBlur at a static ``max_radius``: each tap
+    weighs in as a spatial gaussian (``sigma_space``; zero beyond the
+    per-image d//2) times a range gaussian of the summed per-channel
+    absolute colour difference to the centre (``sigma_color``); edge
+    border.  Accumulated tap by tap."""
+    b, h, w, c = images.shape
+    rr = int(max_radius)
+    if rr <= 0:
+        return images
+    radius = torch.floor(torch.floor(d) / 2.0)[:, None, None]
+    sc = torch.clamp(sigma_color, min=1e-3)[:, None, None, None]
+    ss = torch.clamp(sigma_space, min=1e-3)[:, None, None]
+    pad = _pad(_pad(images, 1, rr, "edge"), 2, rr, "edge")
+    num = torch.zeros_like(images)
+    den = torch.zeros((b, h, w, 1), device=images.device)
+    for dy in range(-rr, rr + 1):
+        for dx in range(-rr, rr + 1):
+            tap = pad[:, rr + dy:rr + dy + h, rr + dx:rr + dx + w, :]
+            r2 = float(dy * dy + dx * dx)
+            w_s = (torch.exp(-0.5 * r2 / (ss * ss))
+                   * (math.sqrt(r2) <= radius + 1e-6))
+            dcol = torch.abs(tap - images).sum(-1, keepdim=True)
+            wgt = w_s[..., None] * torch.exp(-0.5 * (dcol / sc) ** 2)
+            num = num + wgt * tap
+            den = den + wgt
+    return num / den
+
+
+# --- JPEG compression (imgaug JpegCompression) ------------------------------
+# Annex-K quantisation tables; quality scaling as libjpeg's
+# jpeg_quality_scaling (5000/q below 50, 200 − 2q above)
+
+_JPEG_LUMA_Q = np.array(
+    [[16, 11, 10, 16, 24, 40, 51, 61],
+     [12, 12, 14, 19, 26, 58, 60, 55],
+     [14, 13, 16, 24, 40, 57, 69, 56],
+     [14, 17, 22, 29, 51, 87, 80, 62],
+     [18, 22, 37, 56, 68, 109, 103, 77],
+     [24, 35, 55, 64, 81, 104, 113, 92],
+     [49, 64, 78, 87, 103, 121, 120, 101],
+     [72, 92, 95, 98, 112, 100, 103, 99]], np.float32)
+
+_JPEG_CHROMA_Q = np.array(
+    [[17, 18, 24, 47, 99, 99, 99, 99],
+     [18, 21, 26, 66, 99, 99, 99, 99],
+     [24, 26, 56, 99, 99, 99, 99, 99],
+     [47, 66, 99, 99, 99, 99, 99, 99],
+     [99, 99, 99, 99, 99, 99, 99, 99],
+     [99, 99, 99, 99, 99, 99, 99, 99],
+     [99, 99, 99, 99, 99, 99, 99, 99],
+     [99, 99, 99, 99, 99, 99, 99, 99]], np.float32)
+
+
+def _dct8() -> np.ndarray:
+    """The orthonormal 8-point DCT-II matrix: built in float64, then cast
+    to float32, as the reference builds it."""
+    n = np.arange(8, dtype=np.float64)
+    d = np.cos((2.0 * n[None, :] + 1.0) * n[:, None] * np.pi / 16.0)
+    d[0] *= np.sqrt(0.5)
+    return (d * 0.5).astype(np.float32)
+
+
+_DCT8 = _dct8()
+
+
+def _jpeg_qtable(name: str, base: np.ndarray, quality: Tensor) -> Tensor:
+    q = torch.clamp(quality, 1.0, 100.0)
+    scale = torch.where(q < 50.0, 5000.0 / q, 200.0 - 2.0 * q)
+    t = torch.floor((_const(name, base, quality.device)[None]
+                     * scale[:, None, None] + 50.0) / 100.0)
+    return torch.clamp(t, 1.0, 255.0)                     # (B, 8, 8)
+
+
+def _contract(x: Tensor, dim: int, transpose: bool) -> Tensor:
+    """out[..., u, ...] = Σ_i m[u, i]·x[..., i, ...] along ``dim`` (size 8)
+    with m = d (or dᵀ), summed in the order i = 0..7 by elementwise
+    float32 operations: the same value on every device (a matmul's order
+    is the library's, and a coefficient at a rounding tie moves a whole
+    quantisation step)."""
+    d = _DCT8.T if transpose else _DCT8
+    m = _const("dct8T" if transpose else "dct8", d, x.device)
+    shape = [1] * x.dim()
+    shape[dim] = 8
+    out = None
+    for i in range(8):
+        col = m[:, i].reshape(shape)
+        term = col * x.narrow(dim, i, 1)
+        out = term if out is None else out + term
+    return out
+
+
+def _dct_quant_plane(plane: Tensor, qt: Tensor) -> Tensor:
+    """8×8 block DCT → quantise/dequantise → inverse, contracted as the
+    reference's einsums are (rows i first, then columns j; the inverse
+    over u, then v).  plane (B, H, W), H and W multiples of 8."""
+    b, h, w = plane.shape
+    blocks = plane.reshape(b, h // 8, 8, w // 8, 8)
+    coef = _contract(_contract(blocks, 2, False), 4, False)
+    qb = qt[:, None, :, None, :]
+    coef = torch.round(coef / qb) * qb
+    out = _contract(_contract(coef, 2, True), 4, True)
+    return out.reshape(b, h, w)
+
+
+def _upsample2x_bilinear(p: Tensor) -> Tensor:
+    """``jax.image.resize`` of (B, h, w) to (B, 2h, 2w), bilinear: the
+    half-pixel weights 0.75 / 0.25 with clamped edges, written out."""
+    def axis(x, dim):
+        n = x.shape[dim]
+        idx = torch.arange(n, device=x.device)
+        prev = x.index_select(dim, torch.clamp(idx - 1, min=0))
+        nxt = x.index_select(dim, torch.clamp(idx + 1, max=n - 1))
+        even = 0.25 * prev + 0.75 * x
+        odd = 0.75 * x + 0.25 * nxt
+        out = torch.stack([even, odd], dim + 1)
+        shape = list(x.shape)
+        shape[dim] = 2 * n
+        return out.reshape(shape)
+
+    return axis(axis(p, 1), 2)
+
+
+def jpeg_compression(images: Tensor, quality: Tensor) -> Tensor:
+    """imgaug JpegCompression simulated: RGB → YCbCr (BT.601 full range),
+    4:2:0 chroma (2×2 mean down, half-pixel bilinear up), 8×8 block DCT
+    quantisation with the Annex-K tables at per-image ``quality`` (B,);
+    the lossless entropy stage skipped.  Rounded and clipped
+    ``jpeg_decoded``."""
+    if images.shape[-1] not in (1, 3):
+        return images
+    return torch.clamp(torch.round(jpeg_decoded(images, quality)), 0.0,
+                       255.0)
+
+
+def jpeg_decoded(images: Tensor, quality: Tensor) -> Tensor:
+    """JpegCompression's decoded RGB before its final rounding (the frame
+    cropped back), images with 1 or 3 channels."""
+    b, h, w, c = images.shape
+    pad_h, pad_w = (-h) % 16, (-w) % 16
+    x = _pad_end(_pad_end(torch.clamp(images, 0.0, 255.0), 1, pad_h), 2,
+                 pad_w)
+    big_h, big_w = h + pad_h, w + pad_w
+    q_luma = _jpeg_qtable("luma_q", _JPEG_LUMA_Q, quality)
+    if c == 1:
+        out = _dct_quant_plane(x[..., 0] - 128.0, q_luma)[..., None] + 128.0
+    else:
+        r, g, bl = x[..., 0], x[..., 1], x[..., 2]
+        y = 0.299 * r + 0.587 * g + 0.114 * bl
+        cb = -0.168736 * r - 0.331264 * g + 0.5 * bl + 128.0
+        cr = 0.5 * r - 0.418688 * g - 0.081312 * bl + 128.0
+        q_chroma = _jpeg_qtable("chroma_q", _JPEG_CHROMA_Q, quality)
+        yq = _dct_quant_plane(y - 128.0, q_luma) + 128.0
+
+        def chroma(p: Tensor) -> Tensor:
+            q4 = p.reshape(b, big_h // 2, 2, big_w // 2, 2)
+            ds = (((q4[:, :, 0, :, 0] + q4[:, :, 0, :, 1])
+                   + q4[:, :, 1, :, 0]) + q4[:, :, 1, :, 1]) / 4.0
+            dq = _dct_quant_plane(ds - 128.0, q_chroma) + 128.0
+            return _upsample2x_bilinear(dq)
+
+        cbq, crq = chroma(cb), chroma(cr)
+        out = torch.stack([yq + 1.402 * (crq - 128.0),
+                           yq - 0.344136 * (cbq - 128.0)
+                           - 0.714136 * (crq - 128.0),
+                           yq + 1.772 * (cbq - 128.0)], -1)
+    return out[:, :h, :w, :]
+
+
+# --- Canny, mean shift, Cartoon ---------------------------------------------
+
+_SOBEL = {3: ([-1.0, 0.0, 1.0], [1.0, 2.0, 1.0]),
+          5: ([-1.0, -2.0, 0.0, 2.0, 1.0], [1.0, 4.0, 6.0, 4.0, 1.0]),
+          7: ([-1.0, -4.0, -5.0, 0.0, 5.0, 4.0, 1.0],
+              [1.0, 6.0, 15.0, 20.0, 15.0, 6.0, 1.0])}
+
+
+def _taps(pad: Tensor, k2: np.ndarray, h: int, w: int) -> Tensor:
+    """A VALID 2-D correlation of padded (B, H + 2r, W + 2r) with the
+    constant ``k2``, summed tap by tap in row-major order (zero taps
+    skipped: adding 0 changes no value)."""
+    out = None
+    for dy in range(k2.shape[0]):
+        for dx in range(k2.shape[1]):
+            if k2[dy, dx] == 0.0:
+                continue
+            term = float(k2[dy, dx]) * pad[:, dy:dy + h, dx:dx + w]
+            out = term if out is None else out + term
+    return out
+
+
+def canny_edges(images: Tensor, lo: Tensor, hi: Tensor, sobel_k: int = 3,
+                hysteresis_iters: int = 16) -> Tensor:
+    """The Canny chain on ITU-R 601 luminance → (B, H, W) bool: sobel
+    (reflect-101, aperture 3/5/7, float32 summed tap by tap), L1
+    magnitude, 4-sector non-maximum suppression (the sector rounded from
+    the gradient's angle over π/4; ties keep the pixel),
+    double threshold, and ``hysteresis_iters`` rounds of 3×3 dilation
+    through the weak pixels."""
+    b, h, w, _ = images.shape
+    lum = _luminance(images)                                    # (B, H, W)
+    d1, sm = (np.array(v, np.float32) for v in _SOBEL[sobel_k])
+    r = sobel_k // 2
+    pad = _pad(_pad(lum, 1, r, "reflect"), 2, r, "reflect")
+    gx = _taps(pad, np.outer(sm, d1), h, w)      # d/dx: smooth y, diff x
+    gy = _taps(pad, np.outer(d1, sm), h, w)      # d/dy: smooth x, diff y
+    mag = gx.abs() + gy.abs()
+    # the sector from a float64 atan2 of the float32 gradient: the card's
+    # and the CPU's float32 atan2 differ in the last place, which can move
+    # a pixel across a sector boundary; the reference's float32 sector
+    # differs from this one only within its rounding of a boundary
+    q = torch.atan2(gy.double(), gx.double()) / (math.pi / 4.0)
+    sec = torch.remainder(torch.round(q), 4.0).float()
+    pm = F.pad(mag, (1, 1, 1, 1))
+    nb = {0: (pm[:, 1:-1, 2:], pm[:, 1:-1, :-2]),      # E/W
+          1: (pm[:, 2:, 2:], pm[:, :-2, :-2]),         # SE/NW (y down)
+          2: (pm[:, 2:, 1:-1], pm[:, :-2, 1:-1]),      # S/N
+          3: (pm[:, 2:, :-2], pm[:, :-2, 2:])}         # SW/NE
+    keep = torch.zeros_like(mag, dtype=torch.bool)
+    for s_, (n1, n2) in nb.items():
+        keep = keep | ((sec == s_) & (mag >= n1) & (mag >= n2))
+    nms = torch.where(keep, mag, 0.0)
+    strong = nms > torch.maximum(lo, hi)[:, None, None]
+    weak = nms > torch.minimum(lo, hi)[:, None, None]
+    e = strong
+    for _ in range(int(hysteresis_iters)):
+        grown = F.max_pool2d(e[:, None].float(), 3, 1, 1)[:, 0] > 0.5
+        e = (weak & grown) | e
+    return e
+
+
+def canny(images: Tensor, alpha: Tensor, lo: Tensor, hi: Tensor,
+          col_t: Tensor, col_f: Tensor, sobel_k: int = 3,
+          hysteresis_iters: int = 16) -> Tensor:
+    """imgaug Canny: the edge map colourised with the per-image uniform
+    draws ``col_t`` (edges) and ``col_f`` (the rest), (B, 1, 1, 3) in
+    [0, 256), floored, alpha-blended over the image."""
+    edges = canny_edges(images, lo, hi, sobel_k, hysteresis_iters)
+    colorized = torch.where(edges[..., None], torch.floor(col_t),
+                            torch.floor(col_f))
+    a = alpha[:, None, None, None]
+    return a * colorized + (1.0 - a) * images
+
+
+def mean_shift_blur(images: Tensor, spatial_radius: Tensor,
+                    color_radius: Tensor, max_radius: int,
+                    iters: int = 5) -> Tensor:
+    """imgaug MeanShiftBlur: ``iters`` rounds, each replacing a pixel's
+    running colour with the mean of the original taps (edge border, a
+    flat window of the per-image radius, capped at ``max_radius``) whose
+    squared colour distance to it is ≤ sr²; a pixel no tap admits keeps
+    its colour.  Accumulated tap by tap (never a stack of the taps); the
+    distance sums the channels in order."""
+    b, h, w, c = images.shape
+    rr = int(max_radius)
+    if rr <= 0:
+        return images
+    radius = torch.floor(spatial_radius)[:, None, None]
+    sr2 = torch.square(torch.clamp(color_radius, min=1e-3))[:, None, None]
+    pad = _pad(_pad(images, 1, rr, "edge"), 2, rr, "edge")
+    state = images
+    for _ in range(max(1, int(iters))):
+        num = torch.zeros_like(images)
+        den = torch.zeros((b, h, w, 1), device=images.device)
+        for dy in range(-rr, rr + 1):
+            for dx in range(-rr, rr + 1):
+                tap = pad[:, rr + dy:rr + dy + h, rr + dx:rr + dx + w, :]
+                r2 = float(dy * dy + dx * dx)
+                in_win = math.sqrt(r2) <= radius + 1e-6          # (B,1,1)
+                sq = torch.square(tap - state)
+                d2 = sq[..., 0]
+                for ch in range(1, c):
+                    d2 = d2 + sq[..., ch]
+                wgt = (in_win & (d2 <= sr2)).float()[..., None]
+                num = num + wgt * tap
+                den = den + wgt
+        state = torch.where(den > 0.0, num / torch.clamp(den, min=1.0),
+                            state)
+    return state
+
+
+def cartoon(images: Tensor, blur_ksize: int, segmentation_size: Tensor,
+            saturation: Tensor, edge_prevalence: Tensor,
+            max_radius: int = 4) -> Tensor:
+    """imgaug Cartoon: median blur (static odd ``blur_ksize``) → mean
+    shift (spatial radius 4·segmentation_size capped at ``max_radius``,
+    colour radius 20·segmentation_size) → Canny edges of the flattened
+    image at (60, 120) / edge_prevalence → HSV saturation × saturation
+    (clipped) → edges stamped black."""
+    k = int(blur_ksize)
+    out = median_blur(images, ksize=k if k % 2 else k + 1) if k > 1 \
+        else images
+    seg_sz = torch.clamp(segmentation_size, min=1e-3)
+    sp = torch.clamp(4.0 * seg_sz, max=float(max_radius))
+    out = mean_shift_blur(out, sp, 20.0 * seg_sz, max_radius=max_radius)
+    prev = torch.clamp(edge_prevalence, min=1e-3)
+    edges = canny_edges(out, 60.0 / prev, 120.0 / prev)
+    h, s, v = rgb_to_hsv(out)
+    s = torch.clamp(s * saturation[:, None, None], 0.0, 255.0)
+    out = hsv_to_rgb(h, s, v)
+    return torch.where(edges[..., None], 0.0, out)

@@ -152,10 +152,10 @@ def test_sample_draws_distributions():
 
 
 @pytest.mark.parametrize("spec,match", [
-    ({"Sharpen": {"alpha": 0.5}}, "Sharpen"),
-    ({"GaussianBlur": {"sigma": 1.0}}, "GaussianBlur"),
+    ({"Clouds": {"coverage": 0.5}}, "Clouds"),
+    ({"Fog": {"density": 0.2}}, "Fog"),
     ({"WithChannels": {"channels": [0], "children": [
-        {"GaussianBlur": 1.0}]}}, "GaussianBlur"),
+        {"Fog": None}]}}, "Fog"),
 ], ids=["spec0-Sharpen", "spec1-Add", "spec2-Sometimes"])
 def test_unported_configs_raise_at_build(spec, match):
     with pytest.raises(NotImplementedError, match=match):

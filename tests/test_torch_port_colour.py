@@ -362,7 +362,8 @@ LOWERING_REFUSALS = {
         {"WithHueAndSaturation": {"children": {"Grayscale": 1.0}}},
         "assumes an RGB image, but WithHueAndSaturation children see 2"),
     "withbrightnesschannels-rgb-only-unported": (
-        {"WithBrightnessChannels": {"children": {"Canny": None}}},
+        {"WithBrightnessChannels": {"children": {
+            "FastSnowyLandscape": None}}},
         "assumes an RGB image, but WithBrightnessChannels children see 1"),
     "withcolorspace-lab": (
         {"WithColorspace": {"to_colorspace": "Lab", "children": {"Add": 5}}},
@@ -383,7 +384,7 @@ LOWERING_REFUSALS = {
 def test_lowering_refusals_match_jax(spec, match):
     """The reference raises when its block is built or traced, the port
     when it is built: the same ValueError, before the port's own refusal
-    of a child not yet ported (Canny, Jigsaw, BlendAlpha)."""
+    of a child not yet ported (FastSnowyLandscape, Jigsaw, BlendAlpha)."""
     imgs, masks = colour_batch(1, 16, 16)
     with pytest.raises(ValueError, match=match) as j:
         JL.build_augmentation(JL._coerce_block(spec))(
@@ -440,9 +441,9 @@ def test_unported_scoped_child_is_refused_after_the_reference_checks():
     ported yet parses in the reference and fails the port's parse with
     its pointed error."""
     block = {"WithChannels": {"channels": [0], "children": {
-        "GaussianBlur": 1.0}}}
+        "Fog": None}}}
     JC.parse_dict({"augmentation": block})
     with pytest.raises(NotImplementedError, match="not yet ported"):
         TC.parse_dict({"augmentation": block})
-    with pytest.raises(NotImplementedError, match="GaussianBlur"):
+    with pytest.raises(NotImplementedError, match="Fog"):
         TL.build_augmentation(block)

@@ -542,6 +542,26 @@ PHOTO_ON_CARD = {
     "withcolorspace": {"WithColorspace": {"to_colorspace": "HSV",
                                           "children": [{"Multiply": [0.7,
                                                                      1.3]}]}},
+    # the filters (their convolutions under PyTorch's default cuDNN TF32:
+    # each turns it off for itself); JpegCompression pads 72×100 to 80×112
+    "averageblur": {"AverageBlur": [1, 7]},
+    "gaussianblur": {"GaussianBlur": [0.0, 3.0]},
+    "sharpen": {"Sharpen": {"alpha": [0, 1], "lightness": [0.75, 1.5]}},
+    "emboss": {"Emboss": [0, 1]},
+    "edgedetect": {"EdgeDetect": [0, 0.75]},
+    "directededgedetect": {"DirectedEdgeDetect": None},
+    "motionblur": {"MotionBlur": {"k": [3, 9], "angle": [0, 360]}},
+    "averagepooling": {"AveragePooling": 3},
+    "maxpooling": {"MaxPooling": 2},
+    "minpooling": {"MinPooling": 3},
+    "medianpooling": {"MedianPooling": 3},
+    "medianblur": {"MedianBlur": None},
+    "medianblur-k7": {"MedianBlur": 7},
+    "bilateralblur": {"BilateralBlur": {"d": [3, 11]}},
+    "jpegcompression": {"JpegCompression": [0, 100]},
+    "canny": {"Canny": {"alpha": [0.5, 1.0], "sobel_kernel_size": 5}},
+    "meanshiftblur": {"MeanShiftBlur": None},
+    "cartoon": {"Cartoon": {"blur_ksize": 5}},
 }
 
 
@@ -610,3 +630,39 @@ def test_sugar_and_combinators_on_card(card, spec, launches):
     assert K.launch_counts() == {n: launches.get(n, 0) for n in K.KERNELS}
     assert float((gi.cpu() - ci).abs().max()) <= 0.05
     assert float((gm.cpu() != cm).float().mean()) <= 1e-3
+
+
+def test_filters_turn_tf32_off_for_their_convolutions(card):
+    """With cuDNN's TF32 on (PyTorch's default on the card), GaussianBlur
+    and MotionBlur of 0..255 values stay within 1e-3 of the CPU, while a
+    convolution of the same planes run directly under TF32 is off by
+    more than that bar (by 6.4e-3 on an H100: the check sees TF32);
+    ``fast_warp._exact_f32`` turns it off inside and gives the caller's
+    setting back."""
+    import torch.nn.functional as F
+
+    from segmentation_training_pipeline_tpu_torch.ops.aug import (
+        fast_warp as MP, photometric as TP)
+
+    torch.backends.cudnn.allow_tf32 = True
+    imgs, _ = _batch(2, 64, 80, 6)
+    x = imgs.float()
+    sigma, k = torch.tensor([2.0, 3.0]), torch.tensor([7.0, 9.0])
+    angle = torch.tensor([30.0, 100.0])
+    for fn in (lambda t, d: TP.gaussian_blur(t, sigma.to(d), 8),
+               lambda t, d: TP.motion_blur(t, k.to(d), angle.to(d), 4)):
+        want = fn(x, "cpu")
+        got = fn(x.to(card), card)
+        assert float((got.cpu() - want).abs().max()) <= 1e-3
+        assert torch.backends.cudnn.allow_tf32
+    planes = TP._planes(x)                           # (1, 6, 64, 80)
+    weight = torch.rand(16, planes.shape[1], 9, 9,
+                        generator=torch.Generator().manual_seed(0)) / 243.0
+    plain = F.conv2d(planes, weight)
+    tf32 = F.conv2d(planes.to(card), weight.to(card))
+    assert float((tf32.cpu() - plain).abs().max()) > 1e-3
+    with MP._exact_f32(card):
+        assert not torch.backends.cudnn.allow_tf32
+        exact = F.conv2d(planes.to(card), weight.to(card))
+    assert torch.backends.cudnn.allow_tf32
+    assert float((exact.cpu() - plain).abs().max()) <= 1e-3

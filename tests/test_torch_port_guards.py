@@ -48,7 +48,8 @@ PKG = ROOT / "segmentation_training_pipeline_tpu_torch"
 SOURCES = sorted(PKG.rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "compare_kernels.py",
     ROOT / "examples" / "accuracy_evidence_torch.py",
-    ROOT / "examples" / "accuracy_gap_torch.py"]
+    ROOT / "examples" / "accuracy_gap_torch.py",
+    ROOT / "examples" / "photo_block_ab.py"]
 PORT_MODULES = sorted(
     ".".join(p.relative_to(ROOT).with_suffix("").parts).replace(
         ".__init__", "") for p in PKG.rglob("*.py"))
@@ -176,7 +177,7 @@ def test_config_parses_the_fpn_example():
     ({"backbone": "vgg16", "augmentation": {"Superpixels":
                                             {"p_replace": 0.5}}},
      NotImplementedError, "augmenter 'Superpixels' is not yet ported"),
-    ({"augmentation": {"GaussianBlur": {"sigma": 1}}}, NotImplementedError,
+    ({"augmentation": {"Fog": {"density": 0.2}}}, NotImplementedError,
      "not yet ported"),
     ({"augmentation": {"Fliplrr": 0.5}}, TC.ConfigError, "Did you mean"),
     ({"augmentation": {"Affine": {"rotat": 10}}}, TC.ConfigError,
@@ -354,6 +355,16 @@ VALUE_CHECKS = {
     "colorspace-lab": {"ChangeColorspace": {"to_colorspace": "Lab"}},
     "colorspace-list": {"ChangeColorspace": {"to_colorspace": ["HSV",
                                                                "HLS"]}},
+    "canny-sobel-4": {"Canny": {"sobel_kernel_size": 4}},
+    "canny-sobel-true": {"Canny": {"alpha": 0.5, "sobel_kernel_size": True}},
+    "canny-iters-0": {"Canny": {"hysteresis_iters": 0}},
+    "canny-iters-float": {"Canny": {"hysteresis_iters": 2.5}},
+    "cartoon-blur-0": {"Cartoon": {"blur_ksize": 0}},
+    "cartoon-blur-float": {"Cartoon": {"blur_ksize": 3.0}},
+    "averagepooling-keep-size": {"AveragePooling": {"k": 2,
+                                                    "keep_size": False}},
+    "child-canny": {"OneOf": [{"Add": 3}, {"Canny": {
+        "sobel_kernel_size": 9}}]},
 }
 
 
@@ -434,8 +445,12 @@ def test_slice_schemas_match_the_jax_schemas():
         allchannelshistogramequalization clahe allchannelsclahe
         withchannels withhueandsaturation withbrightnesschannels
         withcolorspace""".split())
+    filter_names = set("""averageblur gaussianblur sharpen emboss
+        edgedetect directededgedetect motionblur averagepooling maxpooling
+        minpooling medianpooling medianblur bilateralblur jpegcompression
+        canny meanshiftblur cartoon""".split())
     assert TL.PORTED_AUGMENTERS - TL._GEOMETRIC == (
-        slice_names | colour_names | {"multiply"})
+        slice_names | colour_names | filter_names | {"multiply"})
 
 
 def test_package_root_matches_jax():

@@ -236,10 +236,10 @@ def test_combinator_refusals_match_jax(block, exc, match):
 
 
 @pytest.mark.parametrize("block", [
-    [{"Sometimes": {"p": 0.5, "then": [{"GaussianBlur": 1.0}]}}],
-    [{"OneOf": [{"Add": 5}, {"AverageBlur": 3}]}],
+    [{"Sometimes": {"p": 0.5, "then": [{"Fog": None}]}}],
+    [{"OneOf": [{"Add": 5}, {"Clouds": None}]}],
     [{"SomeOf": {"n": 1, "children": [{"WithChannels": {
-        "channels": [0], "children": [{"GaussianBlur": 1.0}]}}]}}],
+        "channels": [0], "children": [{"Fog": None}]}}]}}],
 ], ids=["sometimes", "oneof", "someof"])
 def test_unported_children_fail_at_parse(block):
     """A child name the JAX package lowers and this package has not

@@ -269,9 +269,86 @@ def _jax_photo_draw(seg, k, b, h, w, c):
     if name in ("clahe", "allchannelsclahe"):
         return {"clip_limit": JL._sample(k, JL._bare(a, "clip_limit").get(
             "clip_limit", [1, 10]), b, 40.0)}
+    if name == "averageblur":
+        return {"k": JL._sample(k, JL._bare(a, "k").get("k", [1, 7]), b,
+                                3.0)}
+    if name == "gaussianblur":
+        return {"sigma": JL._sample(k, JL._bare(a, "sigma").get(
+            "sigma", [0.0, 3.0]), b, 0.0)}
+    if name in ("sharpen", "emboss"):
+        key, spec = (("lightness", [0.75, 1.5]) if name == "sharpen"
+                     else ("strength", [0.5, 1.5]))
+        aa = a or {}
+        k1, k2 = split(k)
+        return {"alpha": JL._sample(k1, aa.get("alpha", [0.0, 1.0])
+                                    if isinstance(aa, dict) else aa, b),
+                key: JL._sample(k2, aa.get(key, spec)
+                                if isinstance(aa, dict) else spec, b)}
+    if name == "edgedetect":
+        return {"alpha": JL._sample(k, JL._bare(a, "alpha").get(
+            "alpha", [0.0, 0.75]), b)}
+    if name == "directededgedetect":
+        aa = JL._bare(a, "alpha")
+        k1, k2 = split(k)
+        return {"alpha": JL._sample(k1, aa.get("alpha", [0.0, 0.75]), b),
+                "direction": JL._sample(k2, aa.get("direction", [0.0, 1.0]),
+                                        b)}
+    if name == "motionblur":
+        aa = JL._bare(a, "k")
+        k1, k2 = split(k)
+        return {"k": JL._sample(k1, aa.get("k", 5), b, 5.0),
+                "angle": JL._sample(k2, aa.get("angle", [0, 360]), b)}
+    if name == "bilateralblur":
+        aa = JL._bare(a, "d")
+        k1, k2, k3 = split(k, 3)
+        return {"d": JL._sample(k1, aa.get("d", 3), b, 3.0),
+                "sigma_color": JL._sample(k2, aa.get("sigma_color",
+                                                     [10, 250]), b, 75.0),
+                "sigma_space": JL._sample(k3, aa.get("sigma_space",
+                                                     [10, 250]), b, 75.0)}
+    if name == "jpegcompression":
+        return {"compression": JL._sample(k, JL._bare(a, "compression").get(
+            "compression", [0, 100]), b, 50.0)}
+    if name == "canny":
+        # the branch splits k four ways; canny splits k4 for the colours
+        aa = JL._bare(a, "alpha")
+        ht = aa.get("hysteresis_thresholds")
+        if ht is None:
+            lo_spec, hi_spec = [60, 140], [160, 240]
+        elif (isinstance(ht, (list, tuple)) and len(ht) == 2
+              and all(isinstance(e, (list, tuple)) for e in ht)):
+            lo_spec, hi_spec = ht
+        else:
+            lo_spec = hi_spec = ht
+        k1, k2, k3, k4 = split(k, 4)
+        kt, kf = split(k4)
+        return {"alpha": JL._sample(k1, aa.get("alpha", [0.0, 1.0]), b),
+                "lo": JL._sample(k2, lo_spec, b),
+                "hi": JL._sample(k3, hi_spec, b),
+                "col_t": uniform(kt, (b, 1, 1, 3), minval=0.0, maxval=256.0),
+                "col_f": uniform(kf, (b, 1, 1, 3), minval=0.0,
+                                 maxval=256.0)}
+    if name == "cartoon":
+        aa = a if isinstance(a, dict) else {}
+        k1, k2, k3 = split(k, 3)
+        return {"segmentation_size": JL._sample(
+                    k1, aa.get("segmentation_size", [0.8, 1.2]), b, 1.0),
+                "saturation": JL._sample(k2, aa.get("saturation",
+                                                    [1.5, 2.5]), b, 2.0),
+                "edge_prevalence": JL._sample(
+                    k3, aa.get("edge_prevalence", [0.9, 1.1]), b, 1.0)}
+    if name == "meanshiftblur":
+        aa = JL._bare(a, "spatial_radius")
+        k1, k2 = split(k)
+        return {"spatial_radius": JL._sample(
+                    k1, aa.get("spatial_radius", [5.0, 40.0]), b, 5.0),
+                "color_radius": JL._sample(
+                    k2, aa.get("color_radius", [5.0, 40.0]), b, 10.0)}
     assert name in ("noop", "identity", "resize", "scale", "autocontrast",
                     "auto_contrast", "histogramequalization",
-                    "allchannelshistogramequalization"), name
+                    "allchannelshistogramequalization", "averagepooling",
+                    "maxpooling", "minpooling", "medianpooling",
+                    "medianblur"), name
     return {}
 
 
