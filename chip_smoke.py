@@ -137,27 +137,44 @@ line with its seconds; any failure raises and the script exits non-zero:
      at radius 5): its launches, each launch held bit for bit, the
      block's ms and peak memory above its inputs, and the card against
      the CPU on the same draws, TF32 at its default (``CPU_HEAD``'s tap
-     loops on the first 4 images of the timed B16 output);
+     loops and the segment quantisers on the first 4 images of the timed
+     B16 output); the weather names, the quantisers, Jigsaw and the
+     blends with the four aliases (a blend with a Rotate child
+     reaching X and Y), the quantisers held to a share of values off by
+     more than half a gray level (``SEGMENT_SHARE``: a near-tie argmin
+     recolours a pixel and moves its cells' means);
   12f. train_filter: ``train``'s model, loss, optimizer and batch under
      ``FILTER_BLOCK`` (Affine, ElasticTransformation, a OneOf of
      GaussianBlur, MotionBlur, MedianBlur, Sharpen and JpegCompression):
      X, Y and elastic once a step, each held bit for bit on the first
      step's arguments; each segment in f32 on the card against the CPU,
      the block's ms, a falling loss, img/s and peak memory;
+  12f2. train_kitchen: ``examples/kitchen_sink.yaml`` as the port parses
+     it, unchanged (FPN-seresnext50 384² B32, 4-class softmax, ``remat``,
+     the encoder frozen as its first stage freezes it, its composite loss
+     with class weights, AdamW with weight decay and clipnorm, its
+     ``transforms:`` and its whole augmentation block) on synthetic
+     4-class data for ``KITCHEN_STEPS`` steps: a finite, falling loss, the
+     block's ms (CUDA events, median of 10), img/s, peak memory, the
+     geometric run's route and the block's launches, and each segment
+     of the block on the card against the CPU in f32 on the same draws,
+     on the first 4 images, TF32 at its default;
   12g. accuracy: ``examples/accuracy_evidence_torch.py`` config 1 cut to
      64 images and 2 epochs through its ``main``: the evaluate dict,
      finite and in [0, 1], no kernel launch, the fit's and evaluate's
      seconds;
   13. the ``kernels`` summary line (``launches`` from ``train``, beside
-     them ``launches_train_photo`` and ``launches_train_filter``), then
+     them ``launches_train_photo``, ``launches_train_filter`` and
+     ``launches_train_kitchen``), then
      the last line
      ``{"ok": true, "device": {...}}``.
 
 ``--profile FILE`` profiles three more steps of each train phase and
 three more ``predict_probs`` calls of the serve phase (``FILE`` for Unet,
 ``FILE`` with ``_fpn``, ``_deeplab``, ``_psp``, ``_serve``, ``_photo``,
-``_filter`` or ``_pretrained`` before its suffix for FPN, DeepLab, PSPNet,
-serve, ``train_photo``, ``train_filter`` and the pretrained phase, whose
+``_filter``, ``_kitchen`` or ``_pretrained`` before its suffix for FPN,
+DeepLab, PSPNet, serve, ``train_photo``, ``train_filter``,
+``train_kitchen`` and the pretrained phase, whose
 three steps are profiled
 in every run), and traces epoch 1 of each fit stage (the fits' own
 ``profile:``) for its device busy time.
@@ -449,12 +466,78 @@ PHOTO_CASES = [
     ("canny", {"Canny": None}),
     ("meanshiftblur_r5", {"MeanShiftBlur": None}),
     ("cartoon", {"Cartoon": None}),
+    # weather, the quantisers and Jigsaw; the Voronoi names at
+    # their default capacities (UniformVoronoi 500 seeds, RegularGrid
+    # 30 × 30: four and eight chunks of 128)
+    ("clouds", {"Clouds": [0.2, 0.6]}),
+    ("fog", {"Fog": [0.1, 0.4]}),
+    ("snowflakes", {"Snowflakes": {"density": [0.005, 0.05],
+                                   "speed": [0.007, 0.03]}}),
+    ("rain", {"Rain": None}),
+    ("fastsnowylandscape", {"FastSnowyLandscape": None}),
+    ("uniformcolorquantization", {"UniformColorQuantization": [2, 16]}),
+    ("superpixels", {"Superpixels": {"p_replace": [0.5, 1.0],
+                                     "n_segments": [60, 120]}}),
+    ("uniformvoronoi", {"UniformVoronoi": None}),
+    ("regulargridvoronoi", {"RegularGridVoronoi": None}),
+    ("relativeregulargridvoronoi", {"RelativeRegularGridVoronoi": None}),
+    ("kmeanscolorquantization", {"KMeansColorQuantization": None}),
+    ("jigsaw", {"Jigsaw": None}),
+    # the blends and their four aliases (photometric children: the masks
+    # stay; BlendAlpha's per-image factor routes a Rotate child's masks)
+    ("blendalpha", {"BlendAlpha": {
+        "factor": [0, 1], "per_channel": True, "foreground": {"Add": 40},
+        "background": {"Multiply": 0.8}}}),
+    ("blendalpha_rotate", {"BlendAlpha": {
+        "factor": [0, 1], "foreground": {"Rotate": [-15, 15]}}}),
+    ("alpha", {"Alpha": {"foreground": {"Add": -40}}}),
+    ("blendalphaelementwise", {"BlendAlphaElementwise": {
+        "foreground": {"Add": 40}}}),
+    ("alphaelementwise", {"AlphaElementwise": {"foreground": {"Add": 40}}}),
+    ("blendalphaverticallineargradient", {
+        "BlendAlphaVerticalLinearGradient": {"foreground": {"Add": 40}}}),
+    ("blendalphahorizontallineargradient", {
+        "BlendAlphaHorizontalLinearGradient": {"foreground": {"Add": 40}}}),
+    ("blendalpharegulargrid", {"BlendAlphaRegularGrid": {
+        "foreground": {"Add": 40}}}),
+    ("blendalphacheckerboard", {"BlendAlphaCheckerboard": {
+        "foreground": {"Add": 40}}}),
+    ("blendalphasimplexnoise", {"BlendAlphaSimplexNoise": {
+        "foreground": {"Add": 40}}}),
+    ("simplexnoisealpha", {"SimplexNoiseAlpha": {
+        "foreground": {"Add": 40}}}),
+    ("blendalphafrequencynoise", {"BlendAlphaFrequencyNoise": {
+        "foreground": {"Add": 40}}}),
+    ("frequencynoisealpha", {"FrequencyNoiseAlpha": {
+        "foreground": {"Add": 40}}}),
+    ("blendalphasomecolors", {"BlendAlphaSomeColors": {
+        "foreground": {"MultiplySaturation": [1.2, 1.8]}}}),
+    ("blendalphasegmapclassids", {"BlendAlphaSegMapClassIds": {
+        "class_ids": [1], "foreground": {"AdditiveGaussianNoise": [0, 8]}}}),
 ]
 # cases whose timed B16 output is held to the CPU on its first CPU_IMAGES
 # images (same draws): the tap loops take tens of seconds for B16 512² on
 # the host
-CPU_HEAD = {"bilateralblur_r5", "meanshiftblur_r5", "cartoon"}
+CPU_HEAD = {"bilateralblur_r5", "meanshiftblur_r5", "cartoon",
+            "superpixels", "uniformvoronoi", "regulargridvoronoi",
+            "relativeregulargridvoronoi", "kmeanscolorquantization"}
 CPU_IMAGES = 4
+# the segment quantisers assign pixels by an argmin of float32 distances
+# (cuBLAS's and the CPU's products, and the downscale's, sum in other
+# orders): a near tie can fall the other way and recolour a pixel, and it
+# moves its cells' means, over Superpixels' and k-means' rounds other
+# cells' too, by a fraction of a gray level, every pixel of those cells
+# with them (on the CPU alone, 1e-4 of noise on the input moves 8% and
+# 12% of their values by more than 1e-3, 0.08% and 0.01% by more than
+# 0.5).  A segment holding one is held to a share of image values off
+# by more than half a gray level
+SEGMENT_NAMES = {"superpixels", "uniformvoronoi", "regulargridvoronoi",
+                 "relativeregulargridvoronoi", "kmeanscolorquantization"}
+SEGMENT_ATOL = 0.5
+SEGMENT_SHARE = 1e-2
+# the train_kitchen phase: examples/kitchen_sink.yaml, unchanged
+KITCHEN_YAML = "examples/kitchen_sink.yaml"
+KITCHEN_STEPS = 5
 # the train_filter block: Affine and ElasticTransformation (kernels X, Y
 # and elastic, one warp) and a OneOf of filters
 FILTER_BLOCK = [
@@ -955,26 +1038,29 @@ def phase_warp_paths(aug, imgs, masks, draws) -> dict:
 
 def phase_train(name: str, cfg, imgs, masks, steps: int, seed: int,
                 expect: dict, profile: str = "", hold: tuple = (),
-                model=None, **extra) -> dict:
+                model=None, transform=None, freeze_encoder: bool = False,
+                **extra) -> dict:
     """``steps`` train steps of ``cfg``'s model (``remat`` included; or
     ``model``, already on the card), loss (with its class weights),
-    optimizer, lr and augmentation on the fixed batch; the launch counts
-    of the run must be ``expect`` times ``steps`` (every other kernel 0).
-    The kernels in ``hold`` are held bit for bit against their plain
-    versions on the arguments the first step gave them, after the counts
-    are read.  ``extra`` goes into the emitted line."""
+    optimizer (the encoder frozen with ``freeze_encoder``), lr, its
+    ``transform`` (``transforms:``) and augmentation on the fixed batch;
+    the launch counts of the run must be ``expect`` times ``steps``
+    (every other kernel 0), and the loss finite and falling.  The
+    kernels in ``hold`` are held bit for bit against their
+    plain versions on the arguments the first step gave them, after the
+    counts are read.  ``extra`` goes into the emitted line."""
     dev = imgs.device
     if model is None:
         model = MF.init_model(MF.create_model(
             cfg.architecture, cfg.backbone, cfg.classes, dtype=cfg.dtype,
             remat=cfg.remat), seed, dev)
-    tx = OP.build_optimizer(cfg)
+    tx = OP.build_optimizer(cfg, freeze_encoder=freeze_encoder)
     state = ST.create_train_state(model, tx, dev)
     step = ST.build_train_step(
         model, tx, LO.build_loss(cfg.loss, cfg.activation, cfg.class_weights),
         {m: ME.get(m) for m in cfg.metrics}, cfg.activation, None,
         aug=(LW.build_augmentation(cfg.augmentation) if cfg.augmentation
-             else None))
+             else None), transform=transform)
     batch = {"image": imgs, "mask": masks}
     gen = torch.Generator(device=dev).manual_seed(seed + 2)
     torch.cuda.reset_peak_memory_stats()
@@ -1818,7 +1904,7 @@ def _warps(seg, h: int, w: int) -> bool:
     or one in a combinator's child)."""
     runs = ([seg] if isinstance(seg, LW._GeoRun) else
             [r for ch in seg.children for r in ch.geo_runs()]
-            if isinstance(seg, LW._Meta) else [])
+            if isinstance(seg, (LW._Meta, LW._Blend)) else [])
     return any(r.route(h, w) != "flips" for r in runs)
 
 
@@ -1845,17 +1931,31 @@ def cpu_geometry(shift: float = 0.0):
         LW._GeoRun.geometry = original
 
 
-def _head(draws, n: int):
-    """``draws`` with every per-image tensor cut to its first ``n``
-    images."""
+def _head(draws, n: int, batch: int = BATCH):
+    """``draws`` with every per-image tensor (batch first) cut to its
+    first ``n`` images."""
     if isinstance(draws, dict):
-        return {k: _head(v, n) for k, v in draws.items()}
+        return {k: _head(v, n, batch) for k, v in draws.items()}
     if isinstance(draws, (list, tuple)):
-        return [_head(v, n) for v in draws]
+        return [_head(v, n, batch) for v in draws]
     if isinstance(draws, torch.Tensor) and draws.dim() and \
-            draws.shape[0] == BATCH:
+            draws.shape[0] == batch:
         return draws[:n]
     return draws
+
+
+def _names(seg) -> set:
+    """The augmenter names a segment runs, its children's included."""
+    if isinstance(seg, LW._GeoRun):
+        return set(seg.names)
+    kids = ([seg.child] if isinstance(seg, LW._Scope)
+            and seg.name == "withchannels" else
+            getattr(seg, "children", []))
+    out = {seg.name}
+    for ch in kids:
+        out |= (set().union(*map(_names, ch.segments))
+                if isinstance(ch, LW.Augmentation) else _names(ch))
+    return out
 
 
 def _vs(gi, gm, ci, cm) -> tuple:
@@ -1891,6 +1991,14 @@ def _segments_vs_cpu(aug, draws, imgs, masks, card=None) -> list:
                    cpu_max_err=err, cpu_mask_mismatch=mis)
         ok = mis == 0.0 and err <= (REF_IMG_ATOL if warps
                                     else PHOTO_IMG_ATOL)
+        if _names(seg) & SEGMENT_NAMES:
+            diff = (gi.cpu() - ci).abs()
+            share = float((diff > SEGMENT_ATOL).float().mean())
+            row.update(cpu_off_share=share,
+                       cpu_off_share_1e3=float((diff > PHOTO_IMG_ATOL)
+                                               .float().mean()),
+                       off_atol=SEGMENT_ATOL, off_share_bound=SEGMENT_SHARE)
+            ok = mis == 0.0 and (warps or share <= SEGMENT_SHARE)
         if warps:
             with cpu_geometry():
                 same_err, same_mis = _vs(*seg.apply(gd, x, m), ci, cm)
@@ -2017,6 +2125,75 @@ def phase_train_filter(imgs, masks, seed: int, profile: str) -> dict:
     return out
 
 
+def kitchen_batch(cfg, seed: int):
+    """``cfg.batch`` synthetic 4-class items at ``cfg.shape`` on the card:
+    the 3-class shapes (background, ellipse, rectangle) with a square of
+    class 3 laid over each; uint8 images, one-hot float32 masks."""
+    h = cfg.shape[0]
+    ds = SY.generate_multiclass_shapes_dataset(cfg.batch, h, seed)
+    r = np.random.RandomState(seed)
+    imgs, masks = [], []
+    for i in range(len(ds)):
+        x, y = ds[i].x.copy(), ds[i].y.copy()
+        side = int(r.randint(h // 8, h // 4))
+        top, left = (int(v) for v in r.randint(0, h - side, 2))
+        x[top:top + side, left:left + side] = r.randint(0, 256, 3)
+        y[top:top + side, left:left + side] = 3
+        imgs.append(x)
+        masks.append(BA.prepare_mask(y, cfg.shape, cfg.classes,
+                                     cfg.activation))
+    return (torch.from_numpy(np.stack(imgs)).cuda(),
+            torch.from_numpy(np.stack(masks)).cuda())
+
+
+def phase_train_kitchen(seed: int, profile: str) -> dict:
+    """``examples/kitchen_sink.yaml`` as the port parses it, unchanged:
+    FPN-seresnext50 384² B32 with remat, 4-class softmax, its loss with
+    class weights, AdamW, the encoder frozen (its first stage), its
+    ``transforms:`` (Grayscale) and its whole block on synthetic 4-class
+    data; the block once on the transformed batch (its ms, CUDA events,
+    median of 10; the geometric run's route and launches; each segment
+    on the card against the CPU on the first 4 images), then
+    ``KITCHEN_STEPS`` train steps: a finite, falling loss, img/s, peak
+    memory."""
+    cfg = CF.parse(KITCHEN_YAML)
+    check((cfg.architecture, cfg.backbone, cfg.shape, cfg.batch, cfg.classes,
+           cfg.activation, cfg.remat, cfg.freeze_encoder, cfg.optimizer)
+          == ("FPN", "seresnext50", (384, 384, 3), 32, 4, "softmax", True,
+              True, "AdamW"), ("kitchen sink config", cfg.to_dict()))
+    h, w = cfg.shape[:2]
+    imgs, masks = kitchen_batch(cfg, seed + 8)
+    aug, transform = LW.build_transform_fn(cfg.transforms, cfg.augmentation)
+    ti, tm = transform(imgs, masks)
+    draws = aug.sample(torch.Generator().manual_seed(seed + 9), cfg.batch, h,
+                       w)
+    gd = _to(draws, "cuda")
+    K.reset_launches()
+    out_i, out_m = aug.apply(gd, ti, tm)
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    _check_augmented(out_i, out_m, "train_kitchen block")
+    per_block = block_launches(aug, h, w)
+    check(launches == per_block, ("train_kitchen block launches", launches,
+                                  per_block))
+    block_ms = cuda_ms(lambda: aug.apply(gd, ti, tm), 10)
+    segments = _segments_vs_cpu(
+        aug, _head(draws, CPU_IMAGES, cfg.batch), ti[:CPU_IMAGES].cpu(),
+        tm[:CPU_IMAGES].cpu())
+    model = MF.init_model(MF.model_from_config(cfg), seed, imgs.device)
+    out = phase_train("train_kitchen", cfg, imgs, masks, KITCHEN_STEPS, seed,
+                      per_block, profile, model=model, transform=transform,
+                      freeze_encoder=cfg.freeze_encoder,
+                      config=KITCHEN_YAML, block_ms=block_ms,
+                      routes=[r.route(h, w) for r in aug.geo_runs()],
+                      block_launches={n: v for n, v in launches.items()
+                                      if v},
+                      segments_vs_cpu=segments)
+    check(all(r["ok"] for r in segments),
+          ("train_kitchen segments card vs CPU", segments))
+    return out
+
+
 ACCURACY_SCRIPT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                "examples", "accuracy_evidence_torch.py")
 
@@ -2121,6 +2298,8 @@ def main(argv=None) -> int:
     timed("photo_paths", phase_photo_paths, SEED)
     filt = timed("train_filter", phase_train_filter, imgs, masks, SEED,
                  _profile_path(a.profile, "filter"))
+    kitchen = timed("train_kitchen", phase_train_kitchen, SEED,
+                    _profile_path(a.profile, "kitchen"))
     timed("accuracy", phase_accuracy, SEED)
     # launches on each kernel's main path: X, Y and elastic in the Unet
     # step, YE in the FPN step, the shear in the unfused warp path
@@ -2130,6 +2309,7 @@ def main(argv=None) -> int:
         row["launches"] = launches[name]
         row["launches_train_photo"] = photo["launches"][name]
         row["launches_train_filter"] = filt["launches"][name]
+        row["launches_train_kitchen"] = kitchen["launches"][name]
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}),

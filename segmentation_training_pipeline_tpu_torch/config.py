@@ -3,9 +3,8 @@
 Counterpart of ``segmentation_training_pipeline_tpu/config.py``
 (``PipelineConfig``, ``parse``, ``parse_dict``): the same YAML keys, the
 same per-stage overrides, and unknown keys or names error out with a
-suggestion.  Every architecture and backbone of the reference is ported;
-an augmenter it knows that this package has not ported yet raises
-``NotImplementedError`` saying so.  ``fit`` trains folds × stages
+suggestion.  Every architecture, backbone and augmenter of the reference
+is ported.  ``fit`` trains folds × stages
 (``train/stage.py``); ``load`` and the predict/evaluate methods serve
 checkpoints from ``weights/`` (``infer.py``).  Each of them runs on the
 card unless ``device`` names another.
@@ -25,7 +24,7 @@ from .models.encoders import ENCODERS as _ENCODERS
 from .ops import losses as _losses
 from .ops import metrics as _metrics
 from .ops.aug.arg_schema import validate_args
-from .ops.aug.lowering import PORTED_AUGMENTERS, check_scope_children
+from .ops.aug.lowering import _BLEND, check_scope_children
 from .utils.registry import Registry
 
 ARCHITECTURES = Registry("architecture")
@@ -201,15 +200,13 @@ _KNOWN_UNSUPPORTED_AUGMENTERS = frozenset({
 _UNSUPPORTED_AUG_PREFIXES = ("pillike", "imgcorruptlike")
 
 
-def _normalize_augmentation(spec, check_ported: bool = True
-                            ) -> List[Dict[str, Any]]:
+def _normalize_augmentation(spec) -> List[Dict[str, Any]]:
     """``{Fliplr: 0.5, Affine: {...}}`` → [{"name", "args"}], names and
-    argument keys validated; the combinators' child blocks are validated
-    and normalised recursively, as the reference does, so a typo'd or
-    unported child name fails at parse.  A scope's children are held to
-    the reference's scope refusals (``lowering.check_scope_children``)
-    before a name not yet ported is refused (``check_ported=False`` defers
-    that refusal while they are normalised)."""
+    argument keys validated; the combinators' and blends' child blocks are
+    validated and normalised recursively, as the reference does, so a
+    typo'd child name fails at parse.  A scope's children are held to the
+    reference's scope refusals (``lowering.check_scope_children``), which
+    its lowering raises when the block is built."""
     if spec is None:
         return []
     items: List[Tuple[str, Any]] = []
@@ -239,8 +236,6 @@ def _normalize_augmentation(spec, check_ported: bool = True
             hint = AUGMENTERS.suggest(name)
             extra = f" Did you mean {hint!r}?" if hint else ""
             raise ConfigError(f"unknown augmenter {name!r}.{extra}")
-        if check_ported and name.lower() not in PORTED_AUGMENTERS:
-            raise _not_ported(f"augmenter {name!r}")
         try:
             validate_args(name, args)
         except ValueError as e:
@@ -253,11 +248,11 @@ def _normalize_augmentation(spec, check_ported: bool = True
             args = dict(args)
             child = (args.pop("then", None) or args.pop("then_list", None)
                      or args.pop("children", None))
-            args["then"] = _normalize_augmentation(child, check_ported)
+            args["then"] = _normalize_augmentation(child)
             els = (args.pop("else", None) or args.pop("else_list", None)
                    or args.pop("otherwise", None))
             if els is not None:
-                args["else"] = _normalize_augmentation(els, check_ported)
+                args["else"] = _normalize_augmentation(els)
             if not args["then"] and els is None:
                 raise ConfigError(
                     "Sometimes has neither a then: nor an else: child "
@@ -267,8 +262,7 @@ def _normalize_augmentation(spec, check_ported: bool = True
                 raise ConfigError(
                     f"OneOf expects a non-empty list of augmenters, got {args!r}")
             args = [_normalize_augmentation(e if isinstance(e, (dict, list))
-                                            else [e], check_ported)
-                    for e in args]
+                                            else [e]) for e in args]
         elif low == "someof":
             if not isinstance(args, dict) or "children" not in args:
                 raise ConfigError(
@@ -276,7 +270,7 @@ def _normalize_augmentation(spec, check_ported: bool = True
             args = dict(args)
             args["children"] = [
                 _normalize_augmentation(e if isinstance(e, (dict, list))
-                                        else [e], check_ported)
+                                        else [e])
                 for e in args["children"]]
         elif low == "withchannels":
             if not isinstance(args, dict) or "channels" not in args:
@@ -285,7 +279,7 @@ def _normalize_augmentation(spec, check_ported: bool = True
                     f"{{...}}}}, got {args!r}")
             args = dict(args)
             child = args.pop("children", None) or args.pop("then", None)
-            args["children"] = _scope_children(name, child, check_ported)
+            args["children"] = _scope_children(name, child)
         elif low in _COLOR_SCOPES:
             if not isinstance(args, dict):
                 raise ConfigError(
@@ -301,7 +295,23 @@ def _normalize_augmentation(spec, check_ported: bool = True
             child = args.pop("children", None) or args.pop("then", None)
             if not child:
                 raise ConfigError(f"{name} needs a children: block")
-            args["children"] = _scope_children(name, child, check_ported)
+            args["children"] = _scope_children(name, child)
+        elif low in _BLEND:
+            if not isinstance(args, dict):
+                raise ConfigError(
+                    f"{name} expects {{foreground: {{...}}, ...}}, got "
+                    f"{args!r}")
+            args = dict(args)
+            fg = args.pop("foreground", None) or args.pop("first", None)
+            bg = args.pop("background", None) or args.pop("second", None)
+            if fg is None and bg is None:
+                raise ConfigError(
+                    f"{name} needs a foreground (or background) child "
+                    "augmenter block")
+            if fg is not None:
+                args["foreground"] = _normalize_augmentation(fg)
+            if bg is not None:
+                args["background"] = _normalize_augmentation(bg)
         out.append({"name": name, "args": args})
     return out
 
@@ -310,17 +320,12 @@ _COLOR_SCOPES = ("withhueandsaturation", "withbrightnesschannels",
                  "withcolorspace")
 
 
-def _scope_children(scope: str, child, check_ported: bool):
-    """A scope's child block, normalised; the reference's refusals of its
-    children (a ``ValueError``, raised where the reference's lowering
-    raises it) come before the port's refusal of a name not yet
-    ported."""
-    children = _normalize_augmentation(child, check_ported=False)
+def _scope_children(scope: str, child):
+    """A scope's child block, normalised and held to the reference's
+    refusals of its children (a ``ValueError``, raised at parse where the
+    reference's lowering raises it)."""
+    children = _normalize_augmentation(child)
     check_scope_children(scope, children)
-    if check_ported:
-        for e in children:
-            if e["name"].lower() not in PORTED_AUGMENTERS:
-                raise _not_ported(f"augmenter {e['name']!r}")
     return children
 
 

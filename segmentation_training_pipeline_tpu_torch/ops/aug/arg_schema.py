@@ -1,7 +1,7 @@
 """Per-augmenter argument schemas, checked at parse time.
 
-Counterpart of ``segmentation_training_pipeline_tpu/ops/aug/arg_schema.py``
-for the augmenters ported so far.  The reference's config loader reflects
+Counterpart of ``segmentation_training_pipeline_tpu/ops/aug/arg_schema.py``.
+The reference's config loader reflects
 YAML dicts into real imgaug constructors, which raise on an unknown kwarg;
 this keeps that property, so a typo'd key errors at parse (with a
 suggestion) instead of lowering to a silent no-op.
@@ -212,6 +212,47 @@ _def("MedianPooling", {"k", "keep_size"})
 _def("BilateralBlur", {"d", "sigma_color", "sigma_space"})
 _def("JpegCompression", {"compression"})
 
+# --- weather, quantisation, the segment names and Jigsaw ----------------------
+_def("FastSnowyLandscape", {"lightness_threshold", "lightness_multiplier"},
+     {"from_colorspace": "runs on RGB directly here"})
+_def("Clouds", {"coverage"})
+_def("Fog", {"density"})
+_def("Snowflakes", {"density", "speed"},
+     {"flake_size": "flake geometry is fixed here — density/speed only",
+      "flake_size_uniformity": "flake geometry is fixed here",
+      "angle": "flake geometry is fixed here",
+      "density_uniformity": "flake geometry is fixed here"})
+_def("Rain", {"density", "speed"},
+     {"drop_size": "drop geometry is fixed here — density/speed only"})
+_def("UniformColorQuantization", {"n_colors"},
+     {"to_colorspace": "runs on RGB directly here",
+      "from_colorspace": "runs on RGB directly here",
+      "max_size": _STATIC_SHAPE,
+      "counts": "use `n_colors`"})
+_SEG_INTERP = ("the segment maps are computed at the max_size downscale "
+               "and nearest-upsampled; compositing is at full resolution "
+               "(see docs/schema.md) — remove it")
+_def("Superpixels", {"p_replace", "n_segments", "max_size"},
+     {"interpolation": _SEG_INTERP})
+_def("UniformVoronoi", {"n_points", "p_replace", "max_size"},
+     {"interpolation": _SEG_INTERP})
+_def("RegularGridVoronoi",
+     {"n_rows", "n_cols", "p_drop_points", "p_replace", "max_size"},
+     {"interpolation": _SEG_INTERP})
+_def("RelativeRegularGridVoronoi",
+     {"n_rows_frac", "n_cols_frac", "p_drop_points", "p_replace",
+      "max_size"},
+     {"interpolation": _SEG_INTERP})
+_def("Jigsaw", {"nb_rows", "nb_cols", "max_steps"},
+     {"allow_pad": "the image always pads bottom/right to a cell multiple "
+                   "and crops back (static shapes) — remove it"})
+_def("KMeansColorQuantization", {"n_colors", "max_size"},
+     {"to_colorspace": "clusters in RGB directly here",
+      "from_colorspace": "clusters in RGB directly here",
+      "counts": "use `n_colors`",
+      "interpolation": "the fitted palette is applied at full resolution "
+                       "here (no quantized-image resize) — remove it"})
+
 # --- choice combinators -----------------------------------------------------
 _def("Sometimes",
      {"p", "then", "then_list", "children", "else", "else_list",
@@ -234,10 +275,44 @@ _def("WithColorspace", {"to_colorspace", "children", "then"},
      {"from_colorspace": "runs on RGB directly here"})
 
 
+# --- the BlendAlpha family ---------------------------------------------------
+_BLEND_COMMON = {"foreground", "background", "first", "second",
+                 "per_channel"}
+_def("BlendAlpha", _BLEND_COMMON | {"factor", "alpha"}, aliases=("Alpha",))
+_def("BlendAlphaElementwise", _BLEND_COMMON | {"factor", "alpha"},
+     aliases=("AlphaElementwise",))
+_def("BlendAlphaVerticalLinearGradient",
+     _BLEND_COMMON | {"min_value", "max_value", "start_at", "end_at"})
+_def("BlendAlphaHorizontalLinearGradient",
+     _BLEND_COMMON | {"min_value", "max_value", "start_at", "end_at"})
+_def("BlendAlphaRegularGrid", _BLEND_COMMON | {"nb_rows", "nb_cols",
+                                               "alpha"})
+_def("BlendAlphaCheckerboard", _BLEND_COMMON | {"nb_rows", "nb_cols"})
+_NOISE_UNSUP = {
+    "upscale_method": "the noise octaves use fixed bilinear upsampling",
+    "size_px_max": "the noise octave sizes are fixed (2..16 px)",
+    "iterations": "the noise octave count is fixed (4)",
+}
+_def("BlendAlphaSimplexNoise", _BLEND_COMMON | {"sigmoid", "sigmoid_thresh"},
+     _NOISE_UNSUP, aliases=("SimplexNoiseAlpha",))
+_def("BlendAlphaFrequencyNoise",
+     _BLEND_COMMON | {"exponent", "sigmoid", "sigmoid_thresh"},
+     _NOISE_UNSUP, aliases=("FrequencyNoiseAlpha",))
+_def("BlendAlphaSomeColors",
+     _BLEND_COMMON | {"nb_bins", "smoothness", "alpha", "rotation_deg"},
+     {"from_colorspace": "hue is computed from the RGB input directly",
+      "to_colorspace": "hue is computed from the RGB input directly"})
+_def("BlendAlphaSegMapClassIds", _BLEND_COMMON | {"class_ids"},
+     {"nb_sample_classes": "the class-id set is static here — list the "
+                           "ids explicitly",
+      "segmentation_maps": "the pipeline's OWN training mask is the "
+                           "segmentation map (id 0 = background, i >= 1 = "
+                           "mask channel i-1)"})
+
+
 def _check_values(name: str, canon: str, args: Dict[str, Any]) -> None:
     """Value-shape checks for traps that would otherwise lower to
-    something silently different from imgaug (the reference's, for the
-    names ported so far)."""
+    something silently different from imgaug (the reference's)."""
     if not bool(args.get("keep_size", True)):
         raise ValueError(
             f"{name}: keep_size=false cannot lower — output shapes are "
@@ -285,6 +360,23 @@ def _check_values(name: str, canon: str, args: Dict[str, Any]) -> None:
                 raise ValueError(
                     f"{name}: {dk} must be a static positive integer "
                     f"(output shapes are static), got {dv!r}")
+    if canon == "jigsaw":
+        for dk in ("nb_rows", "nb_cols"):
+            dv = args.get(dk)
+            if dv is not None and (isinstance(dv, bool)
+                                   or not isinstance(dv, int) or dv < 1):
+                raise ValueError(
+                    f"{name}: {dk} must be a static integer >= 1 (the cell "
+                    "grid sets static reshape shapes; imgaug's sampled "
+                    f"grids can't lower), got {dv!r}")
+    if canon in ("superpixels", "uniformvoronoi", "regulargridvoronoi",
+                 "relativeregulargridvoronoi", "kmeanscolorquantization"):
+        ms = args.get("max_size", 128)
+        if ms is not None and (isinstance(ms, bool)
+                               or not isinstance(ms, int) or ms < 2):
+            raise ValueError(
+                f"{name}: max_size must be a static integer >= 2 or null "
+                f"(it sets a static compute shape), got {ms!r}")
     if canon == "canny":
         sk = args.get("sobel_kernel_size")
         if sk is not None and (isinstance(sk, bool) or sk not in (3, 5, 7)):
@@ -316,6 +408,15 @@ def _check_values(name: str, canon: str, args: Dict[str, Any]) -> None:
                 f"RGB/BGR/GRAY/HSV/HLS/YCrCb (got {cs!r}); imgaug's "
                 "per-image colorspace lists and Lab/Luv/CIE are not "
                 "lowered — see docs/schema.md")
+    if canon == "blendalphasegmapclassids":
+        ids = args.get("class_ids")
+        if ids is not None:
+            for i in (ids if isinstance(ids, (list, tuple)) else [ids]):
+                if isinstance(i, bool) or not isinstance(i, int) or i < 0:
+                    raise ValueError(
+                        f"{name}: class_ids must be static non-negative "
+                        f"integers (0 = background, i >= 1 = mask channel "
+                        f"i-1), got {i!r}")
     if canon in ("affine", "rotate"):
         # the per-axis dict forms accept ONLY x/y — a typo'd axis key
         # ({sx: ...}) would silently default both axes

@@ -36,11 +36,12 @@ switch routes a CUDA tensor to a plain version: each picks between
 hand-written kernels, as the JAX switches pick between Pallas kernels.
 A ``cval``/``pad_cval`` fill is applied as warp(image − cval) + cval, exact
 for a constant fill (the last one of a run wins: a warp has one fill).
-The choice combinators (``_Meta``) and the channel and colourspace scopes
-(``_Scope``) hold child blocks; a scope refuses, with the reference's
-``ValueError``, a child that is geometric, a combinator or moves the mask,
-and an RGB-only child where its children see 1 or 2 channels.
-Every augmenter not yet ported raises ``NotImplementedError``.
+The choice combinators (``_Meta``), the channel and colourspace scopes
+(``_Scope``) and the BlendAlpha family (``_Blend``) hold child blocks; a
+scope refuses, with the reference's ``ValueError``, a child that is
+geometric, a combinator or blend or moves the mask (Jigsaw), and an
+RGB-only child where its children see 1 or 2 channels.  Every name of the
+reference's registry is lowered (``PORTED_AUGMENTERS``).
 
 Parameter forms: scalar → fixed value (probability for flips); [lo, hi] →
 uniform per image; [a, b, c, ...] → uniform choice per image;
@@ -59,7 +60,9 @@ import torch.nn.functional as F
 from ...models.layers import resize_to
 from . import elastic as EL
 from . import fast_warp as FW
+from . import jigsaw as JG
 from . import photometric as ph
+from . import segment as SG
 from . import warp as W
 
 Tensor = torch.Tensor
@@ -79,11 +82,6 @@ _FIXED_SIZE = {"croptofixedsize", "randomcrop", "padtofixedsize",
 _ELASTIC_NAMES = {"elastictransformation", "elastictransform", "elastic"}
 # ops that contribute a displacement FIELD, not an affine factor
 _DISP_NAMES = _ELASTIC_NAMES | {"piecewiseaffine", "perspectivetransform"}
-
-
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not yet ported to the torch "
-                               "package")
 
 
 def _coerce_block(spec) -> List[Dict[str, Any]]:
@@ -364,8 +362,6 @@ class _GeoRun:
         self.integer_input = integer_input
         self.cval_spec = None
         for s, name in zip(geo, self.names):
-            if name not in PORTED_AUGMENTERS:
-                raise not_ported(f"augmenter {s['name']!r}")
             self.cval_spec = _check_geo_args(s, name, self.cval_spec)
         self.nonelastic = [s for s, n in zip(geo, self.names)
                            if n not in _DISP_NAMES]
@@ -817,6 +813,13 @@ def _single(a: Any, key: str, default: Any) -> Any:
     return a.get(key, default) if isinstance(a, dict) else a
 
 
+def _single_or(a: Any, key: str, default: Any) -> Any:
+    """``_single(a, key, None)``, ``default`` where that is None (the
+    reference's ``a if a is not None else default``)."""
+    v = _single(a, key, None)
+    return default if v is None else v
+
+
 def _coarse_args(a: Any, p_default: float = 0.05) -> Tuple[Any, float]:
     """CoarseDropout / Coarse*: (p spec, size_percent); a bare scalar or
     list is p at size 0.1."""
@@ -1153,13 +1156,9 @@ _photo("removesaturation",
        _MUL_HS)
 
 
-def _kelvin_sample(seg, gen, b, h, w, c):
-    a = _single(seg.args, "kelvin", None)
-    return {"kelvin": _sample(gen, [1000, 11000] if a is None else a, b,
-                              6600.0)}
-
-
-_photo("changecolortemperature", _kelvin_sample,
+_photo("changecolortemperature",
+       lambda s, g, b, h, w, c: {"kelvin": _sample(
+           g, _single_or(s.args, "kelvin", [1000, 11000]), b, 6600.0)},
        _image_only(lambda s, d, x: ph.change_color_temperature(
            x, d["kelvin"])))
 
@@ -1207,7 +1206,7 @@ _photo("clahe allchannelsclahe",
 # --- filters -------------------------------------------------------------------
 # Their static windows (a tap radius, a pooling or median width, Canny's
 # aperture and rounds, Cartoon's median) come from the arguments when the
-# block is built (``_FILTER_STATIC``), with the reference's ValueErrors.
+# block is built (``_STATIC``), with the reference's ValueErrors.
 
 def _spec_max(spec: Any, fallback: float) -> float:
     """The largest value of a scalar or list spec; ``fallback`` for any
@@ -1281,7 +1280,7 @@ def _cartoon_k(args: Any) -> int:
     return bk
 
 
-_FILTER_STATIC = {
+_STATIC = {
     "averageblur": lambda a: _box_radius(_bare(a, "k").get("k", [1, 7])),
     "gaussianblur": lambda a: int(min(max(3, math.ceil(2.5 * _spec_max(
         _bare(a, "sigma").get("sigma", [0.0, 3.0]), 3.0))), 64)),
@@ -1417,17 +1416,260 @@ _photo("meanshiftblur",
            x, torch.clamp(d["spatial_radius"], max=float(s.static)),
            d["color_radius"], max_radius=s.static)))
 
+# --- weather and colour quantisation -------------------------------------------
+
+def _grids(gen: torch.Generator, b: int, sizes) -> List[Tensor]:
+    """The value noise's coarse uniform grids, (B, g, g) an octave."""
+    return [_rand(gen, (b, g, g)) for g in sizes]
+
+
+def _streaks(density, speed, turn):
+    """Snowflakes (``turn`` 30) and Rain (20): density, speed, the streak
+    angle uniform on ±turn degrees and the point uniforms."""
+    def sample(seg, gen, b, h, w, c):
+        a = seg.args if isinstance(seg.args, dict) else {}
+        return {"density": _sample(gen, a.get("density", density), b),
+                "speed": _sample(gen, a.get("speed", speed), b),
+                "angle": _rand(gen, (b,)) * (2.0 * turn) - turn,
+                "u": _rand(gen, (b, h, w, 1))}
+    return sample
+
+
+_photo("clouds",
+       lambda s, g, b, h, w, c: {
+           "coverage": _sample(g, _bare(s.args, "coverage").get(
+               "coverage", [0.2, 0.5]), b),
+           "grids": _grids(g, b, (4, 8, 16))},
+       _image_only(lambda s, d, x: ph.clouds(x, d["grids"], d["coverage"])))
+_photo("fog",
+       lambda s, g, b, h, w, c: {
+           "density": _sample(g, _bare(s.args, "density").get(
+               "density", [0.1, 0.4]), b),
+           "grids": _grids(g, b, (2, 4))},
+       _image_only(lambda s, d, x: ph.fog(x, d["grids"], d["density"])))
+_photo("snowflakes", _streaks([0.005, 0.05], [0.007, 0.03], 30.0),
+       _image_only(lambda s, d, x: ph.snowflakes(
+           x, d["u"], d["density"], d["speed"], d["angle"])))
+_photo("rain", _streaks([0.01, 0.06], [0.04, 0.1], 20.0),
+       _image_only(lambda s, d, x: ph.rain(
+           x, d["u"], d["density"], d["speed"], d["angle"])))
+_photo("fastsnowylandscape",
+       lambda s, g, b, h, w, c: {
+           "threshold": _sample(g, (s.args if isinstance(s.args, dict)
+                                    else {}).get("lightness_threshold",
+                                                 [100, 255]), b, 140.0),
+           "multiplier": _sample(g, (s.args if isinstance(s.args, dict)
+                                     else {}).get("lightness_multiplier",
+                                                  [1.0, 4.0]), b, 2.5)},
+       _image_only(lambda s, d, x: ph.fast_snowy_landscape(
+           x, d["threshold"], d["multiplier"])))
+_photo("uniformcolorquantization",
+       lambda s, g, b, h, w, c: {"n_colors": _sample(
+           g, _single_or(s.args, "n_colors", [2, 16]), b, 8.0)},
+       _image_only(lambda s, d, x: ph.uniform_color_quantization(
+           x, d["n_colors"])))
+
+
+# --- the segment names and Jigsaw ------------------------------------------------
+# Each has a static capacity (the most seeds, centres or swap steps its
+# spec can draw) and Superpixels, the Voronoi family and k-means a static
+# ``max_size``: ``_STATIC`` computes them when the block is built.
+
+def _int_spec_max(spec: Any, default: int) -> int:
+    """The static maximum of an integer spec (the reference's
+    ``_sample_int``): a scalar itself, a range or a list its largest."""
+    if spec is None:
+        spec = default
+    if isinstance(spec, (int, float)):
+        return int(spec)
+    return max(int(v) for v in spec)
+
+
+def _sample_int(gen: torch.Generator, spec: Any, b: int,
+                default: int) -> Tensor:
+    """(B,) integers: a scalar fixed, [lo, hi] uniform on lo..hi, a longer
+    list a uniform choice."""
+    if spec is None:
+        spec = default
+    if isinstance(spec, (int, float)):
+        return torch.full((b,), int(spec), dtype=torch.long,
+                          device=gen.device)
+    vals = [int(v) for v in spec]
+    if len(vals) == 2:
+        return torch.randint(min(vals), max(vals) + 1, (b,), generator=gen,
+                             device=gen.device)
+    idx = torch.randint(0, len(vals), (b,), generator=gen, device=gen.device)
+    return torch.tensor(vals, device=gen.device)[idx]
+
+
+def _max_size(args: Any, key: str, name: str) -> Optional[int]:
+    """The static ``max_size`` (imgaug's default 128; null: no downscale)
+    with the reference's refusal."""
+    v = _bare(args, key).get("max_size", 128)
+    if v is not None and (isinstance(v, bool) or not isinstance(v, int)
+                          or v < 2):
+        raise ValueError(
+            f"{name}: max_size must be a static integer >= 2 or null "
+            f"(it sets a compile-time compute shape), got {v!r}")
+    return v
+
+
+def _grid_args(args: Any) -> Dict[str, Any]:
+    """RegularGridVoronoi's and RelativeRegularGridVoronoi's arguments: a
+    bare value is both n_rows and n_cols."""
+    return args if isinstance(args, dict) else {"n_rows": args,
+                                                "n_cols": args}
+
+
+def _jigsaw_static(args: Any) -> Tuple[int, int, int]:
+    """(nb_rows, nb_cols, the most swap steps) with the reference's
+    refusals."""
+    a = args if isinstance(args, dict) else {}
+    rows, cols = a.get("nb_rows", 5), a.get("nb_cols", 5)
+    for label, v in (("nb_rows", rows), ("nb_cols", cols)):
+        if isinstance(v, bool) or not isinstance(v, int) or v < 1:
+            raise ValueError(
+                f"Jigsaw {label} must be a static integer >= 1 here "
+                "(the cell grid sets compile-time reshape shapes; "
+                f"imgaug's sampled grids can't lower), got {v!r} "
+                "— see docs/schema.md deviations")
+    smax = _int_spec_max(a.get("max_steps", [1, 5]), 2)
+    if smax > 64:
+        raise ValueError(
+            f"Jigsaw max_steps caps at 64 here (the swap chain unrolls "
+            f"statically), got max {smax}")
+    return rows, cols, max(1, smax)
+
+
+def _relative_grid(seg, h: int, w: int) -> Tuple[Any, Any, int, int]:
+    """RelativeRegularGridVoronoi's fraction specs and its static row and
+    column capacities: fractions of the downscaled frame."""
+    a = _grid_args(seg.args)
+    hs, ws = SG.downscaled_size(h, w, seg.static)
+    rf = a.get("n_rows_frac", [0.05, 0.15])
+    cf = a.get("n_cols_frac", [0.05, 0.15])
+    return (rf, cf, max(1, int(math.ceil(_static_bounds(rf, 0.1)[1] * hs))),
+            max(1, int(math.ceil(_static_bounds(cf, 0.1)[1] * ws))))
+
+
+def _voronoi_grid_sample(seg, gen, b, h, w, c):
+    a = _grid_args(seg.args)
+    if seg.name == "regulargridvoronoi":
+        out = {"rows": _sample_int(gen, a.get("n_rows", [10, 30]), b, 20),
+               "cols": _sample_int(gen, a.get("n_cols", [10, 30]), b, 20)}
+        p = (max(1, _int_spec_max(a.get("n_rows", [10, 30]), 20))
+             * max(1, _int_spec_max(a.get("n_cols", [10, 30]), 20)))
+    else:
+        rf, cf, rmax, cmax = _relative_grid(seg, h, w)
+        out = {"rows_frac": _sample(gen, rf, b, 0.1),
+               "cols_frac": _sample(gen, cf, b, 0.1)}
+        p = rmax * cmax
+    return {**out,
+            "p_drop": _sample(gen, a.get("p_drop_points", 0.4), b, 0.4),
+            "p_replace": _sample(gen, a.get("p_replace", [0.5, 1.0]), b,
+                                 1.0),
+            "u_drop": _rand(gen, (b, p)), "u_rep": _rand(gen, (b, p))}
+
+
+def _voronoi_grid_apply(seg, d, x):
+    a = _grid_args(seg.args)
+    if seg.name == "regulargridvoronoi":
+        rows, cols = d["rows"], d["cols"]
+        rmax = max(1, _int_spec_max(a.get("n_rows", [10, 30]), 20))
+        cmax = max(1, _int_spec_max(a.get("n_cols", [10, 30]), 20))
+    else:
+        _, _, rmax, cmax = _relative_grid(seg, x.shape[1], x.shape[2])
+        hs, ws = SG.downscaled_size(x.shape[1], x.shape[2], seg.static)
+        rows = torch.clamp(torch.round(d["rows_frac"] * hs), min=1.0).long()
+        cols = torch.clamp(torch.round(d["cols_frac"] * ws), min=1.0).long()
+    return SG.regular_grid_voronoi(x, rows, cols, rmax, cmax, d["u_drop"],
+                                   d["u_rep"], d["p_drop"], d["p_replace"],
+                                   seg.static)
+
+
+def _kmeans_sample(seg, gen, b, h, w, c):
+    ms, kk = seg.static
+    hs, ws = SG.downscaled_size(h, w, ms)
+    # Gumbel(0, 1) by the inverse CDF of a uniform kept above float32's
+    # smallest normal (the reference's law)
+    u = torch.clamp(_rand(gen, (b, kk - 1, hs * ws)),
+                    min=torch.finfo(torch.float32).tiny)
+    return {"n_colors": _sample_int(gen, _bare(seg.args, "n_colors").get(
+                "n_colors", [2, 16]), b, 8),
+            "idx0": torch.randint(0, hs * ws, (b, 1), generator=gen,
+                                  device=gen.device),
+            "gumbels": -torch.log(-torch.log(u))}
+
+
+def _jigsaw_sample(seg, gen, b, h, w, c):
+    rows, cols, smax = seg.static
+    spec = (seg.args if isinstance(seg.args, dict) else {}).get(
+        "max_steps", [1, 5])
+    return {"steps": _sample_int(gen, spec, b, 2),
+            "cells": torch.randint(0, rows * cols, (b, smax), generator=gen,
+                                   device=gen.device),
+            "dirs": torch.randint(0, 4, (b, smax), generator=gen,
+                                  device=gen.device)}
+
+
+_STATIC.update({
+    "superpixels": lambda a: (
+        _max_size(a, "p_replace", "Superpixels"),
+        max(1, _int_spec_max(_bare(a, "p_replace").get("n_segments", 100),
+                             100))),
+    "uniformvoronoi": lambda a: (
+        _max_size(a, "n_points", "UniformVoronoi"),
+        max(1, _int_spec_max(_bare(a, "n_points").get("n_points",
+                                                      [50, 500]), 100))),
+    "regulargridvoronoi": lambda a: _max_size(_grid_args(a), "n_rows",
+                                              "RegularGridVoronoi"),
+    "relativeregulargridvoronoi": lambda a: _max_size(
+        _grid_args(a), "n_rows", "RelativeRegularGridVoronoi"),
+    "kmeanscolorquantization": lambda a: (
+        _max_size(a, "n_colors", "KMeansColorQuantization"),
+        max(2, _int_spec_max(_bare(a, "n_colors").get("n_colors", [2, 16]),
+                             8))),
+    "jigsaw": _jigsaw_static,
+})
+_photo("superpixels",
+       lambda s, g, b, h, w, c: {
+           "n_segments": _sample_int(g, _bare(s.args, "p_replace").get(
+               "n_segments", 100), b, 100),
+           "p_replace": _sample(g, _bare(s.args, "p_replace").get(
+               "p_replace", [0.5, 1.0]), b, 1.0),
+           "u_rep": _rand(g, (b, s.static[1]))},
+       _image_only(lambda s, d, x: SG.superpixels(
+           x, d["n_segments"], s.static[1], d["u_rep"], d["p_replace"],
+           s.static[0])))
+_photo("uniformvoronoi",
+       lambda s, g, b, h, w, c: {
+           "n_points": _sample_int(g, _bare(s.args, "n_points").get(
+               "n_points", [50, 500]), b, 100),
+           "p_replace": _sample(g, _bare(s.args, "n_points").get(
+               "p_replace", [0.5, 1.0]), b, 1.0),
+           "pos": _rand(g, (b, s.static[1], 2)),
+           "u_rep": _rand(g, (b, s.static[1]))},
+       _image_only(lambda s, d, x: SG.uniform_voronoi(
+           x, d["n_points"], d["pos"], d["u_rep"], d["p_replace"],
+           s.static[0])))
+_photo("regulargridvoronoi relativeregulargridvoronoi", _voronoi_grid_sample,
+       _image_only(_voronoi_grid_apply))
+_photo("kmeanscolorquantization", _kmeans_sample,
+       _image_only(lambda s, d, x: SG.kmeans_color_quantization(
+           x, d["n_colors"], s.static[1], d["idx0"], d["gumbels"],
+           s.static[0])))
+_photo("jigsaw", _jigsaw_sample,
+       lambda s, d, x, m: JG.jigsaw(x, m, s.static[0], s.static[1],
+                                    d["steps"], d["cells"], d["dirs"]))
+
 # names rewritten into Affine by ``_coerce_block``; the choice combinators
 # and the channel / colourspace scopes
 _SUGAR = {"rotate", "translatex", "translatey", "scalex", "scaley",
           "shearx", "sheary"}
 _SCOPES = {"withchannels", "withhueandsaturation", "withbrightnesschannels",
            "withcolorspace"}
-_META = {"sometimes", "oneof", "someof"} | _SCOPES
-PORTED_AUGMENTERS = _GEOMETRIC | _SUGAR | set(_PHOTO) | _META
-
-# the reference's BlendAlpha family (not ported): combinators, refused as
-# scoped children like every other combinator
+# the BlendAlpha family (imgaug 0.4's names and the pre-0.4 aliases Alpha,
+# AlphaElementwise, SimplexNoiseAlpha and FrequencyNoiseAlpha)
 _BLEND = {"blendalpha", "alpha",
           "blendalphaelementwise", "alphaelementwise",
           "blendalphaverticallineargradient",
@@ -1436,6 +1678,12 @@ _BLEND = {"blendalpha", "alpha",
           "blendalphasimplexnoise", "simplexnoisealpha",
           "blendalphafrequencynoise", "frequencynoisealpha",
           "blendalphasomecolors", "blendalphasegmapclassids"}
+_BLEND_CANON = {"alpha": "blendalpha",
+                "alphaelementwise": "blendalphaelementwise",
+                "simplexnoisealpha": "blendalphasimplexnoise",
+                "frequencynoisealpha": "blendalphafrequencynoise"}
+_META = {"sometimes", "oneof", "someof"} | _SCOPES | _BLEND
+PORTED_AUGMENTERS = _GEOMETRIC | _SUGAR | set(_PHOTO) | _META
 # photo-path names that move pixels and transform the mask jointly —
 # refused under the scopes, which splice back only the child's image
 _JOINT_PHOTO = {"jigsaw"}
@@ -1454,16 +1702,14 @@ _SCOPE_CHANNELS = {"withchannels": 3, "withhueandsaturation": 2,
 
 def check_scope_children(scope: str, child_spec) -> List[Dict[str, Any]]:
     """The reference's refusals of a scope's children, in its order: a
-    geometric, combinator or joint image+mask child, then an RGB-only
-    photometric under a 1- or 2-channel scope (``ValueError``, its text).
-    Names not yet ported pass: the caller refuses them after.  Returns
-    the normalised children."""
+    geometric, combinator (a blend among them) or joint image+mask child,
+    then an RGB-only photometric under a 1- or 2-channel scope
+    (``ValueError``, its text).  Returns the normalised children."""
     children = _coerce_block(child_spec)
     n_ch = _SCOPE_CHANNELS[scope.lower()]
     for e in children:
         nm = e["name"].lower()
-        if nm in _GEOMETRIC or nm in _META or nm in _BLEND \
-                or nm in _JOINT_PHOTO:
+        if nm in _GEOMETRIC or nm in _META or nm in _JOINT_PHOTO:
             what = "selected channels" if scope.lower() == "withchannels" \
                 else "scoped channels"
             raise ValueError(
@@ -1485,7 +1731,7 @@ class _Photo:
     def __init__(self, spec: Dict[str, Any]):
         self.name = spec["name"].lower()
         if self.name not in _PHOTO:
-            raise not_ported(f"augmenter {spec['name']!r}")
+            raise KeyError(f"augmenter {spec['name']!r} has no lowering")
         self.args = spec.get("args")
         self.per_channel = bool(isinstance(self.args, dict)
                                 and self.args.get("per_channel"))
@@ -1496,8 +1742,8 @@ class _Photo:
             self.colorspace = colorspace_of(self.args)
         elif self.name in ("autocontrast", "auto_contrast"):
             self.cutoff = float(_single(self.args, "cutoff", 0) or 0)
-        elif self.name in _FILTER_STATIC:
-            self.static = _FILTER_STATIC[self.name](self.args)
+        elif self.name in _STATIC:
+            self.static = _STATIC[self.name](self.args)
 
     def sample(self, gen: torch.Generator, b: int, h: int, w: int,
                c: int) -> Dict[str, Tensor]:
@@ -1686,6 +1932,233 @@ class _Scope:
                              v), masks
 
 
+# ---------------------------------------------------------------------------
+# the BlendAlpha family
+# ---------------------------------------------------------------------------
+
+class _Blend:
+    """BlendAlpha and its nine mask generators (the reference's
+    ``_make_blend`` and ``_blend_alpha_map``): the foreground and
+    background child blocks run on the input (a missing one is the
+    input, clipped), and the images mix as ``alpha·fg + (1 − alpha)·bg``
+    under an alpha map in [0, 1], broadcastable to (B, H, W, C); the masks
+    take the foreground's where the alpha (its channel mean, per channel)
+    is at least 0.5, else the background's (imgaug's segmentation-map
+    rule).  The draws: each child's, and the alpha map's."""
+
+    def __init__(self, spec: Dict[str, Any], integer_input: bool = True):
+        low = spec["name"].lower()
+        self.name = _BLEND_CANON.get(low, low)
+        raw = spec.get("args")
+        a = self.args = dict(raw) if isinstance(raw, dict) else {}
+        fg, bg = (a.get("foreground") or a.get("first"),
+                  a.get("background") or a.get("second"))
+        if not fg and not bg:
+            raise ValueError(f"{spec['name']} needs a foreground (or "
+                             "background) child augmenter block")
+        self.fg = Augmentation(fg, integer_input) if fg else None
+        self.bg = Augmentation(bg, integer_input) if bg else None
+        self.children = [ch for ch in (self.fg, self.bg) if ch is not None]
+        self.per_channel = bool(a.get("per_channel", False))
+        if self.name in ("blendalpharegulargrid", "blendalphacheckerboard"):
+            self.rmax = _int_spec_max(a.get("nb_rows"), 4)
+            self.cmax = _int_spec_max(a.get("nb_cols"), 4)
+        elif self.name == "blendalphasomecolors":
+            self.nbmax = min(max(_int_spec_max(a.get("nb_bins", [5, 15]), 10),
+                                 1), 256)
+        elif self.name == "blendalphasegmapclassids":
+            ids = a.get("class_ids")
+            if ids is None:
+                raise ValueError("BlendAlphaSegMapClassIds needs "
+                                 "{class_ids: int | [ints]}")
+            self.class_ids = [int(i) for i in _as_list(ids)]
+
+    def _factor_spec(self):
+        spec = self.args.get("factor", self.args.get("alpha"))
+        return [0.0, 1.0] if spec is None else spec
+
+    def _alpha_sample(self, gen: torch.Generator, b: int, h: int, w: int,
+                      c: int) -> Dict[str, Any]:
+        a, name = self.args, self.name
+        if name == "blendalpha":
+            shape = (b, 1, 1, c) if self.per_channel else (b,)
+            return {"factor": _sample_shape(gen, self._factor_spec(), shape)}
+        if name == "blendalphaelementwise":
+            return {"factor": _sample_shape(
+                gen, self._factor_spec(),
+                (b, h, w, c if self.per_channel else 1))}
+        if "lineargradient" in name:
+            return {"start": _sample(gen, a.get("start_at", [0.0, 1.0]), b),
+                    "end": _sample(gen, a.get("end_at", [0.0, 1.0]), b)}
+        if name in ("blendalpharegulargrid", "blendalphacheckerboard"):
+            out = {"rows": _sample_int(gen, a.get("nb_rows"), b, 4),
+                   "cols": _sample_int(gen, a.get("nb_cols"), b, 4)}
+            if name == "blendalpharegulargrid":
+                shape = (b, self.rmax, self.cmax)
+                out["grid"] = (_bernoulli(gen, 0.5, shape).float()
+                               if a.get("alpha") is None else
+                               _sample_shape(gen, a["alpha"], shape))
+            return out
+        out = {}
+        if name == "blendalphasimplexnoise":
+            out["grids"] = _grids(gen, b, (2, 4, 8, 16))
+        elif name == "blendalphafrequencynoise":
+            out["exponent"] = _sample(gen, a.get("exponent", [-4.0, 4.0]), b)
+            out["white"] = torch.randn((b, h, w), generator=gen,
+                                       device=gen.device)
+        elif name == "blendalphasomecolors":
+            spec = a.get("alpha")
+            shape = (b, self.nbmax)
+            return {"rotation": _sample(gen, a.get("rotation_deg", [0, 360]),
+                                        b),
+                    "nb_bins": _sample_int(gen, a.get("nb_bins", [5, 15]), b,
+                                           10),
+                    "table": (_bernoulli(gen, 0.5, shape).float()
+                              if spec is None
+                              else _sample_shape(gen, spec, shape)),
+                    "smoothness": _sample(gen, a.get("smoothness",
+                                                     [0.1, 0.3]), b)}
+        if name != "blendalphasegmapclassids" and a.get("sigmoid", True):
+            out["thresh"] = _sample(gen, a.get("sigmoid_thresh", [0.4, 0.6]),
+                                    b)
+        return out
+
+    def sample(self, gen: torch.Generator, b: int, h: int, w: int,
+               c: int) -> Dict[str, Any]:
+        return {"children": [ch.sample(gen, b, h, w, c)
+                             for ch in self.children],
+                "alpha": self._alpha_sample(gen, b, h, w, c)}
+
+    def alpha(self, d: Dict[str, Any], base: Tensor,
+              masks: Tensor) -> Tensor:
+        """The alpha map from its draws ``d``, the input clipped to
+        0..255 (SomeColors reads its hue) and the masks (SegMapClassIds
+        reads its classes)."""
+        b, h, w, c = base.shape
+        name, dev = self.name, base.device
+        if name == "blendalpha":
+            f = d["factor"]
+            return f if self.per_channel else f[:, None, None, None]
+        if name == "blendalphaelementwise":
+            return d["factor"]
+        if "lineargradient" in name:
+            vertical = "vertical" in name
+            mn = float(self.args.get("min_value", 0.0))
+            mx = float(self.args.get("max_value", 1.0))
+            n = h if vertical else w
+            pos = (torch.arange(n, dtype=torch.float32, device=dev)
+                   / max(n - 1, 1))[None, :]
+            s0, span = d["start"], d["end"] - d["start"]
+            span = torch.where(span.abs() < 1e-6,
+                               torch.where(span < 0, -1e-6, 1e-6), span)
+            t = torch.clamp((pos - s0[:, None]) / span[:, None], 0.0, 1.0)
+            al = mn + (mx - mn) * t
+            return al[:, :, None, None] if vertical else al[:, None, :, None]
+        if name in ("blendalpharegulargrid", "blendalphacheckerboard"):
+            iy = torch.div(torch.arange(h, device=dev)[None, :]
+                           * d["rows"][:, None], h, rounding_mode="floor")
+            ix = torch.div(torch.arange(w, device=dev)[None, :]
+                           * d["cols"][:, None], w, rounding_mode="floor")
+            if name == "blendalphacheckerboard":
+                return ((iy[:, :, None] + ix[:, None, :]) % 2 == 0
+                        ).float()[..., None]
+            # the cell's alpha, gathered (the reference's two one-hot
+            # products at full precision give the same values)
+            grid = d["grid"]
+            rows_of = grid.gather(1, iy[:, :, None].expand(b, h,
+                                                           grid.shape[2]))
+            return rows_of.gather(2, ix[:, None, :].expand(b, h, w))[..., None]
+        if name == "blendalphasimplexnoise":
+            noise = torch.stack([resize_to(g[:, None], h, w, "bilinear")[:, 0]
+                                 for g in d["grids"]]).amax(0)
+            if "thresh" in d:
+                noise = torch.sigmoid(10.0 * (noise - d["thresh"][:, None,
+                                                                   None]))
+            return noise[..., None]
+        if name == "blendalphafrequencynoise":
+            return self._frequency_noise(d, h, w)[..., None]
+        if name == "blendalphasomecolors":
+            return self._some_colors(d, base)
+        return self._class_ids(masks)
+
+    def _frequency_noise(self, d: Dict[str, Any], h: int, w: int) -> Tensor:
+        """White noise shaped by f^exponent in the Fourier domain, min-max
+        normalised per image, then sigmoid-sharpened."""
+        dev = d["white"].device
+        spec = torch.fft.rfft2(d["white"])
+        fy = torch.fft.fftfreq(h, device=dev)[:, None]
+        fx = torch.fft.rfftfreq(w, device=dev)[None, :]
+        f = torch.sqrt(fy * fy + fx * fx)
+        f = torch.where(f == 0, 1.0 / max(h, w), f)
+        scale = f[None] ** d["exponent"][:, None, None]
+        noise = torch.fft.irfft2(spec * scale, s=(h, w))
+        lo = noise.amin((1, 2), keepdim=True)
+        hi = noise.amax((1, 2), keepdim=True)
+        al = (noise - lo) / torch.clamp(hi - lo, min=1e-6)
+        if "thresh" in d:
+            al = torch.sigmoid(10.0 * (al - d["thresh"][:, None, None]))
+        return al
+
+    def _some_colors(self, d: Dict[str, Any], base: Tensor) -> Tensor:
+        """imgaug SomeColorsMaskGen: the hue (after a rotation) binned
+        into nb_bins bins, one alpha a bin, the bin table smoothed
+        circularly by a gaussian of sigma smoothness·nb_bins/3 (the
+        reference's approximation of imgaug's kernel), each pixel's alpha
+        its bin's."""
+        b, h, w, _ = base.shape
+        nbmax, dev = self.nbmax, base.device
+        nbf = torch.clamp(d["nb_bins"], 1, nbmax).float()[:, None]   # (B, 1)
+        rot = d["rotation"] * 0.5
+        hue = ph.rgb_to_hsv(base)[0]
+        hb = torch.remainder(hue + rot[:, None, None], 180.0)
+        bins = torch.minimum(torch.floor(hb / 180.0 * nbf[..., None]),
+                             nbf[..., None] - 1.0).long()
+        ii = torch.arange(nbmax, dtype=torch.float32, device=dev)
+        dist = torch.abs(ii[None, :, None] - ii[None, None, :])
+        dist = torch.minimum(dist, nbf[..., None] - dist)          # circular
+        sig = torch.clamp(d["smoothness"][:, None, None] * nbf[..., None]
+                          / 3.0, min=1e-3)
+        wgt = torch.exp(-0.5 * torch.square(dist / sig))
+        valid = ((ii[None, :, None] < nbf[..., None])
+                 & (ii[None, None, :] < nbf[..., None]))
+        wgt = torch.where(valid, wgt, 0.0)
+        wgt = wgt / torch.clamp(wgt.sum(2, keepdim=True), min=1e-6)
+        # full f32: the smoothed alphas feed the masks' >= 0.5 routing
+        with FW._exact_f32(dev):
+            table = torch.bmm(wgt, d["table"][..., None])[..., 0]
+        return table.gather(1, bins.reshape(b, -1)).reshape(b, h, w, 1)
+
+    def _class_ids(self, masks: Tensor) -> Tensor:
+        """1 where the mask carries one of the class ids (0: no channel
+        set, i ≥ 1: mask channel i − 1)."""
+        mc = masks.shape[-1]
+        m = masks.float()
+        sel = torch.zeros(m.shape[:3] + (1,), device=m.device)
+        for i in self.class_ids:
+            if i == 0:
+                sel = torch.maximum(sel, 1.0 - torch.clamp(
+                    m.sum(-1, keepdim=True), max=1.0))
+            elif 1 <= i <= mc:
+                sel = torch.maximum(sel, m[..., i - 1:i])
+            else:
+                raise ValueError(
+                    f"BlendAlphaSegMapClassIds: class id {i} out of range "
+                    f"for a {mc}-channel mask (0 = background, 1..{mc} = "
+                    "mask channels)")
+        return sel
+
+    def apply(self, draws: Dict[str, Any], images: Tensor, masks: Tensor):
+        base = torch.clamp(images.float(), 0.0, 255.0)
+        outs = iter(ch.apply(d, images, masks)
+                    for ch, d in zip(self.children, draws["children"]))
+        fi, fm = next(outs) if self.fg is not None else (base, masks)
+        bi, bm = next(outs) if self.bg is not None else (base, masks)
+        al = self.alpha(draws["alpha"], base, masks)
+        out_i = al * fi + (1.0 - al) * bi
+        am = al.mean(-1, keepdim=True) if al.shape[-1] != 1 else al
+        return out_i, torch.where(am >= 0.5, fm, bm)
+
+
 class Augmentation:
     """A compiled augmentation block: ``sample`` draws, ``apply`` runs.
 
@@ -1712,6 +2185,8 @@ class Augmentation:
                 self.segments.append(_GeoRun(item, integer_input=first))
             elif kind == "meta" and item["name"].lower() in _SCOPES:
                 self.segments.append(_Scope(item))
+            elif kind == "meta" and item["name"].lower() in _BLEND:
+                self.segments.append(_Blend(item, integer_input=first))
             elif kind == "meta":
                 self.segments.append(_Meta(item, integer_input=first))
             else:
@@ -1724,7 +2199,7 @@ class Augmentation:
         for seg in self.segments:
             if isinstance(seg, _GeoRun):
                 out.append(seg)
-            elif isinstance(seg, _Meta):
+            elif isinstance(seg, (_Meta, _Blend)):
                 for child in seg.children:
                     out.extend(child.geo_runs())
         return out

@@ -1,7 +1,7 @@
 """Photometric (pixel-value) augmenters — image only, mask untouched.
 
-Counterpart of ``segmentation_training_pipeline_tpu/ops/aug/photometric.py``
-for the augmenters ported so far.  Parameters are per image, (B,), or per
+Counterpart of ``segmentation_training_pipeline_tpu/ops/aug/photometric.py``.
+Parameters are per image, (B,), or per
 image and channel, (B, C) (imgaug ``per_channel=True``); values live on
 the 0..255 scale and the pipeline clips at its end.
 
@@ -37,6 +37,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...models.layers import resize_to
 from .fast_warp import _exact_f32
 
 Tensor = torch.Tensor
@@ -1083,3 +1084,122 @@ def cartoon(images: Tensor, blur_ksize: int, segmentation_size: Tensor,
     s = torch.clamp(s * saturation[:, None, None], 0.0, 255.0)
     out = hsv_to_rgb(h, s, v)
     return torch.where(edges[..., None], 0.0, out)
+
+
+# ---------------------------------------------------------------------------
+# weather and colour quantisation (the reference's procedural
+# approximations of imgaug's weather augmenters; image only)
+# ---------------------------------------------------------------------------
+
+def value_noise(grids, h: int, w: int, persistence: float = 0.5) -> Tensor:
+    """(B, H, W) multi-octave value noise in [0, 1]: the coarse uniform
+    grids (B, g, g), one an octave, each upsampled bilinearly (half-pixel
+    centres, as ``jax.image.resize``) and summed with weights 1, ½, ¼, …,
+    over the weights' sum."""
+    total, amp, norm = None, 1.0, 0.0
+    for g in grids:
+        up = amp * resize_to(g[:, None], h, w, "bilinear")[:, 0]
+        total = up if total is None else total + up
+        norm += amp
+        amp *= persistence
+    return total / norm
+
+
+def clouds(images: Tensor, grids, coverage: Tensor) -> Tensor:
+    """imgaug Clouds (approximation): white where the 3-octave noise
+    (``grids`` 4², 8², 16²) exceeds 1 − coverage, soft-ramped, alpha at
+    most 0.8."""
+    noise = value_noise(grids, images.shape[1], images.shape[2])
+    a = torch.clamp((noise - (1.0 - coverage[:, None, None])) / 0.25, 0.0,
+                    1.0)
+    a = (0.8 * a)[..., None]
+    return images * (1.0 - a) + 255.0 * a
+
+
+def fog(images: Tensor, grids, density: Tensor) -> Tensor:
+    """imgaug Fog (approximation): a haze of ``density`` modulated by the
+    2-octave noise (``grids`` 2², 4²), blended towards white."""
+    noise = value_noise(grids, images.shape[1], images.shape[2])
+    a = (density[:, None, None] * (0.55 + 0.45 * noise))[..., None]
+    a = torch.clamp(a, 0.0, 0.95)
+    return images * (1.0 - a) + 255.0 * a
+
+
+def streak_kernels(length: Tensor, angle: Tensor, radius: int) -> Tensor:
+    """(B, K, K) anti-aliased line kernels at ``angle`` degrees, ``length``
+    px long, normalised to a peak of 1 (not a sum of 1, as MotionBlur's)
+    so that a sparse point layer keeps its streaks bright."""
+    coords = torch.arange(-radius, radius + 1, dtype=torch.float32,
+                          device=length.device)
+    gy, gx = torch.meshgrid(coords, coords, indexing="ij")
+    half = torch.clamp((length - 1.0) / 2.0, 0.0, float(radius))
+    a = angle * (math.pi / 180.0)
+    dx, dy = torch.sin(a)[:, None, None], torch.cos(a)[:, None, None]
+    proj = gx[None] * dx + gy[None] * dy
+    perp = torch.abs(gx[None] * dy - gy[None] * dx)
+    w = (torch.clamp(1.0 - perp, 0.0, 1.0)
+         * torch.clamp(half[:, None, None] + 1.0 - proj.abs(), 0.0, 1.0))
+    return w / torch.clamp(w.amax((1, 2), keepdim=True), min=1e-6)
+
+
+def particle_layer(images: Tensor, u: Tensor, density: Tensor,
+                   length: Tensor, angle: Tensor, radius: int,
+                   brightness: float) -> Tensor:
+    """Points where the uniform ``u`` (B, H, W, 1) falls below the
+    density, smeared into streaks by one grouped convolution (full f32:
+    cuDNN's TF32 would round the 0..255 sums) and screen-blended (max)
+    over the image: Snowflakes and Rain."""
+    pts = (u < density[:, None, None, None]).float()
+    layer = _kxk(pts * brightness, streak_kernels(length, angle, radius),
+                 radius)
+    return torch.maximum(images, torch.clamp(layer, 0.0, brightness))
+
+
+def snowflakes(images: Tensor, u: Tensor, density: Tensor, speed: Tensor,
+               angle: Tensor, radius: int = 8) -> Tensor:
+    """imgaug Snowflakes (approximation): ``density`` the flake share,
+    ``speed`` the streak length as a share of the frame's height,
+    ``angle`` (B,) the per-image streak angle in degrees."""
+    length = torch.clamp(speed * images.shape[1], 1.0, 2.0 * radius + 1.0)
+    return particle_layer(images, u, density, length, angle, radius,
+                          brightness=255.0)
+
+
+def rain(images: Tensor, u: Tensor, density: Tensor, speed: Tensor,
+         angle: Tensor, radius: int = 12) -> Tensor:
+    """imgaug Rain (approximation): longer, dimmer streaks over an image
+    darkened by 8%."""
+    length = torch.clamp(speed * images.shape[1], 3.0, 2.0 * radius + 1.0)
+    return particle_layer(images * 0.92, u, density, length, angle, radius,
+                          brightness=220.0)
+
+
+def uniform_color_quantization(images: Tensor, n_colors: Tensor) -> Tensor:
+    """imgaug UniformColorQuantization: every channel to n uniform levels
+    (n (B,) rounded, at least 2), each value mapped to its bin's centre."""
+    n = torch.clamp(torch.round(n_colors), min=2.0)[:, None, None, None]
+    size = 256.0 / n
+    v = torch.clamp(images, 0.0, 255.0)
+    return torch.clamp(torch.floor(v / size) * size + size / 2.0, 0.0, 255.0)
+
+
+def fast_snowy_landscape(images: Tensor, threshold: Tensor,
+                         multiplier: Tensor) -> Tensor:
+    """imgaug FastSnowyLandscape: in HLS (OpenCV's uint8 scale), the
+    lightness of every pixel below ``threshold`` times ``multiplier``
+    (clipped to 255); the RGB rebuilt from hue, the new lightness and the
+    HLS saturation by the sector formula (gray stays gray)."""
+    h, light, s = _rgb_to_hls(images)
+    hh = h / 30.0
+    thr, mul = threshold[:, None, None], multiplier[:, None, None]
+    light = torch.clamp(torch.where(light < thr, light * mul, light), 0.0,
+                        255.0)
+    cc = (1.0 - torch.abs(2.0 * light / 255.0 - 1.0)) * s
+    x = cc * (1.0 - torch.abs(torch.remainder(hh, 2.0) - 1.0))
+    m0 = light - 0.5 * cc
+    zero = torch.zeros_like(cc)
+    i = torch.floor(hh).to(torch.int32) % 6
+    rr = _select6(i, [cc, x, zero, zero, x], cc)
+    gg = _select6(i, [x, cc, cc, x, zero], zero)
+    bb = _select6(i, [zero, zero, x, cc, cc], x)
+    return torch.stack([rr + m0, gg + m0, bb + m0], dim=-1)

@@ -383,8 +383,8 @@ LOWERING_REFUSALS = {
                          ids=list(LOWERING_REFUSALS))
 def test_lowering_refusals_match_jax(spec, match):
     """The reference raises when its block is built or traced, the port
-    when it is built: the same ValueError, before the port's own refusal
-    of a child not yet ported (FastSnowyLandscape, Jigsaw, BlendAlpha)."""
+    when it is built: the same ValueError (FastSnowyLandscape, Jigsaw
+    and BlendAlpha among the children refused)."""
     imgs, masks = colour_batch(1, 16, 16)
     with pytest.raises(ValueError, match=match) as j:
         JL.build_augmentation(JL._coerce_block(spec))(
@@ -437,13 +437,20 @@ def test_config_refusals_match_jax(spec, match):
 
 
 def test_unported_scoped_child_is_refused_after_the_reference_checks():
-    """A photometric child the reference lowers and the port has not
-    ported yet parses in the reference and fails the port's parse with
-    its pointed error."""
+    """A photometric child the port refused before it was ported (Fog
+    under WithChannels) parses and builds in both packages, and the
+    scope splices the child's channel 0 back as the reference does."""
     block = {"WithChannels": {"channels": [0], "children": {
         "Fog": None}}}
-    JC.parse_dict({"augmentation": block})
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        TC.parse_dict({"augmentation": block})
-    with pytest.raises(NotImplementedError, match="Fog"):
-        TL.build_augmentation(block)
+    d = {"augmentation": block}
+    assert TC.parse_dict(d).to_dict() == JC.parse_dict(d).to_dict()
+    imgs, masks = colour_batch(2, 16, 16)
+    key = jax.random.PRNGKey(0)
+    ji, _ = JL.build_augmentation(JL._coerce_block(block))(
+        key, jnp.asarray(imgs), jnp.asarray(masks))
+    aug = TL.build_augmentation(block)
+    ti, tm = aug.apply(jax_draws(aug, key, 2, 16, 16), torch.from_numpy(imgs),
+                       torch.from_numpy(masks))
+    np.testing.assert_allclose(ti.numpy(), np.asarray(ji), atol=1e-3, rtol=0)
+    assert np.array_equal(ti.numpy()[..., 1:], imgs[..., 1:].astype(
+        np.float32))

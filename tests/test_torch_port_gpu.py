@@ -562,6 +562,44 @@ PHOTO_ON_CARD = {
     "canny": {"Canny": {"alpha": [0.5, 1.0], "sobel_kernel_size": 5}},
     "meanshiftblur": {"MeanShiftBlur": None},
     "cartoon": {"Cartoon": {"blur_ksize": 5}},
+    # weather, the quantisers, Jigsaw and the blends (photometric
+    # children: the masks stay put, see the FrequencyNoise test for their
+    # routing); the streak convolutions under cuDNN's default TF32
+    "clouds": {"Clouds": [0.2, 0.6]},
+    "fog": {"Fog": [0.1, 0.4]},
+    "snowflakes": {"Snowflakes": {"density": [0.01, 0.05],
+                                  "speed": [0.05, 0.2]}},
+    "rain": {"Rain": None},
+    "fastsnowylandscape": {"FastSnowyLandscape": None},
+    "uniformcolorquantization": {"UniformColorQuantization": [2, 16]},
+    "jigsaw": {"Jigsaw": {"nb_rows": 5, "nb_cols": 7, "max_steps": [1, 9]}},
+    "blendalpha": {"BlendAlpha": {"factor": [0, 1], "per_channel": True,
+                                  "foreground": {"Add": 40},
+                                  "background": {"Multiply": 0.8}}},
+    "alpha": {"Alpha": {"foreground": {"Add": -40}}},
+    "blendalphaelementwise": {"BlendAlphaElementwise": {
+        "foreground": {"Add": 40}}},
+    "alphaelementwise": {"AlphaElementwise": {"foreground": {"Add": 40}}},
+    "blendalphaverticallineargradient": {"BlendAlphaVerticalLinearGradient": {
+        "foreground": {"Add": 40}, "start_at": [0, 0.3]}},
+    "blendalphahorizontallineargradient": {
+        "BlendAlphaHorizontalLinearGradient": {"foreground": {"Add": 40}}},
+    "blendalpharegulargrid": {"BlendAlphaRegularGrid": {
+        "foreground": {"Add": 40}, "nb_rows": [2, 8]}},
+    "blendalphacheckerboard": {"BlendAlphaCheckerboard": {
+        "foreground": {"Add": 40}}},
+    "blendalphasimplexnoise": {"BlendAlphaSimplexNoise": {
+        "foreground": {"Add": 40}}},
+    "simplexnoisealpha": {"SimplexNoiseAlpha": {"foreground": {"Add": 40},
+                                                "sigmoid": False}},
+    "blendalphafrequencynoise": {"BlendAlphaFrequencyNoise": {
+        "foreground": {"Add": 40}}},
+    "frequencynoisealpha": {"FrequencyNoiseAlpha": {
+        "foreground": {"Add": 40}, "exponent": -4}},
+    "blendalphasomecolors": {"BlendAlphaSomeColors": {
+        "foreground": {"Add": 40}}},
+    "blendalphasegmapclassids": {"BlendAlphaSegMapClassIds": {
+        "class_ids": 1, "foreground": {"Add": 40}}},
 }
 
 
@@ -666,3 +704,99 @@ def test_filters_turn_tf32_off_for_their_convolutions(card):
         exact = F.conv2d(planes.to(card), weight.to(card))
     assert torch.backends.cudnn.allow_tf32
     assert float((exact.cpu() - plain).abs().max()) <= 1e-3
+
+
+def test_streaks_and_segment_products_turn_tf32_off(card):
+    """With cuDNN's and cuBLAS's TF32 on, Rain's streak convolution and
+    the segment argmin's and means' products stay within 1e-3 of the CPU
+    (the assignment equal where the CPU's two best distances differ by
+    more than 1e-4 relative), while the same products run directly
+    under TF32 are off by more than that; ``fast_warp._exact_f32`` gives
+    the caller's settings back."""
+    from segmentation_training_pipeline_tpu_torch.ops.aug import (
+        fast_warp as MP, photometric as TP, segment as SG)
+
+    torch.backends.cudnn.allow_tf32 = True
+    before = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        imgs, _ = _batch(2, 64, 80, 7)
+        x = imgs.float()
+        r = torch.Generator().manual_seed(1)
+        u = torch.rand((2, 64, 80, 1), generator=r)
+        args = (torch.tensor([0.05, 0.1]), torch.tensor([0.2, 0.3]),
+                torch.tensor([-15.0, 10.0]))
+        want = TP.rain(x, u, *args)
+        got = TP.rain(x.to(card), u.to(card), *(a.to(card) for a in args))
+        assert float((got.cpu() - want).abs().max()) <= 1e-3
+        assert torch.backends.cudnn.allow_tf32
+        feats = torch.rand((2, 4096, 5), generator=r) * 255.0
+        seeds = torch.rand((2, 200, 5), generator=r) * 255.0
+        valid = torch.rand((2, 200), generator=r) < 0.8
+        ca = SG.chunked_argmin(feats, seeds, valid)
+        ga = SG.chunked_argmin(feats.to(card), seeds.to(card),
+                               valid.to(card)).cpu()
+        assert torch.get_float32_matmul_precision() == "high"
+        d = ((feats[:, :, None].double() - seeds[:, None].double()) ** 2
+             ).sum(-1).masked_fill(~valid[:, None], float("inf"))
+        best2 = d.sort(-1).values[..., :2]
+        clear = (best2[..., 1] - best2[..., 0]) > 1e-4 * best2[..., 1]
+        assert torch.equal(ga[clear], ca[clear])
+        cm, cc = SG.segment_means(ca, feats, 200)
+        gm, gc = SG.segment_means(ca.to(card), feats.to(card), 200)
+        assert float((gm.cpu() - cm).abs().max()) <= 1e-3
+        assert torch.equal(gc.cpu(), cc)
+        # TF32 is on for a product that takes it (64-long sums)
+        wide = torch.rand((2, 512, 64), generator=r) * 255.0
+        tf32 = torch.bmm(wide.to(card), wide.to(card).transpose(1, 2))
+        plain = torch.bmm(wide, wide.transpose(1, 2))
+        assert float((tf32.cpu() - plain).abs().max()) > 1e-3
+        with MP._exact_f32(card):
+            assert torch.get_float32_matmul_precision() == "highest"
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision(before)
+
+
+@pytest.mark.parametrize("h,w", [(33, 47), (65, 31)])
+def test_frequency_noise_at_odd_sizes_on_card(card, h, w):
+    """FrequencyNoise's cuFFT against the CPU's FFT at odd H and W: the
+    alpha maps within 1e-4, images within 1e-3, and the masks (a flipped
+    foreground) routed alike wherever the CPU's alpha is farther than
+    1e-5 from 0.5."""
+    aug = LW.build_augmentation({"BlendAlphaFrequencyNoise": {
+        "foreground": [{"Fliplr": 1.0}, {"Add": 30}]}})
+    seg = aug.segments[0]
+    imgs, masks = _batch(4, h, w, 8)
+    draws = aug.sample(torch.Generator().manual_seed(2), 4, h, w)
+    ci, cm = aug.apply(draws, imgs, masks)
+    gd = _to(draws, card)
+    gi, gm = aug.apply(gd, imgs.to(card), masks.to(card))
+    base = imgs.float()
+    ca = seg.alpha(draws[0]["alpha"], base, masks)
+    ga = seg.alpha(gd[0]["alpha"], base.to(card), masks.to(card))
+    assert float((ga.cpu() - ca).abs().max()) <= 1e-4
+    assert float((gi.cpu() - ci).abs().max()) <= 1e-3
+    far = (ca - 0.5).abs() > 1e-5
+    assert float((~far).float().mean()) < 1e-3
+    assert torch.equal(gm.cpu()[far.expand_as(cm)], cm[far.expand_as(cm)])
+
+
+@pytest.mark.parametrize("spec", [
+    {"Superpixels": {"n_segments": [60, 120], "p_replace": [0.5, 1.0]}},
+    {"KMeansColorQuantization": [2, 16]}], ids=["superpixels", "kmeans"])
+def test_segment_quantisers_at_512_on_card(card, spec):
+    """Superpixels and KMeansColorQuantization at 512² B16 (the default
+    max_size 128 downscales 4×) on the card against the CPU on the same
+    draws: a near-tie argmin falls either way, recolours a pixel and moves
+    its cells' means (and, over the rounds, others') by a fraction of a
+    gray level, so the share of values off by more than 0.5 is held at or
+    under 1% (``chip_smoke.SEGMENT_ATOL``); masks equal."""
+    aug = LW.build_augmentation(spec)
+    imgs, masks = _batch(16, 512, 512, 9)
+    draws = aug.sample(torch.Generator().manual_seed(3), 16, 512, 512)
+    ci, cm = aug.apply(draws, imgs, masks)
+    gi, gm = aug.apply(_to(draws, card), imgs.to(card), masks.to(card))
+    off = ((gi.cpu() - ci).abs() > 0.5).float().mean()
+    assert float(off) <= 1e-2, float(off)
+    assert torch.equal(gm.cpu(), cm)

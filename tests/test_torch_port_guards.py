@@ -7,8 +7,9 @@ and its small pure functions against the JAX package's.
     functions that decode, encode or resize (a subprocess import and an
     AST scan);
   * entry points default to the card and raise on a host without one;
-  * the config parser takes the slice's experiment and refuses what is
-    not ported with a pointed ``NotImplementedError``;
+  * the config parser takes the slice's experiment and refuses what the
+    JAX config refuses; every augmenter name of the JAX registry parses
+    and builds;
   * preprocessing, losses, metrics and the Adam rule match the JAX
     package's to 1e-6 (float32 elementwise work and small reductions).
 """
@@ -163,8 +164,7 @@ def test_config_parses_the_fpn_example():
 @pytest.mark.parametrize("patch,exc,match", [
     ({"archtecture": "Unet"}, TC.ConfigError, "Did you mean 'architecture'"),
     ({"architecture": "FPN", "backbone": "senet154",
-      "augmentation": {"Clouds": {}}}, NotImplementedError,
-     "augmenter 'Clouds' is not yet ported"),
+      "augmentation": {"Clouds": {}}}, None, "Clouds"),
     ({"backbone": "efficientnetb0", "architecture": "DeepLabV3",
       "augmentation": {"Rot90": {"k": [1, 3], "keep_sizes": True}}},
      TC.ConfigError, "Did you mean 'keep_size'"),
@@ -176,17 +176,29 @@ def test_config_parses_the_fpn_example():
     ({"loss": "dice_los"}, ValueError, "Did you mean 'dice_loss'"),
     ({"backbone": "vgg16", "augmentation": {"Superpixels":
                                             {"p_replace": 0.5}}},
-     NotImplementedError, "augmenter 'Superpixels' is not yet ported"),
-    ({"augmentation": {"Fog": {"density": 0.2}}}, NotImplementedError,
-     "not yet ported"),
+     None, "Superpixels"),
+    ({"augmentation": {"Fog": {"density": 0.2}}}, None, "Fog"),
     ({"augmentation": {"Fliplrr": 0.5}}, TC.ConfigError, "Did you mean"),
     ({"augmentation": {"Affine": {"rotat": 10}}}, TC.ConfigError,
      "Did you mean 'rotate'"),
 ], ids=["key", "fpn", "effnet", "backbone-typo", "sgd", "piecewise",
         "loss-typo", "vgg", "blur", "aug-typo", "arg-typo"])
 def test_config_refuses_what_is_not_ported(patch, exc, match):
-    with pytest.raises(exc, match=match):
-        TC.parse_dict({**EXPERIMENT, **patch})
+    """What the JAX config refuses, with a suggestion where it has one;
+    the three augmenters the port refused before (``exc`` None: Clouds,
+    Superpixels, Fog) now parse as in the JAX package and build."""
+    if exc is not None:
+        with pytest.raises(exc, match=match):
+            TC.parse_dict({**EXPERIMENT, **patch})
+        return
+    from segmentation_training_pipeline_tpu import config as JC
+    from segmentation_training_pipeline_tpu_torch.ops.aug import (
+        lowering as TL)
+
+    cfg = TC.parse_dict({**EXPERIMENT, **patch})
+    assert cfg.to_dict() == JC.parse_dict({**EXPERIMENT, **patch}).to_dict()
+    aug = TL.build_augmentation(cfg.augmentation)
+    assert [s.name for s in aug.segments] == [match.lower()]
 
 
 @pytest.mark.parametrize("patch", [
@@ -365,6 +377,13 @@ VALUE_CHECKS = {
                                                     "keep_size": False}},
     "child-canny": {"OneOf": [{"Add": 3}, {"Canny": {
         "sobel_kernel_size": 9}}]},
+    "jigsaw-rows-0": {"Jigsaw": {"nb_rows": 0}},
+    "jigsaw-cols-float": {"Jigsaw": {"nb_rows": 3, "nb_cols": 2.5}},
+    "superpixels-max-size-1": {"Superpixels": {"max_size": 1}},
+    "voronoi-max-size-float": {"UniformVoronoi": {"max_size": 64.0}},
+    "kmeans-max-size-true": {"KMeansColorQuantization": {"max_size": True}},
+    "class-ids-negative": {"BlendAlphaSegMapClassIds": {
+        "class_ids": [1, -2], "foreground": {"Add": 5}}},
 }
 
 
@@ -420,7 +439,8 @@ def test_slice_schemas_match_the_jax_schemas():
     # ``auto_contrast``: a spelling the reference's lowering takes and its
     # config does not know (no schema row on either side)
     assert TL.PORTED_AUGMENTERS - {"auto_contrast"} == set(TA._LOOKUP)
-    assert TL._META <= JL._META and TL._BLEND == JL._BLEND
+    assert TL._META == JL._META and TL._BLEND == JL._BLEND
+    assert TL._BLEND_CANON == JL._BLEND_CANON
     assert TL._JOINT_PHOTO == JL._JOINT_PHOTO
     assert TL._RGB_ONLY_PHOTO == JL._RGB_ONLY_PHOTO
     for name in TL.PORTED_AUGMENTERS - {"auto_contrast"}:
@@ -429,28 +449,20 @@ def test_slice_schemas_match_the_jax_schemas():
         (t_allowed, t_unsup), (j_allowed, j_unsup) = (TA._SCHEMA[key],
                                                       JA._SCHEMA[key])
         assert t_allowed == j_allowed and set(t_unsup) == set(j_unsup), name
-    slice_names = set("""rotate translatex translatey scalex scaley shearx
-        sheary resize scale sometimes oneof someof add addelementwise
-        multiplyelementwise linearcontrast contrastnormalization
-        gammacontrast sigmoidcontrast logcontrast invert solarize posterize
-        additivegaussiannoise additivelaplacenoise additivepoissonnoise
-        impulsenoise salt pepper saltandpepper saltpepper coarsesaltandpepper
-        coarsesalt coarsepepper dropout dropout2d channeldropout totaldropout
-        coarsedropout cutout replaceelementwise channelshuffle noop
-        identity""".split())
-    colour_names = set("""grayscale addtohueandsaturation addtohue
-        addtosaturation multiplyhueandsaturation multiplyhue
-        multiplysaturation removesaturation changecolortemperature
-        changecolorspace autocontrast auto_contrast histogramequalization
-        allchannelshistogramequalization clahe allchannelsclahe
-        withchannels withhueandsaturation withbrightnesschannels
-        withcolorspace""".split())
-    filter_names = set("""averageblur gaussianblur sharpen emboss
-        edgedetect directededgedetect motionblur averagepooling maxpooling
-        minpooling medianpooling medianblur bilateralblur jpegcompression
-        canny meanshiftblur cartoon""".split())
-    assert TL.PORTED_AUGMENTERS - TL._GEOMETRIC == (
-        slice_names | colour_names | filter_names | {"multiply"})
+
+
+def test_every_registry_name_is_ported():
+    """The registry is closed: the port lowers every name and alias of
+    the JAX config's augmenter registry (109 names, 125 with aliases),
+    and ``auto_contrast``, a spelling only the JAX lowering takes."""
+    from segmentation_training_pipeline_tpu import config as JC
+    from segmentation_training_pipeline_tpu_torch.ops.aug import (
+        lowering as TL)
+
+    JC._populate_registries()
+    names = {n.lower() for n in JC.AUGMENTERS._canonical}
+    assert len(JC.AUGMENTERS.names()) == 109 and len(names) == 125
+    assert TL.PORTED_AUGMENTERS == names | {"auto_contrast"}
 
 
 def test_package_root_matches_jax():

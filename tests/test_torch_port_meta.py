@@ -242,12 +242,12 @@ def test_combinator_refusals_match_jax(block, exc, match):
         "channels": [0], "children": [{"Fog": None}]}}]}}],
 ], ids=["sometimes", "oneof", "someof"])
 def test_unported_children_fail_at_parse(block):
-    """A child name the JAX package lowers and this package has not
-    ported yet fails at parse with the port's pointed error (JAX parses
-    it)."""
-    JC.parse_dict({"augmentation": block})
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        TC.parse_dict({"augmentation": block})
+    """Child names the port refused at parse before they were ported
+    (Fog, Clouds) parse as in the JAX package, and the block builds."""
+    d = {"augmentation": block}
+    cfg = TC.parse_dict(d)
+    assert cfg.to_dict() == JC.parse_dict(d).to_dict()
+    TL.build_augmentation(cfg.augmentation)
 
 
 def test_sample_nests_the_children_draws():

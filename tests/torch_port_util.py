@@ -21,7 +21,10 @@ hand the same values to the port:
     (lowering.py:1480-2030), the values its photometric function draws
     inside drawn from the same key (``_jax_photo_draw``);
   * Sometimes / OneOf / SomeOf: ``_make_meta``'s split (lowering.py:
-    1353, 1371, 1404), each child block drawn as a block of its own.
+    1353, 1371, 1404), each child block drawn as a block of its own;
+  * a BlendAlpha: ``_make_blend``'s three keys (lowering.py:1196), the
+    foreground and background blocks and the alpha map
+    (``_blend_alpha_map``'s splits, ``_jax_blend_alpha``).
 
 It also runs the reference's Pallas kernels in interpret mode inside the
 full lowering (the pattern of tests/test_pallas_elastic.py:132-141), and
@@ -39,6 +42,7 @@ from segmentation_training_pipeline_tpu.ops.aug import fast_warp as JFW
 from segmentation_training_pipeline_tpu.ops.aug import lowering as JL
 from segmentation_training_pipeline_tpu.ops.aug import pallas_elastic as JPE
 from segmentation_training_pipeline_tpu_torch.ops.aug import lowering as TL
+from segmentation_training_pipeline_tpu_torch.ops.aug import segment as TS
 from segmentation_training_pipeline_tpu_torch.ops.aug import warp as TW
 
 CONFIG2_BLOCK = {
@@ -344,6 +348,92 @@ def _jax_photo_draw(seg, k, b, h, w, c):
                     k1, aa.get("spatial_radius", [5.0, 40.0]), b, 5.0),
                 "color_radius": JL._sample(
                     k2, aa.get("color_radius", [5.0, 40.0]), b, 10.0)}
+    if name in ("clouds", "fog"):
+        key, spec, sizes = (("coverage", [0.2, 0.5], (4, 8, 16))
+                            if name == "clouds"
+                            else ("density", [0.1, 0.4], (2, 4)))
+        k1, k2 = split(k)
+        return {key: JL._sample(k1, JL._bare(a, key).get(key, spec), b),
+                "grids": [uniform(jax.random.fold_in(k2, i), (b, g, g))
+                          for i, g in enumerate(sizes)]}
+    if name in ("snowflakes", "rain"):
+        aa = a if isinstance(a, dict) else {}
+        dens, speed, turn = (([0.005, 0.05], [0.007, 0.03], 30.0)
+                             if name == "snowflakes"
+                             else ([0.01, 0.06], [0.04, 0.1], 20.0))
+        k1, k2, k3 = split(k, 3)
+        ka, ku = split(k3)
+        return {"density": JL._sample(k1, aa.get("density", dens), b),
+                "speed": JL._sample(k2, aa.get("speed", speed), b),
+                "angle": uniform(ka, (b,), minval=-turn, maxval=turn),
+                "u": uniform(ku, (b, h, w, 1))}
+    if name == "fastsnowylandscape":
+        aa = a if isinstance(a, dict) else {}
+        k1, k2 = split(k)
+        return {"threshold": JL._sample(k1, aa.get("lightness_threshold",
+                                                   [100, 255]), b, 140.0),
+                "multiplier": JL._sample(k2, aa.get("lightness_multiplier",
+                                                    [1.0, 4.0]), b, 2.5)}
+    if name == "uniformcolorquantization":
+        return {"n_colors": JL._sample(k, TL._single_or(a, "n_colors",
+                                                        [2, 16]), b, 8.0)}
+    if name in ("superpixels", "uniformvoronoi"):
+        key, spec = (("n_segments", 100) if name == "superpixels"
+                     else ("n_points", [50, 500]))
+        aa = JL._bare(a, "p_replace" if name == "superpixels" else key)
+        k1, k2, k3 = split(k, 3)
+        p = seg.static[1]
+        out = {key: JL._sample_int(k1, aa.get(key, spec), b, 100)[0],
+               "p_replace": JL._sample(k2, aa.get("p_replace", [0.5, 1.0]),
+                                       b, 1.0)}
+        if name == "superpixels":
+            return {**out, "u_rep": uniform(k3, (b, p))}
+        kp, kr = split(k3)
+        return {**out, "pos": uniform(kp, (b, p, 2)),
+                "u_rep": uniform(kr, (b, p))}
+    if name in ("regulargridvoronoi", "relativeregulargridvoronoi"):
+        aa = TL._grid_args(a)
+        k1, k2, k3, k4, k5 = split(k, 5)
+        if name == "regulargridvoronoi":
+            rows, rmax = JL._sample_int(k1, aa.get("n_rows", [10, 30]), b, 20)
+            cols, cmax = JL._sample_int(k2, aa.get("n_cols", [10, 30]), b, 20)
+            out = {"rows": rows, "cols": cols}
+            p = max(1, rmax) * max(1, cmax)
+        else:
+            rf, cf, rmax, cmax = TL._relative_grid(seg, h, w)
+            out = {"rows_frac": JL._sample(k1, rf, b, 0.1),
+                   "cols_frac": JL._sample(k2, cf, b, 0.1)}
+            p = rmax * cmax
+        kd, kr = split(k5)
+        return {**out,
+                "p_drop": JL._sample(k3, aa.get("p_drop_points", 0.4), b,
+                                     0.4),
+                "p_replace": JL._sample(k4, aa.get("p_replace", [0.5, 1.0]),
+                                        b, 1.0),
+                "u_drop": uniform(kd, (b, p)), "u_rep": uniform(kr, (b, p))}
+    if name == "kmeanscolorquantization":
+        ms, kk = seg.static
+        hs, ws = TS.downscaled_size(h, w, ms)
+        k1, k2 = split(k)
+        keys = split(k2, kk + 1)
+        return {"n_colors": JL._sample_int(k1, JL._bare(a, "n_colors").get(
+                    "n_colors", [2, 16]), b, 8)[0],
+                "idx0": jax.random.randint(keys[0], (b, 1), 0, hs * ws),
+                "gumbels": jnp.stack([jax.random.gumbel(kj, (b, hs * ws))
+                                      for kj in keys[1:kk]], axis=1)}
+    if name == "jigsaw":
+        rows, cols, smax = seg.static
+        k1, rng = split(k)
+        cells, dirs = [], []
+        for _ in range(smax):
+            kc, kd, rng = split(rng, 3)
+            cells.append(jax.random.randint(kc, (b,), 0, rows * cols))
+            dirs.append(jax.random.randint(kd, (b,), 0, 4))
+        return {"steps": JL._sample_int(k1, (a if isinstance(a, dict)
+                                             else {}).get("max_steps",
+                                                          [1, 5]), b, 2)[0],
+                "cells": jnp.stack(cells, axis=1),
+                "dirs": jnp.stack(dirs, axis=1)}
     assert name in ("noop", "identity", "resize", "scale", "autocontrast",
                     "auto_contrast", "histogramequalization",
                     "allchannelshistogramequalization", "averagepooling",
@@ -386,6 +476,78 @@ def _jax_meta_draw(seg, k, b, h, w, c):
                                 for ch, kk in zip(seg.children, kids)]}
 
 
+def _jax_blend_alpha(seg, k, b, h, w, c):
+    """A blend's alpha-map draws from its key, as the reference's
+    ``_blend_alpha_map`` splits and samples it."""
+    name, a, split = seg.name, seg.args, jax.random.split
+    if name in ("blendalpha", "blendalphaelementwise"):
+        spec = seg._factor_spec()
+        if name == "blendalpha":
+            shape = (b, 1, 1, c) if seg.per_channel else (b,)
+        else:
+            shape = (b, h, w, c if seg.per_channel else 1)
+        return {"factor": JL._sample_shape(k, spec, shape)}
+    if "lineargradient" in name:
+        k1, k2 = split(k)
+        return {"start": JL._sample(k1, a.get("start_at", [0.0, 1.0]), b),
+                "end": JL._sample(k2, a.get("end_at", [0.0, 1.0]), b)}
+    if name in ("blendalpharegulargrid", "blendalphacheckerboard"):
+        kr, kc, kg = split(k, 3)
+        out = {"rows": JL._sample_int(kr, a.get("nb_rows"), b, 4)[0],
+               "cols": JL._sample_int(kc, a.get("nb_cols"), b, 4)[0]}
+        if name == "blendalpharegulargrid":
+            shape = (b, seg.rmax, seg.cmax)
+            out["grid"] = (jax.random.bernoulli(kg, 0.5, shape).astype(
+                jnp.float32) if a.get("alpha") is None
+                else JL._sample_shape(kg, a["alpha"], shape))
+        return out
+    if name == "blendalphasomecolors":
+        kr, kn, ka, ks = split(k, 4)
+        shape = (b, seg.nbmax)
+        return {"rotation": JL._sample(kr, a.get("rotation_deg", [0, 360]),
+                                       b),
+                "nb_bins": JL._sample_int(kn, a.get("nb_bins", [5, 15]), b,
+                                          10)[0],
+                "table": (jax.random.bernoulli(ka, 0.5, shape).astype(
+                    jnp.float32) if a.get("alpha") is None
+                    else JL._sample_shape(ka, a["alpha"], shape)),
+                "smoothness": JL._sample(ks, a.get("smoothness", [0.1, 0.3]),
+                                         b)}
+    if name == "blendalphasegmapclassids":
+        return {}
+    if name == "blendalphasimplexnoise":
+        ks = split(k, 5)
+        out, kt = {"grids": [jax.random.uniform(kk, (b, g, g)) for kk, g in
+                             zip(ks[:4], (2, 4, 8, 16))]}, ks[4]
+    else:
+        ke, kn, kt = split(k, 3)
+        out = {"exponent": JL._sample(ke, a.get("exponent", [-4.0, 4.0]), b),
+               "white": jax.random.normal(kn, (b, h, w))}
+    if a.get("sigmoid", True):
+        out["thresh"] = JL._sample(kt, a.get("sigmoid_thresh", [0.4, 0.6]),
+                                   b)
+    return out
+
+
+def _tree_t(v):
+    if isinstance(v, dict):
+        return {n: _tree_t(x) for n, x in v.items()}
+    if isinstance(v, list):
+        return [_tree_t(x) for x in v]
+    return _t(v)
+
+
+def _jax_blend_draw(seg, k, b, h, w, c):
+    """A blend's draws as the reference's ``_make_blend`` splits its key:
+    kf for the foreground block, kb for the background block, ka for the
+    alpha map."""
+    kf, kb, ka = jax.random.split(k, 3)
+    kids = [jax_draws(ch, kk, b, h, w, c)
+            for ch, kk in ((seg.fg, kf), (seg.bg, kb)) if ch is not None]
+    return {"children": kids,
+            "alpha": _tree_t(_jax_blend_alpha(seg, ka, b, h, w, c))}
+
+
 def jax_draws(aug, key, b, h, w, c=3):
     """Draws for the port's ``aug`` (a ``lowering.Augmentation``) made with
     jax.random exactly as the reference lowering draws them from ``key``."""
@@ -398,9 +560,11 @@ def jax_draws(aug, key, b, h, w, c=3):
         if isinstance(seg, TL._Scope):
             out.append(_jax_scope_draw(seg, k, b, h, w, c))
             continue
+        if isinstance(seg, TL._Blend):
+            out.append(_jax_blend_draw(seg, k, b, h, w, c))
+            continue
         if isinstance(seg, TL._Photo):
-            out.append({n: _t(v) for n, v in _jax_photo_draw(
-                seg, k, b, h, w, c).items()})
+            out.append(_tree_t(_jax_photo_draw(seg, k, b, h, w, c)))
             continue
         gk = jax.random.split(k, len(seg.geo) + 1)
         if seg.is_cheap(h, w):
