@@ -163,9 +163,30 @@ line with its seconds; any failure raises and the script exits non-zero:
      64 images and 2 epochs through its ``main``: the evaluate dict,
      finite and in [0, 1], no kernel launch, the fit's and evaluate's
      seconds;
+  12h. train_ddp: data parallelism rehearsed on the one card: two gloo
+     ranks (``--ddp-worker`` subprocesses of this script, a file store in
+     a temporary directory, each with its own timeout), each training its
+     8 rows of ``train``'s B16 batch (Unet-resnet34 at full width, 512²,
+     f32 with TF32 off, SGD at 1e-3, the config-2 block) for 3 steps from
+     one init and one generator seed, against the same run in one
+     process: the summed loss within 1e-5, parameters within 5e-4, the
+     BatchNorm statistics within 1e-4, the ranks' parameters bit for bit
+     equal, X, Y and elastic once a step on each rank, each held bit for
+     bit on the first step's arguments, each rank's rows of the block on
+     the card (``take``) bit for bit the batch's; the statistics after
+     the first step beside those after the third; each step's ms, the
+     all-reduces a step and their bytes (gloo stages through the host:
+     not speeds);
+  12i. fit_ddp: ``fit``'s config 4, cut the same way, through the CLI's
+     ``fit`` under ``torch.distributed.run --nproc-per-node 1`` (NCCL at
+     world size 1: every collective runs), its steady step ms beside
+     ``fit``'s; then the same fit on two gloo ranks sharing the card
+     (rank 1's checkpoint, CSV and event writers raise if called), and
+     again, which skips every stage on both ranks; the JAX layout's files
+     with their ``done`` markers;
   13. the ``kernels`` summary line (``launches`` from ``train``, beside
-     them ``launches_train_photo``, ``launches_train_filter`` and
-     ``launches_train_kitchen``), then
+     them ``launches_train_photo``, ``launches_train_filter``,
+     ``launches_train_kitchen`` and ``launches_train_ddp_per_rank``), then
      the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -189,6 +210,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -216,6 +238,9 @@ from segmentation_training_pipeline_tpu_torch.ops.aug import fused_warp as FW
 from segmentation_training_pipeline_tpu_torch.ops.aug import lowering as LW
 from segmentation_training_pipeline_tpu_torch.ops.aug import shear as SH
 from segmentation_training_pipeline_tpu_torch.ops.aug import warp as WP
+from segmentation_training_pipeline_tpu_torch.parallel import (
+    distributed as DI)
+from segmentation_training_pipeline_tpu_torch.parallel import mesh as PM
 from segmentation_training_pipeline_tpu_torch.train import checkpoint as CK
 from segmentation_training_pipeline_tpu_torch.train import optimizers as OP
 from segmentation_training_pipeline_tpu_torch.train import stage as SG
@@ -2228,6 +2253,343 @@ def phase_accuracy(seed: int) -> dict:
     return out
 
 
+# the train_ddp phase: DDP_WORLD gloo ranks share the one card (NCCL
+# refuses two ranks on one device) and train ``train``'s model in f32
+# with TF32 off, SGD at DDP_LR, the config-2 block, DDP_STEPS steps of the
+# global batch BATCH, against the same run in one process; the bounds of
+# tests/test_sharding.py (SGD, as there: Adam's first step is ±lr·sign(g)
+# and turns reduction-order noise into 2·lr flips).  Each rank process
+# has its own timeout and init timeout
+DDP_WORLD, DDP_STEPS, DDP_LR, DDP_TIMEOUT_S = 2, 3, 1e-3, 600
+DDP_LOSS_ATOL, DDP_PARAM_ATOL, DDP_STAT_ATOL = 1e-5, 5e-4, 1e-4
+DDP_KERNELS = ("warp_x", "warp_y", "elastic")
+
+
+def _ddp_steps(seed: int, mesh=None) -> dict:
+    """DDP_STEPS f32 steps of Unet-resnet34 512² under the config-2 block
+    from the seed's init, on the whole batch (``mesh`` None) or on this
+    rank's rows; each step's loss (the rank's share), ms, the launches and
+    all-reduces of the run, the first step's X, Y and elastic held to
+    their plain versions, the BatchNorm statistics after the first step
+    and the final variables, on the CPU."""
+    cfg = CF.parse_dict({"architecture": "Unet", "backbone": "resnet34",
+                         "loss": LOSS, "optimizer": "SGD", "lr": DDP_LR,
+                         "dtype": "float32", "batch": BATCH,
+                         "augmentation": CONFIG2_BLOCK})
+    model = MF.init_model(MF.create_model("Unet", "resnet34", 1,
+                                          dtype="float32"), seed, "cpu")
+    tx = OP.build_optimizer(cfg)
+    state = ST.create_train_state(model, tx, "cuda")
+    step = ST.build_train_step(
+        model, tx, LO.build_loss(cfg.loss, cfg.activation), {},
+        cfg.activation, None, aug=LW.build_augmentation(CONFIG2_BLOCK),
+        mesh=mesh)
+    imgs, masks = synthetic_batch(BATCH, SIZE, SIZE, seed)
+    batch = {"image": torch.from_numpy(imgs).cuda(),
+             "mask": torch.from_numpy(masks).cuda(),
+             "weight": torch.ones(BATCH, device="cuda")}
+    if mesh is not None:
+        batch = PM.shard_batch(batch, mesh)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    losses, times, calls = [], [], {}
+    with no_tf32():
+        K.reset_launches()
+        DI.reset_counts()
+        for i in range(DDP_STEPS):
+            t0 = time.perf_counter()
+            with captured(DDP_KERNELS if i == 0 else (), calls):
+                state, logs = step(state, batch, DDP_LR, gen=gen)
+            losses.append(float(logs["loss"]))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                stats1 = {k: v.cpu() for k, v in state.batch_stats.items()}
+        launches = K.launch_counts()
+        counts = DI.counts()
+    grad_bytes = sum(4 * state.params[k].numel()
+                     for k in tx.trainable(state.params))
+    return dict(loss=losses, step_ms=times, launches=launches,
+                all_reduces_per_step=counts["all_reduce"] / DDP_STEPS,
+                all_reduce_bytes_per_step=counts["bytes"] / DDP_STEPS,
+                grad_all_reduce_bytes_per_step=grad_bytes,
+                held_to_plain=held_to_plain(calls, "train_ddp"),
+                stats_step1=stats1,
+                params={k: v.cpu() for k, v in state.params.items()},
+                stats={k: v.cpu() for k, v in state.batch_stats.items()})
+
+
+def _spawn_ranks(mode: str, out: str, *extra: str) -> list:
+    """Run DDP_WORLD ``--ddp-worker`` processes of this script (gloo, one
+    file store in ``out``), each waited for with its own timeout and
+    killed on failure; their outputs."""
+    store = os.path.join(out, f"store-{mode}")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--ddp-worker", mode,
+         str(r), str(DDP_WORLD), store, out, *extra],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in range(DDP_WORLD)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DDP_TIMEOUT_S)[0].decode())
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, (mode, f"rank {r}", o[-3000:]))
+    return outs
+
+
+def _max_diff(a: dict, b: dict) -> float:
+    return max(float((a[k] - b[k]).abs().max()) for k in a)
+
+
+def _rows_augment_alike(seed: int) -> bool:
+    """Each rank's rows of the config-2 block on the card (its ``take`` of
+    the global draws) equal the whole batch's rows bit for bit."""
+    aug = LW.build_augmentation(CONFIG2_BLOCK)
+    imgs, masks = synthetic_batch(BATCH, SIZE, SIZE, seed)
+    imgs, masks = torch.from_numpy(imgs).cuda(), torch.from_numpy(masks).cuda()
+    draws = aug.sample(torch.Generator(device="cuda").manual_seed(seed + 2),
+                       BATCH, SIZE, SIZE)
+    out_i, out_m = aug.apply(draws, imgs, masks)
+    per = BATCH // DDP_WORLD
+    for r in range(DDP_WORLD):
+        rows = slice(r * per, (r + 1) * per)
+        ri, rm = aug.apply(aug.take(draws, rows), imgs[rows], masks[rows])
+        if not (torch.equal(ri, out_i[rows]) and torch.equal(rm,
+                                                             out_m[rows])):
+            return False
+    return True
+
+
+def phase_train_ddp(seed: int) -> dict:
+    """Two gloo ranks on the card against one process (see DDP_WORLD)."""
+    rows_alike = _rows_augment_alike(seed)
+    one = _ddp_steps(seed)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        _spawn_ranks("train", tmp, str(seed))
+        ranks = [torch.load(os.path.join(tmp, f"train-{r}.pt"))
+                 for r in range(DDP_WORLD)]
+    loss = [sum(r["loss"][i] for r in ranks) for i in range(DDP_STEPS)]
+    r0, r1 = ranks[0], ranks[1]
+    out = dict(
+        model="Unet-resnet34", dtype="float32", tf32=False, optimizer="SGD",
+        lr=DDP_LR, batch=BATCH, rows_per_rank=BATCH // DDP_WORLD,
+        size=[SIZE, SIZE], steps=DDP_STEPS, world=DDP_WORLD,
+        backend="gloo (rehearsal: two ranks share one card)",
+        loss_one_process=one["loss"], loss_ranks=loss,
+        loss_max_diff=max(abs(a - b) for a, b in zip(loss, one["loss"])),
+        param_max_diff=_max_diff(r0["params"], one["params"]),
+        stat_max_diff=_max_diff(r0["stats"], one["stats"]),
+        stat_max_diff_step1=_max_diff(r0["stats_step1"],
+                                      one["stats_step1"]),
+        rows_augmented_bit_equal=rows_alike,
+        stat_worst=sorted(([k, float((r0["stats"][k] - one["stats"][k])
+                                     .abs().max()),
+                            float(one["stats"][k].abs().max())]
+                           for k in one["stats"]),
+                          key=lambda t: -t[1])[:3],
+        ranks_bit_equal=all(torch.equal(r0[p][k], r1[p][k])
+                            for p in ("params", "stats") for k in r0[p]),
+        step_ms_one_process=one["step_ms"],
+        step_ms_ranks=[r["step_ms"] for r in ranks],
+        all_reduces_per_step=[r["all_reduces_per_step"] for r in ranks],
+        all_reduce_bytes_per_step=[r["all_reduce_bytes_per_step"]
+                                   for r in ranks],
+        grad_all_reduce_bytes_per_step=r0["grad_all_reduce_bytes_per_step"],
+        launches_one_process=one["launches"],
+        launches_per_rank=[r["launches"] for r in ranks],
+        held_to_plain_per_rank=[r["held_to_plain"] for r in ranks],
+        tolerance=dict(loss=DDP_LOSS_ATOL, params=DDP_PARAM_ATOL,
+                       stats=DDP_STAT_ATOL))
+    emit("train_ddp", **out)
+    want = {n: DDP_STEPS if n in DDP_KERNELS else 0 for n in K.KERNELS}
+    check(all(r["launches"] == want for r in ranks) and one["launches"]
+          == want, ("train_ddp launches", out["launches_per_rank"]))
+    check(out["loss_max_diff"] < DDP_LOSS_ATOL, ("train_ddp loss", loss,
+                                                 one["loss"]))
+    check(out["param_max_diff"] < DDP_PARAM_ATOL,
+          ("train_ddp params", out["param_max_diff"]))
+    check(out["stat_max_diff"] < DDP_STAT_ATOL,
+          ("train_ddp BN statistics", out["stat_max_diff"]))
+    check(out["ranks_bit_equal"], "train_ddp: the ranks' parameters differ")
+    check(rows_alike, "train_ddp: a rank's augmented rows differ")
+    return out
+
+
+def _fit_yaml(path: str, profile: str = "") -> None:
+    """``FIT_YAML`` with its epochs cut to ``FIT_EPOCHS`` (and the fit's
+    own ``profile:`` trace written under ``profile``, if given), written to
+    ``path`` (its directory is the experiment's)."""
+    import yaml
+
+    with open(FIT_YAML) as f:
+        d = yaml.safe_load(f)
+    for s, e in zip(d["stages"], FIT_EPOCHS):
+        s["epochs"] = e
+    if profile:
+        d["profile"] = profile
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        yaml.safe_dump(d, f)
+
+
+def _steady_step_ms(timings: list) -> float:
+    """``phase_fit``'s steady step ms: the epochs after each stage's first,
+    each less its wait for its first batch."""
+    steady = [t for t in timings if t["epoch"] > 0]
+    return (sum(t["train_s"] - t["first_batch_s"] for t in steady)
+            / sum(t["steps"] for t in steady) * 1e3)
+
+
+def phase_fit_ddp(seed: int, fit: dict, profile: bool = False) -> dict:
+    """Config 4 as ``phase_fit`` cuts it: the CLI's ``fit`` under
+    ``torch.distributed.run`` at world size 1 (NCCL), then the same fit on
+    two gloo ranks sharing the card, and that fit again, which skips.
+    ``profile``: the NCCL fit traces epoch 1 of each stage, as ``fit``
+    does, for its device busy and idle share."""
+    with tempfile.TemporaryDirectory() as tmp:
+        h = CF.parse(FIT_YAML).shape[0]
+        images, masks = SY.write_shapes_dataset(
+            os.path.join(tmp, "data"), FIT_IMAGES, h, seed, p_empty=FIT_EMPTY)
+        yml = os.path.join(tmp, "nccl", "cfg.yaml")
+        traces = os.path.join(tmp, "profile") if profile else ""
+        _fit_yaml(yml, traces)
+        times = os.path.join(tmp, "timings.json")
+        t0 = time.perf_counter()
+        # its own session, so a timeout ends torchrun's workers with it
+        run = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", "1", "-m",
+             "segmentation_training_pipeline_tpu_torch", "fit", yml,
+             "--images", images, "--masks", masks, "--folds", "0",
+             "--timings", times], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, start_new_session=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        try:
+            stdout, stderr = run.communicate(timeout=DDP_TIMEOUT_S)
+        finally:
+            if run.poll() is None:
+                os.killpg(run.pid, signal.SIGKILL)
+                run.communicate()
+        nccl_s = time.perf_counter() - t0
+        check(run.returncode == 0, ("fit_ddp torchrun", stdout[-2000:],
+                                    stderr[-3000:]))
+        with open(times) as f:
+            timings = json.load(f)
+        busy = {s: _trace_busy_s(os.path.join(traces, f"fold0.stage{s}"))
+                for s in range(len(FIT_EPOCHS))} if profile else {}
+        epoch1 = {t["stage"]: t for t in timings if t["epoch"] == 1}
+        nccl = CF.parse(yml)
+        nccl_files = _fit_files(nccl)
+        gloo_yml = os.path.join(tmp, "gloo", "cfg.yaml")
+        _fit_yaml(gloo_yml)
+        t0 = time.perf_counter()
+        _spawn_ranks("fit", tmp, gloo_yml, images, masks)
+        gloo_s = time.perf_counter() - t0
+        gloo = CF.parse(gloo_yml)
+        gloo_files = _fit_files(gloo)
+        summaries = []
+        for r in range(DDP_WORLD):
+            with open(os.path.join(tmp, f"fit-{r}.json")) as f:
+                summaries.append(json.load(f))
+    keys = [f"fold0.stage{s}" for s in range(len(FIT_EPOCHS))]
+    out = dict(
+        config=FIT_YAML, reduced={"epochs": list(FIT_EPOCHS)},
+        images=FIT_IMAGES,
+        nccl_world1=dict(launcher="torch.distributed.run --nproc-per-node 1",
+                         seconds=nccl_s,
+                         steady_step_ms=_steady_step_ms(timings),
+                         traced_epoch1_device_busy_s=busy or None,
+                         traced_epoch1_idle_share={
+                             s: 1.0 - b / (epoch1[s]["train_s"]
+                                           + epoch1[s]["val_s"])
+                             for s, b in busy.items()} or None,
+                         files=nccl_files),
+        fit_steady_step_ms=fit["steady_step_ms_after_first_batch"],
+        fit_traced_epoch1_idle_share=fit["traced_epoch1_idle_share"],
+        gloo_world2=dict(seconds=gloo_s, files=gloo_files,
+                         best=[s["first"][k]["best"] for s in summaries
+                               for k in keys],
+                         steady_step_ms=[s["steady_step_ms"]
+                                         for s in summaries],
+                         refit=[s["again"] for s in summaries]))
+    out["nccl_world1_over_fit_step"] = (out["nccl_world1"]["steady_step_ms"]
+                                        / out["fit_steady_step_ms"])
+    emit("fit_ddp", **out)
+    for files in (nccl_files, gloo_files):
+        check(all(files.values()), ("fit_ddp files", files))
+    for s in summaries:
+        check(list(s["again"]) == keys and all(
+            s["again"][k].get("skipped") is True for k in keys),
+            ("fit_ddp refit", s["again"]))
+    check(summaries[0]["first"] == summaries[1]["first"],
+          ("fit_ddp ranks' summaries", summaries))
+    return out
+
+
+def _fit_files(cfg) -> dict:
+    """Each file of the JAX layout a fold-0 fit writes: present and done."""
+    out = {}
+    for s in range(len(FIT_EPOCHS)):
+        w = cfg.weights_path(0, s)
+        meta = CK.checkpoint_meta(w) or {}
+        out[os.path.relpath(w, cfg.directory)] = (
+            os.path.exists(w) and meta.get("done") is True)
+        out[os.path.relpath(cfg.metrics_path(0, s), cfg.directory)] = \
+            os.path.exists(cfg.metrics_path(0, s))
+    return out
+
+
+def _forbid_writes() -> None:
+    """A non-primary rank's checkpoint, CSV and event-file writers raise
+    if called: primary-only IO by construction."""
+    from segmentation_training_pipeline_tpu_torch.utils import tfevents
+
+    def forbidden(*a, **k):
+        raise RuntimeError("a non-primary rank wrote a checkpoint")
+
+    class Forbidden:
+        def __init__(self, *a, **k):
+            raise RuntimeError("a non-primary rank opened a writer")
+
+    SG.save_checkpoint = forbidden
+    SG.cb.CSVLogger = Forbidden
+    tfevents.EventFileWriter = Forbidden
+
+
+def ddp_worker(argv) -> int:
+    """One gloo rank of ``train_ddp`` or ``fit_ddp`` on the card."""
+    mode, rank, world, store, out, *rest = argv
+    rank = int(rank)
+    DI.maybe_initialize(force=True, backend="gloo",
+                        init_method=f"file://{store}",
+                        world_size=int(world), rank=rank,
+                        timeout_s=DDP_TIMEOUT_S)
+    mesh = PM.build_mesh()
+    if mode == "train":
+        torch.save(_ddp_steps(int(rest[0]), mesh),
+                   os.path.join(out, f"train-{rank}.pt"))
+    else:
+        yml, images, masks = rest
+        if rank != 0:
+            _forbid_writes()
+        cfg = CF.parse(yml)
+        ds = DirectoryDataSet(images, masks)
+        timings = []
+        first = cfg.fit(ds, foldsToExecute=[0], verbose=0, timings=timings)
+        again = cfg.fit(ds, foldsToExecute=[0], verbose=0)
+        with open(os.path.join(out, f"fit-{rank}.json"), "w") as f:
+            json.dump({"first": first, "again": again,
+                       "steady_step_ms": _steady_step_ms(timings)}, f)
+    DI.shutdown()
+    return 0
+
+
 def _profile_path(base: str, tag: str) -> str:
     """``base`` with ``_tag`` before its suffix ("" when not profiling)."""
     if not base:
@@ -2247,6 +2609,9 @@ def timed(name: str, fn, *args, **kwargs):
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--ddp-worker"]:
+        return ddp_worker(argv[1:])
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", default="",
                     help="also profile 3 steps of each train phase and 3 "
@@ -2288,7 +2653,7 @@ def main(argv=None) -> int:
           _profile_path(a.profile, "psp"))
     timed("zoo", phase_zoo, SEED)
     timed("serve", phase_serve, SEED, _profile_path(a.profile, "serve"))
-    timed("fit", phase_fit, SEED, bool(a.profile))
+    fit = timed("fit", phase_fit, SEED, bool(a.profile))
     timed("fit_psp", phase_fit_psp, SEED, bool(a.profile))
     timed("pretrained", phase_pretrained, imgs, masks, SEED,
           _profile_path(a.profile, "pretrained"))
@@ -2301,6 +2666,8 @@ def main(argv=None) -> int:
     kitchen = timed("train_kitchen", phase_train_kitchen, SEED,
                     _profile_path(a.profile, "kitchen"))
     timed("accuracy", phase_accuracy, SEED)
+    ddp = timed("train_ddp", phase_train_ddp, SEED)
+    timed("fit_ddp", phase_fit_ddp, SEED, fit, bool(a.profile))
     # launches on each kernel's main path: X, Y and elastic in the Unet
     # step, YE in the FPN step, the shear in the unfused warp path
     launches = dict(train["launches"], warp_ye=train_fpn["launches"][
@@ -2310,6 +2677,8 @@ def main(argv=None) -> int:
         row["launches_train_photo"] = photo["launches"][name]
         row["launches_train_filter"] = filt["launches"][name]
         row["launches_train_kitchen"] = kitchen["launches"][name]
+        row["launches_train_ddp_per_rank"] = [
+            r[name] for r in ddp["launches_per_rank"]]
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}),

@@ -8,13 +8,20 @@ Counterpart of ``segmentation_training_pipeline_tpu/cli.py``:
         --images data/images (--masks data/masks | --rle-csv labels.csv)
     python -m segmentation_training_pipeline_tpu_torch fit cfg.yaml \
         --images data/images (--masks data/masks | --rle-csv labels.csv) \
-        [--folds 0 1] [--start-stage 0]
+        [--folds 0 1] [--start-stage 0] [--timings epochs.json]
 
 Each command runs on the card unless ``--device`` names another; ``fit``
-prints its summary dict as JSON.  There is no compilation cache to set up
-(eager PyTorch), and the multi-host bootstrap (the JAX package's
-``parallel.distributed``) is not ported yet: this CLI runs one process on
-one device.
+prints its summary dict as JSON (and with ``--timings`` writes the
+per-epoch timings of ``train/stage.py:fit_pipeline`` to a JSON file).
+There is no compilation cache to set up (eager PyTorch).  Data-parallel
+training runs one process per card under torchrun:
+
+    torchrun --nproc-per-node 8 -m segmentation_training_pipeline_tpu_torch \
+        fit cfg.yaml --images … --masks …
+
+``parallel.distributed.maybe_initialize`` joins the processes (NCCL)
+before any CUDA use when torchrun's environment or ``STP_DISTRIBUTED`` is
+set; each process uses the card ``LOCAL_RANK``.
 """
 
 from __future__ import annotations
@@ -38,6 +45,8 @@ def _build_parser():
     f.add_argument("--folds", type=int, nargs="*", default=None)
     f.add_argument("--start-stage", type=int, default=0)
     f.add_argument("--device", default="cuda")
+    f.add_argument("--timings", default=None,
+                   help="write the per-epoch timings here (JSON)")
 
     pr = sub.add_parser("predict", help="predict masks for a directory")
     pr.add_argument("config")
@@ -61,6 +70,10 @@ def _build_parser():
 
 def main(argv=None) -> int:
     args = _build_parser().parse_args(argv)
+    # a torchrun launch: join the group before any CUDA use
+    from .parallel import distributed as dist
+
+    dist.maybe_initialize()
     from .config import parse
     from .data.datasets import CSVRLEDataSet, DirectoryDataSet
 
@@ -78,8 +91,13 @@ def main(argv=None) -> int:
     cfg = parse(args.config)
     if args.cmd == "fit":
         ds = _dataset(args)
+        timings = [] if args.timings else None
         res = cfg.fit(ds, foldsToExecute=args.folds,
-                      start_from_stage=args.start_stage, device=args.device)
+                      start_from_stage=args.start_stage, device=args.device,
+                      timings=timings)
+        if timings is not None and dist.is_primary():
+            with open(args.timings, "w") as f:
+                json.dump(timings, f)
         print(json.dumps(res, indent=2, default=str))
     elif args.cmd == "predict":
         n = cfg.predict_all_to_dir(args.src, args.dst, folds=args.folds,
@@ -91,6 +109,7 @@ def main(argv=None) -> int:
         res = cfg.evaluate(ds, folds=args.folds, stage=args.stage,
                            device=args.device)
         print(json.dumps(res, indent=2))
+    dist.shutdown()
     return 0
 
 

@@ -561,16 +561,17 @@ class PipelineConfig:
 
     def fit(self, dataset, foldsToExecute: Optional[Sequence[int]] = None,
             start_from_stage: int = 0, verbose: Optional[int] = None,
-            device="cuda", aug_seed: Optional[int] = None):
+            device="cuda", aug_seed: Optional[int] = None,
+            timings: Optional[list] = None):
         """Train all requested folds through all stages on ``device``.
         See ``train/stage.py`` (``aug_seed`` seeds the augmentation draws
-        in place of ``random_state``)."""
+        in place of ``random_state``; ``timings`` gets each epoch's)."""
         from .train.stage import fit_pipeline
 
         return fit_pipeline(self, dataset, foldsToExecute=foldsToExecute,
                             start_from_stage=start_from_stage,
                             verbose=verbose, device=device,
-                            aug_seed=aug_seed)
+                            aug_seed=aug_seed, timings=timings)
 
     # the serving surface (``infer.py``); each takes ``device="cuda"``
     def load(self, fold=0, stage: int = -1, device="cuda"):

@@ -12,10 +12,13 @@ exact copy in OpenCV, so skipping it changes no value.
 ``image_path`` and ``mask_path``) at 1 or 3 channels on the thread pool of
 ``data/loader.py``, which gives the bytes of the JAX package's native C++
 loader, and any other dataset item by item (``dataset[i]``), as the JAX
-batcher chooses.  ``Prefetcher`` runs the batch generator on a worker
-thread that pins each batch; the consumer copies it to the card with
-``non_blocking=True`` on its current stream, so the worker never touches a
-stream and the copy overlaps the previous step.
+batcher chooses.  Under data parallelism (``rows``) each rank decodes only
+its rows of every global batch and carries the global ``weight`` vector
+(the JAX package decodes the whole global batch on every host, but decode
+is most of a fit step's host time).  ``Prefetcher`` runs the batch
+generator on a worker thread that pins each batch; the consumer copies it
+to the card with ``non_blocking=True`` on its current stream, so the
+worker never touches a stream and the copy overlaps the previous step.
 """
 
 from __future__ import annotations
@@ -133,7 +136,8 @@ def make_batches(dataset: DataSet, indices: Sequence[int], shape, classes: int,
                  activation: str, batch_size: int,
                  wrap_pad: bool = True,
                  cache: Optional[dict] = None,
-                 stats: Optional[dict] = None
+                 stats: Optional[dict] = None,
+                 rows: Optional[slice] = None
                  ) -> Iterator[Dict[str, np.ndarray]]:
     """Yield batches of stacked uint8 images + uint8 one-hot masks + float32
     weights, in plan order.
@@ -147,7 +151,9 @@ def make_batches(dataset: DataSet, indices: Sequence[int], shape, classes: int,
     the batch's count of failures.  ``stats``: a dict accumulating
     ``decode_s`` (wall seconds spent assembling batches), ``batches``,
     ``native`` (whether the pool served this plan) and ``decode_threads``
-    (its threads, 0 without it).
+    (its threads, 0 without it).  ``rows``: decode only these rows of each
+    batch (a rank's, ``parallel.mesh.Mesh.rows``); ``weight`` stays the
+    whole batch's.
     """
     idx = np.asarray(indices, dtype=np.int64)
     n = len(idx)
@@ -168,6 +174,9 @@ def make_batches(dataset: DataSet, indices: Sequence[int], shape, classes: int,
         if n_real < batch_size and wrap_pad:
             extra = idx[np.arange(batch_size - n_real) % n]
             sel = np.concatenate([sel, extra])
+        weight = (np.arange(len(sel)) < n_real).astype(np.float32)
+        if rows is not None:
+            sel = sel[rows]
         if cache is not None and all(int(i) in cache for i in sel):
             imgs_arr = np.stack([cache[int(i)][0] for i in sel])
             masks_arr = np.stack([cache[int(i)][1] for i in sel])
@@ -200,7 +209,7 @@ def make_batches(dataset: DataSet, indices: Sequence[int], shape, classes: int,
         yield {
             "image": imgs_arr,
             "mask": masks_arr,
-            "weight": (np.arange(len(sel)) < n_real).astype(np.float32),
+            "weight": weight,
         }
 
 

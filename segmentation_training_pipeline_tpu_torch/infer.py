@@ -7,15 +7,21 @@ input id.  One ``SegmentationModel`` lives on the card with one
 ``(params, batch_stats)`` pair per fold beside it; a batch is uploaded
 once, preprocessed once, run through every fold (every TTA view, un-flipped
 after the activation) under ``torch.inference_mode()``, summed on the card
-in fold order and brought back once.  The JAX package's multi-device mesh
-becomes one card.  No hand-written kernel is on this path (the TTA views
-are flips and rotations, the model is cuDNN).  The config's deterministic
+in fold order and brought back once.  Data-sharded serving, as the JAX
+package's mesh: a process without a process group that sees more than one
+card (or is given ``devices``) keeps a model and every fold's variables on
+each, zero-pads a batch to a multiple of the card count, predicts each
+slice on its card and brings the slices back in order; in a process group
+each rank predicts on its own card alone.  No hand-written kernel is on
+this path (the TTA views are flips and rotations, the model is cuDNN).
+The config's deterministic
 ``transforms:`` run on the uploaded batch before preprocessing, as in
 training (``lowering.build_transform_fn``).
 """
 
 from __future__ import annotations
 
+import copy
 import csv
 import os
 from typing import Dict, Iterator, List, Optional, Sequence, Union
@@ -31,6 +37,7 @@ from .models.factory import (apply_activation, apply_model, model_from_config,
 from .ops import metrics as _metrics
 from .ops.aug.lowering import build_transform_fn
 from .ops.preprocess import preprocess
+from .parallel import distributed as dist
 from .train.checkpoint import load_checkpoint
 from .utils.rle import rle_encode
 
@@ -39,10 +46,12 @@ Tensor = torch.Tensor
 
 class InferenceBundle:
     """A model on ``device``, one variables pair per requested fold, and
-    the config's TTA mode."""
+    the config's TTA mode; with ``devices`` (by default every card a
+    process without a group sees, when ``device`` names no index) a copy
+    of both on each device, the batch split across them."""
 
     def __init__(self, cfg: PipelineConfig, folds: Sequence[int], stage: int,
-                 tta=None, device="cuda"):
+                 tta=None, device="cuda", devices=None):
         self.cfg = cfg
         self.tta = tta if tta is not None else (
             "flip" if cfg.flipPred else cfg.testTimeAugmentation)
@@ -67,12 +76,25 @@ class InferenceBundle:
         for path in paths:
             load_checkpoint(path, self.model)
             self.fold_vars.append(model_variables(self.model))
+        if devices is None and self.device.type == "cuda" and \
+                self.device.index is None:
+            devices = [torch.device("cuda", i)
+                       for i in range(torch.cuda.device_count())]
+        if dist.active() or not devices or len(devices) < 2:
+            devices = [self.device]
+        # (device, model, fold variables) per device, the first this one
+        self.replicas = [(self.device, self.model, self.fold_vars)]
+        for d in devices[1:]:
+            d = torch.device(d)
+            self.replicas.append((d, copy.deepcopy(self.model).to(d), [
+                tuple({k: v.to(d) for k, v in t.items()} for t in pair)
+                for pair in self.fold_vars]))
 
-    def _views(self, params, stats, x: Tensor) -> Tensor:
+    def _views(self, model, params, stats, x: Tensor) -> Tensor:
         """Probabilities of one fold, averaged over the TTA views in the
         JAX package's order (each view un-flipped after the activation)."""
         def fwd(z):
-            return apply_activation(apply_model(self.model, params, stats, z),
+            return apply_activation(apply_model(model, params, stats, z),
                                     self.cfg.activation)
 
         p, tta = fwd(x), self.tta
@@ -99,22 +121,43 @@ class InferenceBundle:
         return p
 
     def predict_probs(self, images_u8: np.ndarray) -> np.ndarray:
-        """(B, H, W, C) uint8 at config shape → fold-ensembled probs (f32)."""
+        """(B, H, W, C) uint8 at config shape → fold-ensembled probs (f32).
+        Over several devices the batch is zero-padded to a multiple of
+        their count (the padded rows cut off the result)."""
+        if len(self.replicas) == 1:
+            return self._predict(self.replicas[0], images_u8).cpu().numpy()
+        n, nd = int(images_u8.shape[0]), len(self.replicas)
+        images_u8 = np.asarray(images_u8)
+        if n % nd:
+            images_u8 = np.concatenate([images_u8, np.zeros(
+                (nd - n % nd, *images_u8.shape[1:]), images_u8.dtype)])
+        # every slice is queued on its device before any comes back; the
+        # transforms draw for the whole padded batch and take its rows
+        per = images_u8.shape[0] // nd
+        outs = [self._predict(r, images_u8[i * per:(i + 1) * per],
+                              slice(i * per, (i + 1) * per), nd * per)
+                for i, r in enumerate(self.replicas)]
+        return np.concatenate([o.cpu().numpy() for o in outs])[:n]
+
+    def _predict(self, replica, images_u8: np.ndarray,
+                 rows: Optional[slice] = None,
+                 batch: Optional[int] = None) -> Tensor:
+        device, model, fold_vars = replica
         with torch.inference_mode():
             images = torch.from_numpy(np.ascontiguousarray(images_u8)).to(
-                self.device)
+                device)
             if self.transform is not None:
                 # masks do not exist here: a dummy rides the joint transform
-                dummy = torch.zeros((*images.shape[:3], 1),
-                                    device=self.device)
-                images, _ = self.transform(images, dummy)
+                dummy = torch.zeros((*images.shape[:3], 1), device=device)
+                images, _ = (self.transform(images, dummy) if rows is None
+                             else self.transform(images, dummy, rows, batch))
             x = preprocess(images, self.cfg.preprocessing or "tf",
-                           self.model.dtype)
+                           model.dtype)
             acc = None
-            for params, stats in self.fold_vars:
-                p = self._views(params, stats, x)
+            for params, stats in fold_vars:
+                p = self._views(model, params, stats, x)
                 acc = p if acc is None else acc + p
-            return (acc / len(self.fold_vars)).cpu().numpy()
+            return acc / len(fold_vars)
 
 
 def _resolve_folds(cfg: PipelineConfig, folds, stage: int) -> List[int]:

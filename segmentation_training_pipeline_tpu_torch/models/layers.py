@@ -14,7 +14,10 @@ inside).  Three conventions of the flax reference are kept exactly:
     graphs use Keras's 0.99 and eps 1e-3, MobileNetV2 0.999), and the
     BIASED batch variance (PyTorch folds in the unbiased one).  In training mode
     the layer leaves its updated statistics in ``updated``; the caller
-    collects them (``models.factory.apply_model``).
+    collects them (``models.factory.apply_model``).  In a process group
+    (``parallel/distributed.py``) the training statistics are the global
+    batch's: one all-reduce of each layer's per-channel sum, sum of squares
+    and count, the statistics GSPMD gives the JAX package.
   * Initialisation as flax's defaults: conv kernels from
     variance_scaling(1, fan_in, truncated normal), biases 0, BN scale 1 and
     bias 0.
@@ -32,6 +35,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
+
+from ..parallel import distributed as dist
 
 Tensor = torch.Tensor
 Size2 = Union[int, Tuple[int, int]]
@@ -136,6 +141,8 @@ class BatchNorm(nn.Module):
         if not train:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 weight, self.bias, False, 0.0, self.eps)
+        if dist.active():
+            return self._synced(x, weight)
         mean = self.running_mean.clone()
         var = self.running_var.clone()
         y = F.batch_norm(x, mean, var, weight, self.bias, True,
@@ -146,6 +153,35 @@ class BatchNorm(nn.Module):
         kept = self.momentum * self.running_var
         self.updated = (mean, kept + (var - kept) * ((n - 1) / n))
         return y
+
+    def _synced(self, x: Tensor, weight: Tensor) -> Tensor:
+        """Train mode over the group's global batch: per-channel sum, sum
+        of squares and count of the float32 values (also under bf16
+        autocast), accumulated in float64, one differentiable all-reduce of
+        the three, then flax's fast variance E[x²] − mean² (clipped at 0)
+        and the running statistics blended with that biased variance of the
+        global batch (the (n − 1)/n rescale above, with the global n,
+        undone in one step).  The sums are float64 so that the
+        subtraction's cancellation (E[x²] far above the variance) stays out
+        of float32, where it leaves the variance less accurate than the
+        one-process path's."""
+        c = x.shape[1]
+        xf = x.float()
+        s1 = xf.sum((0, 2, 3), dtype=torch.float64)
+        s2 = (xf * xf).sum((0, 2, 3), dtype=torch.float64)
+        tot = dist.all_reduce_sum(torch.cat(
+            [s1, s2, s1.new_full((1,), x.numel() // c)]))
+        mean = tot[:c] / tot[2 * c]
+        var = torch.clamp(tot[c:2 * c] / tot[2 * c] - mean * mean,
+                          min=0.0).float()
+        mean = mean.float()
+        scale = torch.rsqrt(var + self.eps) * weight.float()
+        shift = self.bias.float() - mean * scale
+        y = xf * scale[None, :, None, None] + shift[None, :, None, None]
+        m = self.momentum
+        self.updated = (m * self.running_mean + (1.0 - m) * mean.detach(),
+                        m * self.running_var + (1.0 - m) * var.detach())
+        return y.to(x.dtype)
 
 
 class ConvBN(nn.Module):

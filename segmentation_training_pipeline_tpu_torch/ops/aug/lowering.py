@@ -15,6 +15,11 @@ random value of the block from a ``torch.Generator`` (the distributions of
 the JAX lowering), and ``Augmentation.apply(draws, images, masks)`` is
 deterministic.  The tests make the draws with ``jax.random`` along the
 reference's key schedule and hand the same values to both sides.
+``Augmentation.take(draws, rows)`` cuts a batch's draws to some of its
+images, with ``apply(take(d, rows), x[rows]) == apply(d, x)[rows]``: under
+data parallelism every rank samples the global batch's draws from the same
+generator and takes its rows.  Every segment kind cuts its own draws, all
+of which are per image (batch first).
 
 Paths (``_GeoRun.route``), chosen as the JAX lowering chooses them on the
 TPU:
@@ -236,6 +241,16 @@ def _static_bounds(spec, default) -> Tuple[float, float]:
 # ---------------------------------------------------------------------------
 # sampling (torch.Generator; the distributions of the JAX lowering)
 # ---------------------------------------------------------------------------
+
+def _take(tree: Any, rows: slice) -> Any:
+    """``rows`` of every tensor of a segment's per-image draws (batch
+    first, in dicts and lists); other values stay whole."""
+    if isinstance(tree, dict):
+        return {k: _take(v, rows) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_take(v, rows) for v in tree]
+    return tree[rows] if isinstance(tree, torch.Tensor) else tree
+
 
 def _rand(gen: torch.Generator, shape) -> Tensor:
     return torch.rand(shape, generator=gen, device=gen.device)
@@ -596,6 +611,10 @@ class _GeoRun:
         if self.cval_spec is not None:
             draws.append({"cval": _sample(gen, self.cval_spec, b, 0.0)})
         return draws
+
+    def take(self, draws: Draws, rows: slice) -> Draws:
+        """Every entry of a run's draws (the fill's too) is per image."""
+        return _take(draws, rows)
 
     def _apply_cheap(self, draws: Draws, images: Tensor, masks: Tensor):
         """Flips and square rot90s as reverse + select — no warp."""
@@ -1749,6 +1768,10 @@ class _Photo:
                c: int) -> Dict[str, Tensor]:
         return self._sample(self, gen, b, h, w, c)
 
+    def take(self, draws: Dict[str, Tensor], rows: slice):
+        """A photometric's draws are per image (batch first)."""
+        return _take(draws, rows)
+
     def apply(self, draws: Dict[str, Tensor], images: Tensor, masks: Tensor):
         # photometrics run on 0..255 float32; the pipeline clips at its end
         return self._apply(self, draws, images.float(), masks)
@@ -1818,6 +1841,13 @@ class _Meta:
             sel = {"n": n, "scores": _rand(gen, (b, len(self.children)))}
         return {**sel, "children": [ch.sample(gen, b, h, w, c)
                                     for ch in self.children]}
+
+    def take(self, draws: Dict[str, Any], rows: slice) -> Dict[str, Any]:
+        """The selector's draws are per image; each child cuts its own."""
+        kids = draws["children"]
+        return {**{k: v[rows] for k, v in draws.items() if k != "children"},
+                "children": [ch.take(d, rows)
+                             for ch, d in zip(self.children, kids)]}
 
     def include(self, draws: Dict[str, Any]) -> Tensor:
         """(B, children) bool: which children each image keeps."""
@@ -1899,6 +1929,12 @@ class _Scope:
             return {"children": self.child.sample(gen, b, h, w, c)}
         return {"children": [ch.sample(gen, b, h, w, self.n_ch)
                              for ch in self.children]}
+
+    def take(self, draws: Dict[str, Any], rows: slice) -> Dict[str, Any]:
+        if self.name == "withchannels":
+            return {"children": self.child.take(draws["children"], rows)}
+        return {"children": [ch.take(d, rows) for ch, d in
+                             zip(self.children, draws["children"])]}
 
     def _run(self, draws, x: Tensor, masks: Tensor) -> Tensor:
         for ch, d in zip(self.children, draws["children"]):
@@ -2028,6 +2064,13 @@ class _Blend:
         return {"children": [ch.sample(gen, b, h, w, c)
                              for ch in self.children],
                 "alpha": self._alpha_sample(gen, b, h, w, c)}
+
+    def take(self, draws: Dict[str, Any], rows: slice) -> Dict[str, Any]:
+        """Each child cuts its own draws; the alpha map's are per image
+        (the simplex noise's grids a list of them)."""
+        return {"children": [ch.take(d, rows) for ch, d in
+                             zip(self.children, draws["children"])],
+                "alpha": _take(draws["alpha"], rows)}
 
     def alpha(self, d: Dict[str, Any], base: Tensor,
               masks: Tensor) -> Tensor:
@@ -2211,6 +2254,12 @@ class Augmentation:
         device."""
         return [seg.sample(gen, b, h, w, c) for seg in self.segments]
 
+    def take(self, draws: Draws, rows: slice) -> Draws:
+        """The draws of the images ``rows`` of the batch ``draws`` were
+        sampled for: ``apply(take(d, rows), x[rows])`` equals
+        ``apply(d, x)[rows]``."""
+        return [seg.take(d, rows) for seg, d in zip(self.segments, draws)]
+
     def apply(self, draws: Draws, images: Tensor, masks: Tensor):
         """images (B, H, W, C) uint8 or float on 0..255, masks
         (B, H, W, M) → (images float32 clipped to 0..255, masks)."""
@@ -2240,8 +2289,11 @@ def build_transform_fn(transforms, augmentation):
     validation and predict): ``transform_fn(images, masks)`` draws its
     values from a ``torch.Generator`` seeded with 0, made anew on the
     images' device at every call, so a batch is always transformed the same
-    way.  ``augmentation:`` runs after it at train time only, with the
-    step's generator.  The JAX package draws its transforms from the fixed
+    way; ``transform_fn(images, masks, rows, batch)`` transforms the
+    images ``rows`` of a batch of ``batch`` as the whole batch would be
+    (it draws for the batch and takes their draws: a rank's share under
+    data parallelism).  ``augmentation:`` runs after it at train time
+    only, with the step's generator.  The JAX package draws its transforms from the fixed
     ``PRNGKey(0)``; the two packages agree only where the spec leaves no
     value random (probabilities 0 or 1, constant arguments)."""
     t_aug = build_augmentation(transforms) if transforms else None
@@ -2249,8 +2301,14 @@ def build_transform_fn(transforms, augmentation):
     if t_aug is None:
         return a_aug, None
 
-    def transform_fn(images: Tensor, masks: Tensor):
+    def transform_fn(images: Tensor, masks: Tensor,
+                     rows: Optional[slice] = None,
+                     batch: Optional[int] = None):
         gen = torch.Generator(device=images.device).manual_seed(0)
-        return t_aug(gen, images, masks)
+        if rows is None:
+            return t_aug(gen, images, masks)
+        _, h, w, c = images.shape
+        draws = t_aug.take(t_aug.sample(gen, batch, h, w, c), rows)
+        return t_aug.apply(draws, images, masks)
 
     return a_aug, transform_fn

@@ -244,13 +244,17 @@ class CSVLogger(Callback):
 class TensorBoard(Callback):
     """``tfevents`` scalar logging without TensorFlow (utils/tfevents.py
     hand-encodes the TFRecord + Event-proto format), one record per
-    epoch."""
+    epoch.  In a process group only the primary opens a writer."""
 
     def __init__(self, log_dir: str = "./logs", **_ignored):
         self.log_dir = log_dir
         self._writer = None
 
     def on_train_begin(self, control):
+        from ..parallel import distributed as dist
+
+        if not dist.is_primary():
+            return  # one event writer per shared filesystem
         from ..utils.tfevents import EventFileWriter
 
         self._writer = EventFileWriter(self.log_dir)
@@ -290,6 +294,10 @@ def instantiate(spec: Dict[str, Any], directory: str) -> Optional[Callback]:
     if name == "modelcheckpoint":
         return None  # handled by the stage runner
     if name == "csvlogger":
+        from ..parallel import distributed as dist
+
+        if not dist.is_primary():
+            return None  # one CSV writer per shared filesystem
         path = args.pop("filename", None) or args.pop("path", None)
         if path and not os.path.isabs(path):
             path = os.path.join(directory, path)

@@ -27,8 +27,18 @@ loss, gradient or parameter (``FloatingPointError``, as the JAX package's
 ``jax_debug_nans``); ``debug: checks`` also runs each step under
 autograd's anomaly mode (``train/step.py``).  Nothing is caught.
 
-Not ported yet (raises ``NotImplementedError``): a ``mesh:`` of more than
-one device.
+Data parallelism, one process per card (``parallel/``): in a process
+group the mesh covers the group (``mesh:`` from YAML, else every rank on
+the ``data`` axis; the global batch and each stage's batch must divide by
+it, with the JAX package's errors).  Each rank decodes and augments its
+rows of every global batch, BatchNorm and the gradients are reduced over
+the group (``train/step.py``), and the epoch's train and validation sums
+are reduced in one all-reduce before the best-epoch choice and the
+callbacks, so every rank takes the same decisions.  Only the primary
+writes the checkpoint, the CSV and the event file; two barriers (after
+the best save, after the done marker) keep a resume's skips the same on
+every rank.  A process without a group runs the one-process path.  The
+``space`` axis is not ported (``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -50,6 +60,8 @@ from ..models.pretrained import load_into_model
 from ..ops import metrics as _metrics
 from ..ops.aug.lowering import build_transform_fn
 from ..ops.losses import build_loss
+from ..parallel import distributed as dist
+from ..parallel.mesh import MeshSpec, build_mesh
 from . import callbacks as cb
 from .checkpoint import checkpoint_meta, load_checkpoint, save_checkpoint
 from .optimizers import build_optimizer
@@ -59,30 +71,49 @@ from .step import (build_eval_step, build_train_step, create_train_state,
 Tensor = torch.Tensor
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not yet ported to the torch "
-                               "package")
+def _gcd_mesh(cfg):
+    """The data-parallel layout: ``mesh:`` from YAML, else every rank of
+    the group on the data axis (the global batch must divide by it), else
+    one process on one card."""
+    if cfg.mesh:
+        return build_mesh(MeshSpec.from_config(cfg.mesh))
+    n = dist.process_count()
+    if n > 1 and cfg.batch % n:
+        raise ValueError(
+            f"multi-host run: global batch {cfg.batch} must be divisible "
+            f"by the global device count {n} (or set mesh: in YAML)")
+    return build_mesh(MeshSpec(data=n, space=1))
 
 
-def _host(logs: List[Dict[str, Tensor]], keys: List[str]) -> np.ndarray:
-    """Per-step scalar logs → a (steps, keys) float64 array, in one copy
-    from the device."""
-    rows = torch.stack([torch.stack([d[k].float() for k in keys])
-                        for d in logs])
-    return rows.cpu().numpy().astype(np.float64)
+def _stack(logs: List[Dict[str, Tensor]], keys: List[str]) -> Tensor:
+    """Per-step scalar logs → a (steps, keys) float64 tensor on their
+    device (one copy brings it to the host)."""
+    return torch.stack([torch.stack([d[k].float() for k in keys])
+                        for d in logs]).double()
 
 
-def _train_means(logs: List[Dict[str, Tensor]]) -> Dict[str, float]:
-    """Per-batch train logs → epoch means weighted by each batch's real
-    example count (``_wsum``), so a wrap-padded last batch counts as its
-    real rows.  Keys sorted, as the JAX package's logs come out of jit."""
-    if not logs:
-        return {}
-    keys = sorted(logs[0])
-    a = _host(logs, keys)
+def _train_means_of(keys: List[str], a: np.ndarray) -> Dict[str, float]:
+    """(steps, keys) per-batch train logs → epoch means weighted by each
+    batch's real example count (``_wsum``), so a wrap-padded last batch
+    counts as its real rows.  Keys sorted, as the JAX package's logs come
+    out of jit."""
     ws = a[:, keys.index("_wsum")]
     return {k: float(np.sum(a[:, j] * ws) / ws.sum())
             for j, k in enumerate(keys) if k != "_wsum"}
+
+
+def _val_means_of(keys: List[str], a: np.ndarray) -> Dict[str, float]:
+    """(keys,) weighted eval sums of an epoch → padding-corrected means."""
+    wsum = max(a[keys.index("weight")], 1.0)
+    return {k: float(a[j] / wsum) for j, k in enumerate(keys)
+            if k != "weight"}
+
+
+def _train_means(logs: List[Dict[str, Tensor]]) -> Dict[str, float]:
+    if not logs:
+        return {}
+    keys = sorted(logs[0])
+    return _train_means_of(keys, _stack(logs, keys).cpu().numpy())
 
 
 def _val_means(sums: List[Dict[str, Tensor]]) -> Dict[str, float]:
@@ -91,10 +122,32 @@ def _val_means(sums: List[Dict[str, Tensor]]) -> Dict[str, float]:
     if not sums:
         return {}
     keys = sorted(sums[0])
-    a = _host(sums, keys).sum(axis=0)
-    wsum = max(a[keys.index("weight")], 1.0)
-    return {k: float(a[j] / wsum) for j, k in enumerate(keys)
-            if k != "weight"}
+    return _val_means_of(keys, _stack(sums, keys).cpu().numpy().sum(axis=0))
+
+
+def _group_means(train_logs: List[Dict[str, Tensor]],
+                 val_sums: List[Dict[str, Tensor]]) -> Dict[str, float]:
+    """The epoch's logs over the group: the ranks' per-step train shares
+    and validation sums summed by one all-reduce, then one copy to the
+    host.  Every rank gets the same numbers."""
+    tk = sorted(train_logs[0]) if train_logs else []
+    vk = sorted(val_sums[0]) if val_sums else []
+    parts = []
+    if tk:
+        parts.append(_stack(train_logs, tk).reshape(-1))
+    if vk:
+        parts.append(_stack(val_sums, vk).sum(0))
+    if not parts:
+        return {}
+    flat = dist.all_reduce_(torch.cat(parts)).cpu().numpy()
+    out = {}
+    if tk:
+        out.update(_train_means_of(tk, flat[:len(train_logs) * len(tk)]
+                                   .reshape(len(train_logs), len(tk))))
+    if vk:
+        vals = _val_means_of(vk, flat[len(flat) - len(vk):])
+        out.update({f"val_{k}": v for k, v in vals.items()})
+    return out
 
 
 class _BestTracker:
@@ -134,11 +187,14 @@ def fit_pipeline(cfg, dataset, foldsToExecute: Optional[Sequence[int]] = None,
     ``aug_seed``: replaces ``random_state`` in the seed of the augmentation
     generators (``aug_seed·1000 + fold·10 + stage``), so two fits of one
     config can draw different augmentations; weights and folds keep
-    ``random_state``."""
-    # one device only: any axis over 1 (data or hosts -1/0 mean "all")
-    if any(int(cfg.mesh.get(axis) or 1) > 1
-           for axis in ("hosts", "data", "space")):
-        raise _not_ported(f"`mesh: {cfg.mesh}` (more than one device)")
+    ``random_state``.
+
+    In a process group (``parallel.distributed.maybe_initialize``) the fit
+    is data-parallel over the group: see the module's notes."""
+    mesh = _gcd_mesh(cfg)
+    # the collectives run in any process with a group, whatever its size
+    dp = mesh if dist.active() else None
+    primary = dist.is_primary()
     verbose = cfg.verbose if verbose is None else verbose
     device = torch.device(device)
     # resume rebuilds the graph the checkpoints were trained with
@@ -162,9 +218,10 @@ def fit_pipeline(cfg, dataset, foldsToExecute: Optional[Sequence[int]] = None,
     mode = cfg.primary_mode()
 
     def batches(ds, plan, batch):
+        rows = dp.rows(batch) if dp is not None else None
         return Prefetcher(lambda: make_batches(
             ds, plan, cfg.shape, cfg.classes, cfg.activation, batch,
-            cache=item_cache), device=device, depth=cfg.prefetch)
+            cache=item_cache, rows=rows), device=device, depth=cfg.prefetch)
 
     results: Dict[str, Dict] = {}
     for fold in folds:
@@ -209,16 +266,26 @@ def fit_pipeline(cfg, dataset, foldsToExecute: Optional[Sequence[int]] = None,
             model.load_state_dict(variables)
 
             batch = stage.batch or cfg.batch
+            # a stage's batch must stay shardable on the data axis
+            if dp is not None and batch % mesh.data:
+                if cfg.mesh:
+                    raise ValueError(
+                        f"stage {si} batch {batch} is not divisible by the "
+                        f"configured mesh data axis ({mesh.data})")
+                raise ValueError(
+                    f"multi-host run: stage {si} batch {batch} must be "
+                    f"divisible by the global device count {mesh.world} "
+                    f"(or set mesh: in YAML)")
             loss_expr = stage.loss or cfg.loss
             loss_fn = build_loss(loss_expr, cfg.activation, cfg.class_weights)
             tx = build_optimizer(cfg, freeze_encoder=frozen)
             train_step = build_train_step(
                 model, tx, loss_fn, metric_fns, cfg.activation,
                 cfg.preprocessing, aug=aug, transform=transform,
-                debug=cfg.debug)
+                debug=cfg.debug, mesh=dp)
             eval_step = build_eval_step(
                 model, loss_fn, metric_fns, cfg.activation, cfg.preprocessing,
-                transform=transform)
+                transform=transform, mesh=dp)
             state = create_train_state(model, tx, device)
 
             base_lr = stage.lr if stage.lr is not None else cfg.lr
@@ -230,8 +297,9 @@ def fit_pipeline(cfg, dataset, foldsToExecute: Optional[Sequence[int]] = None,
             # a checkpoint without a done-marker means this stage crashed
             # mid-run: append to its metrics history instead of truncating
             resuming = meta is not None and not meta.get("done")
-            cbs.append(cb.CSVLogger(cfg.metrics_path(fold, si),
-                                    append=resuming))
+            if primary:  # one writer per shared filesystem
+                cbs.append(cb.CSVLogger(cfg.metrics_path(fold, si),
+                                        append=resuming))
             for c in cbs:
                 c.on_train_begin(control)
             tracker = _BestTracker(monitor, mode)
@@ -250,7 +318,8 @@ def fit_pipeline(cfg, dataset, foldsToExecute: Optional[Sequence[int]] = None,
             if verbose:
                 print(f"[fold {fold} stage {si}] epochs={stage.epochs} "
                       f"lr={base_lr} loss={loss_expr} frozen={frozen} "
-                      f"batch={batch} device={device}")
+                      f"batch={batch} device={device}"
+                      + (f" rank={mesh.rank}/{mesh.world}" if dp else ""))
 
             # profile: a torch.profiler trace of epoch 1 (epoch 0 holds the
             # first-call setup) unless the stage has only one epoch
@@ -289,25 +358,34 @@ def fit_pipeline(cfg, dataset, foldsToExecute: Optional[Sequence[int]] = None,
                                              gen=gen)
                     train_logs.append(logs)
                     control.global_step += 1
-                # the epoch's one copy of its train logs waits for its steps
-                epoch_logs = _train_means(train_logs)
+                if dp is None:
+                    # the epoch's one copy of its train logs waits for its
+                    # steps
+                    epoch_logs = _train_means(train_logs)
                 t_train = time.time()
                 val_sums = [reduce_per_example(eval_step(state, b))
                             for b in batches(train_ds, val_idx, batch)]
-                for k, v in _val_means(val_sums).items():
-                    epoch_logs[f"val_{k}"] = v
+                if dp is None:
+                    for k, v in _val_means(val_sums).items():
+                        epoch_logs[f"val_{k}"] = v
+                else:
+                    # one all-reduce of the epoch's sums: every rank's
+                    # best-epoch choice and callbacks see the same numbers
+                    epoch_logs = _group_means(train_logs, val_sums)
                 t_val = time.time()
                 if prof is not None:
                     prof.__exit__(None, None, None)
                     os.makedirs(profile_dir, exist_ok=True)
-                    prof.export_chrome_trace(os.path.join(profile_dir,
-                                                          "trace.json"))
+                    # in a group each rank traces its own card
+                    prof.export_chrome_trace(os.path.join(
+                        profile_dir, "trace.json" if primary
+                        else f"trace-rank{mesh.rank}.json"))
                     if verbose:
                         print(f"  profiler trace written to {profile_dir}")
                 epoch_logs["time"] = time.time() - t0
                 epochs_run = epoch + 1
 
-                if tracker.update(epoch_logs):
+                if tracker.update(epoch_logs) and primary:
                     save_checkpoint(ckpt_path, _variables(state),
                                     meta={"fold": fold, "stage": si,
                                           "monitor": monitor,
@@ -337,14 +415,17 @@ def fit_pipeline(cfg, dataset, foldsToExecute: Optional[Sequence[int]] = None,
             for c in cbs:
                 c.on_train_end(control)
 
-            # the best weights carry into the next stage
+            # the best weights carry into the next stage; the primary's
+            # writes land before any rank reads them
+            dist.barrier(f"stage-save-{key}")
             if os.path.exists(ckpt_path):
                 variables = load_checkpoint(ckpt_path, model)
                 m = checkpoint_meta(ckpt_path) or {}
                 m["done"] = True
                 m["epochs_run"] = epochs_run
-                save_checkpoint(ckpt_path, variables, meta=m)
-            else:
+                if primary:
+                    save_checkpoint(ckpt_path, variables, meta=m)
+            elif primary:
                 # no improvement ever recorded: persist the final weights
                 variables = _variables(state)
                 save_checkpoint(ckpt_path, variables,
@@ -356,6 +437,11 @@ def fit_pipeline(cfg, dataset, foldsToExecute: Optional[Sequence[int]] = None,
                                           model.encoder_variant,
                                       "done": True,
                                       "epochs_run": epochs_run})
+            else:
+                variables = _variables(state)
+            # the done marker is visible before any rank moves on, so a
+            # resume skips the same stages on every rank
+            dist.barrier(f"stage-done-{key}")
             results[key] = {"best": tracker.best, "epochs": epochs_run,
                             "checkpoint": ckpt_path}
     return results

@@ -22,6 +22,20 @@ masks) arrive as arguments (``draws``, ``drop_masks``), or are sampled from
 ``gen``.  Eager PyTorch has no counterpart of ``jax.jit``; nothing is
 compiled.
 
+Data parallelism (``mesh``, a ``parallel.mesh.Mesh`` in a process group):
+each rank holds its rows of the global batch's images and masks and the
+whole ``weight`` vector.  Every rank draws the global batch's augmentation,
+transform and keep masks from the same generator and takes its rows
+(``Augmentation.take``).  The loss is the rank's share of the global one,
+``Σ_rows(per_example·w) / max(Σ w, 1)`` (the global weight sum from the
+whole vector, no collective); BatchNorm's statistics are the global
+batch's (``models/layers.py``); the trainable gradients are summed over the
+group in one flat bucket by one ``all_reduce`` before the optimizer, so
+clipping sees the global gradient.  The logs are the rank's shares
+(``_wsum`` its real rows), which sum over the group to the one-process
+logs; the stage runner sums them once an epoch.  Without ``mesh`` nothing
+of this runs.
+
 ``debug`` (YAML ``debug:``), the counterpart of the JAX package's
 ``jax_debug_nans`` and ``checkify``: ``True`` fails the step with
 ``FloatingPointError`` (the exception ``jax_debug_nans`` raises) on a
@@ -44,6 +58,7 @@ import torch
 
 from ..models.factory import apply_activation, apply_model, model_variables
 from ..ops.preprocess import preprocess
+from ..parallel import distributed as dist
 
 Tensor = torch.Tensor
 
@@ -101,7 +116,7 @@ def _anomaly_checks():
 def build_train_step(model, tx, loss_fn, metric_fns: Dict[str, Callable],
                      activation: str, preprocessing: Optional[str],
                      aug=None, transform: Optional[Callable] = None,
-                     debug: Union[bool, str] = False):
+                     debug: Union[bool, str] = False, mesh=None):
     """→ ``train_step(state, batch, lr, gen=None, draws=None,
     drop_masks=None) -> (state, logs)``.
 
@@ -115,7 +130,8 @@ def build_train_step(model, tx, loss_fn, metric_fns: Dict[str, Callable],
     sampled from ``gen``.  The keep masks of the model's stochastic-depth
     layers (``model.drop_paths()``) are ``drop_masks`` if given, else
     sampled from ``gen`` after the augmentation's draws.  ``debug``: see
-    the module's notes."""
+    the module's notes.  ``mesh``: data parallelism (the module's notes);
+    ``draws`` and ``drop_masks`` are then the global batch's."""
 
     def train_step(state: TrainState, batch, lr: float,
                    gen: Optional[torch.Generator] = None, draws=None,
@@ -124,23 +140,32 @@ def build_train_step(model, tx, loss_fn, metric_fns: Dict[str, Callable],
         b = images.shape[0]
         w = batch.get("weight")
         if w is None:
-            w = torch.ones(b, device=images.device)
+            w = torch.ones(b * (mesh.data if mesh is not None else 1),
+                           device=images.device)
         wsum = torch.clamp(w.sum(), min=1.0)
+        rows = _rows(mesh, w, b)
+        w_rows = w if rows is None else w[rows]
+        bg = w.shape[0]   # the global batch
         if transform is not None:
-            images, masks = transform(images, masks)
+            images, masks = (transform(images, masks) if rows is None else
+                             transform(images, masks, rows, bg))
         if aug is not None:
             if draws is None:
                 if gen is None:
                     raise ValueError("augmentation needs draws or a "
                                      "generator")
-                draws = aug.sample(gen, b, images.shape[1], images.shape[2],
-                                   images.shape[3])
+                draws = aug.sample(gen, bg, images.shape[1],
+                                   images.shape[2], images.shape[3])
+            if rows is not None:
+                draws = aug.take(draws, rows)
             images, masks = aug.apply(draws, images, masks)
         if drop_masks is None and model.drop_paths():
             if gen is None:
                 raise ValueError("stochastic depth needs keep masks or a "
                                  "generator")
-            drop_masks = model.sample_drop_masks(gen, b)
+            drop_masks = model.sample_drop_masks(gen, bg)
+        if drop_masks is not None and rows is not None:
+            drop_masks = {k: v[rows] for k, v in drop_masks.items()}
         x = preprocess(images, preprocessing or "tf", model.dtype)
         masks = masks.float()
 
@@ -153,7 +178,7 @@ def build_train_step(model, tx, loss_fn, metric_fns: Dict[str, Callable],
             logits, new_stats = apply_model(model, params, state.batch_stats,
                                             x, train=True,
                                             drop_masks=drop_masks)
-            loss = (loss_fn.per_example(masks, logits) * w).sum() / wsum
+            loss = (loss_fn.per_example(masks, logits) * w_rows).sum() / wsum
             if debug:
                 _check_finite("loss", {"loss": loss})
             # a parameter the loss does not reach (PSPNet reads C3 only, so
@@ -161,6 +186,8 @@ def build_train_step(model, tx, loss_fn, metric_fns: Dict[str, Callable],
             grads = dict(zip(names, torch.autograd.grad(
                 loss, list(train.values()), allow_unused=True,
                 materialize_grads=True)))
+        if mesh is not None:
+            dist.all_reduce_flat(list(grads.values()))
 
         old = {k: state.params[k] for k in names}
         updates, new_opt = tx.update(grads, state.opt_state, old)
@@ -177,8 +204,9 @@ def build_train_step(model, tx, loss_fn, metric_fns: Dict[str, Callable],
         if metric_fns:
             probs = apply_activation(logits.detach(), activation)
             for name, fn in metric_fns.items():
-                logs[name] = (fn(masks, probs, activation) * w).sum() / wsum
-        logs["_wsum"] = w.sum()
+                logs[name] = ((fn(masks, probs, activation) * w_rows).sum()
+                              / wsum)
+        logs["_wsum"] = w_rows.sum()
         return TrainState(new_params, new_stats, new_opt,
                           state.step + 1), logs
 
@@ -187,28 +215,48 @@ def build_train_step(model, tx, loss_fn, metric_fns: Dict[str, Callable],
 
 def build_eval_step(model, loss_fn, metric_fns: Dict[str, Callable],
                     activation: str, preprocessing: Optional[str],
-                    transform: Optional[Callable] = None):
+                    transform: Optional[Callable] = None, mesh=None):
     """→ ``eval_step(state, batch) -> {"loss": (B,), metric: (B,) …,
     "weight": (B,)}``: per-example values with BatchNorm in eval mode,
     under ``torch.inference_mode()``.  ``transform`` is the deterministic
-    ``transforms:`` preprocessing: validation sees what training saw."""
+    ``transforms:`` preprocessing: validation sees what training saw.
+    With ``mesh`` the values are the rank's rows' (and their weights)."""
 
     def eval_step(state: TrainState, batch):
         with torch.inference_mode():
             images, masks = batch["image"], batch["mask"]
+            w = batch["weight"]
+            rows = _rows(mesh, w, images.shape[0])
+            if rows is not None:
+                w = w[rows]
             if transform is not None:
-                images, masks = transform(images, masks)
+                images, masks = (transform(images, masks) if rows is None
+                                 else transform(images, masks, rows,
+                                                batch["weight"].shape[0]))
             x = preprocess(images, preprocessing or "tf", model.dtype)
             masks = masks.float()
             logits = apply_model(model, state.params, state.batch_stats, x)
             logs = {"loss": loss_fn.per_example(masks, logits),
-                    "weight": batch["weight"]}
+                    "weight": w}
             probs = apply_activation(logits, activation)
             for name, fn in metric_fns.items():
                 logs[name] = fn(masks, probs, activation)
         return logs
 
     return eval_step
+
+
+def _rows(mesh, w: Tensor, b: int) -> Optional[slice]:
+    """The rank's rows of the global batch ``w`` weighs (None without a
+    mesh); ``b`` images must be there."""
+    if mesh is None:
+        return None
+    rows = mesh.rows(w.shape[0])
+    if rows.stop - rows.start != b:
+        raise ValueError(f"rank {mesh.rank} holds {b} rows of a global "
+                         f"batch of {w.shape[0]}; its share is "
+                         f"{rows.stop - rows.start}")
+    return rows
 
 
 def reduce_per_example(logs: Dict[str, Tensor]) -> Dict[str, Tensor]:

@@ -331,22 +331,27 @@ def test_fit_with_config4_augmentation_runs(tmp_path):
 
 
 @pytest.mark.parametrize("mesh,trains", [
-    ({"data": -1, "space": 2}, False), ({"hosts": 2, "data": -1}, False),
-    ({"data": 2}, False), ({"data": -1}, True),
-    ({"hosts": 1, "data": -1, "space": 1}, True)],
+    ({"data": -1, "space": 2}, (NotImplementedError, "spatial partitioning")),
+    ({"hosts": 2, "data": -1}, (ValueError, "divisible by the DCN/hosts")),
+    ({"data": 2}, (ValueError, "does not cover 1 devices.*torchrun "
+                               "--nproc-per-node 2")),
+    ({"data": -1}, True), ({"hosts": 1, "data": -1, "space": 1}, True)],
     ids=["data-space2", "hosts2", "data2", "data-all", "kitchen-sink"])
 def test_fit_refuses_meshes_over_more_than_one_device(mesh, trains, tmp_path):
-    """A mesh with ``hosts``, ``data`` or ``space`` above 1 needs more
-    than one device: the fit refuses it before it reads the data (the
-    product of the axes, -2 for the first two, let them through before).
-    ``data: -1`` means every device, here one: those meshes train."""
+    """In one process (no process group) a mesh over more than one device
+    is refused before the fit reads the data: ``data`` or ``hosts`` above 1
+    with the JAX package's ``ValueError`` (``data`` naming torchrun, since
+    torch drives one card per process), ``space`` above 1 with
+    ``NotImplementedError`` (spatial partitioning is not ported).
+    ``data: -1`` means every process, here one: those meshes train."""
     xs, ys = _data()
     cfg = TC.parse_dict({**CONFIG, "mesh": mesh,
                          "stages": [{**CONFIG["stages"][0], "epochs": 1,
                                      "initial_weights": None}]},
                         directory=str(tmp_path))
-    if not trains:
-        with pytest.raises(NotImplementedError, match="more than one"):
+    if trains is not True:
+        error, text = trains
+        with pytest.raises(error, match=text):
             TST.fit_pipeline(cfg, TLambda(xs, ys), foldsToExecute=[1],
                              device="cpu")
         assert not os.path.exists(cfg.weights_dir)
