@@ -184,9 +184,29 @@ line with its seconds; any failure raises and the script exits non-zero:
      (rank 1's checkpoint, CSV and event writers raise if called), and
      again, which skips every stage on both ranks; the JAX layout's files
      with their ``done`` markers;
+  12j. train_space: the ``space`` axis, JAX's flagship space test on the
+     one card: four gloo ranks at ``mesh: {data: 2, space: 2}``
+     (``--ddp-worker space``), each holding 256 rows of its data block's
+     two images, train Unet-resnet34 at 512² (full width), f32 with TF32
+     off, bce, SGD at 1e-2, global B4, against the same step in one
+     process as the one rank of a group of one (BatchNorm's statistics by
+     the ranks' formula): the summed loss (rtol 2e-5, atol 2e-6), the
+     stem and ``up5.conv2`` kernels (rtol 1e-4, atol 1e-6), every
+     parameter within 5e-4, the BatchNorm statistics within 1e-4, every
+     tensor's gradient (a step at lr 1) within 10% of its norm or 1e-5
+     of the median tensor's; against the plain one-process step (cuDNN's
+     batch norm) the same but the stem kernel, whose reading is printed
+     beside its bar with the stem gradients' distances from the step in
+     float64; the ranks' variables bit for bit equal; then 2 steps under
+     the config-2 block, X, Y and elastic launched on every rank's whole
+     images, once a step, bit for bit with their plain versions on the
+     first step's arguments; each step's ms, the world's all-reduces and
+     the group's halo exchanges, gathers and group sums a step with their
+     bytes (gloo stages through the host: not speeds);
   13. the ``kernels`` summary line (``launches`` from ``train``, beside
      them ``launches_train_photo``, ``launches_train_filter``,
-     ``launches_train_kitchen`` and ``launches_train_ddp_per_rank``), then
+     ``launches_train_kitchen``, ``launches_train_ddp_per_rank`` and
+     ``launches_train_space_per_rank``), then
      the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -2318,16 +2338,17 @@ def _ddp_steps(seed: int, mesh=None) -> dict:
                 stats={k: v.cpu() for k, v in state.batch_stats.items()})
 
 
-def _spawn_ranks(mode: str, out: str, *extra: str) -> list:
-    """Run DDP_WORLD ``--ddp-worker`` processes of this script (gloo, one
+def _spawn_ranks(mode: str, out: str, *extra: str,
+                 world: int = DDP_WORLD) -> list:
+    """Run ``world`` ``--ddp-worker`` processes of this script (gloo, one
     file store in ``out``), each waited for with its own timeout and
     killed on failure; their outputs."""
     store = os.path.join(out, f"store-{mode}")
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--ddp-worker", mode,
-         str(r), str(DDP_WORLD), store, out, *extra],
+         str(r), str(world), store, out, *extra],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-        for r in range(DDP_WORLD)]
+        for r in range(world)]
     outs = []
     try:
         for p in procs:
@@ -2418,6 +2439,263 @@ def phase_train_ddp(seed: int) -> dict:
           ("train_ddp BN statistics", out["stat_max_diff"]))
     check(out["ranks_bit_equal"], "train_ddp: the ranks' parameters differ")
     check(rows_alike, "train_ddp: a rank's augmented rows differ")
+    return out
+
+
+# the train_space phase: the space axis, JAX's flagship
+# (tests/test_sharding.py::test_flagship_shape_space2_matches_single_device):
+# Unet-resnet34 512², f32 with TF32 off, bce, SGD at SPACE_LR, global
+# batch SPACE_BATCH, on SPACE_DATA × SPACE_SPACE gloo ranks sharing the
+# card.  JAX's single-device and sharded steps take BatchNorm's statistics
+# by one formula; the port's one-process step takes cuDNN's batch norm and
+# its ranks ``BatchNorm._synced``'s float64 sums, and at this init the stem
+# gradient is so ill-conditioned that the two formulas' float32 rounding
+# alone moves it 0.28% of its norm, the stem kernel past its bar.  So the
+# bars are held against two one-process steps: "solo", the step on one
+# rank of a group of one (``_synced``, no split: JAX's single-device step's
+# counterpart), with all of them (loss rtol 2e-5 / atol 2e-6, the stem and
+# up5.conv2 kernels rtol 1e-4 / atol 1e-6, every parameter within 5e-4 and
+# BatchNorm statistic within 1e-4, every tensor's gradient (a step at lr 1:
+# its update) within 10% of its norm or 1e-5 of the median tensor's: a
+# doubled or halved gradient fails for every tensor above that floor), and
+# "one", the cuDNN step, with all of them but the stem kernel's, whose
+# reading is printed beside its bar with the distances of the stem
+# gradients of "one", "solo" and the ranks from the same step in float64
+# (the witness of float32 rounding); then SPACE_BLOCK_STEPS steps under the
+# config-2 block: its kernels on every rank's whole images, bit for bit
+# with their plain versions, and its first step's loss
+SPACE_DATA, SPACE_SPACE, SPACE_BATCH, SPACE_LR = 2, 2, 4, 1e-2
+SPACE_BLOCK_STEPS = 2
+SPACE_LOSS = "binary_crossentropy"
+SPACE_LOSS_RTOL, SPACE_LOSS_ATOL = 2e-5, 2e-6
+SPACE_KERNEL_RTOL, SPACE_KERNEL_ATOL = 1e-4, 1e-6
+SPACE_STEM, SPACE_UP5 = ("encoder.stem_conv.weight",
+                         "decoder.up5.conv2.conv.weight")
+SPACE_GRAD_NORM_REL, SPACE_GRAD_FLOOR = 0.1, 1e-5
+
+
+def _space_model(seed: int):
+    """The seed's Unet-resnet34 init on the CPU, its config, optimizer and
+    loss, and the global batch on the card."""
+    cfg = CF.parse_dict({"architecture": "Unet", "backbone": "resnet34",
+                         "loss": SPACE_LOSS, "optimizer": "SGD",
+                         "lr": SPACE_LR, "dtype": "float32",
+                         "batch": SPACE_BATCH})
+    model = MF.init_model(MF.create_model("Unet", "resnet34", 1,
+                                          dtype="float32"), seed, "cpu")
+    imgs, masks = synthetic_batch(SPACE_BATCH, SIZE, SIZE, seed)
+    batch = {"image": torch.from_numpy(imgs).cuda(),
+             "mask": torch.from_numpy(masks).cuda(),
+             "weight": torch.ones(SPACE_BATCH, device="cuda")}
+    return (cfg, model, OP.build_optimizer(cfg),
+            LO.build_loss(cfg.loss, cfg.activation), batch)
+
+
+def _space_steps(seed: int, mesh=None) -> dict:
+    """From the seed's Unet-resnet34 init, on the whole global batch
+    (``mesh`` None) or on this rank's rows and slab: one plain SGD step at
+    SPACE_LR, one at lr 1 (its update is the gradient), then
+    SPACE_BLOCK_STEPS steps under the config-2 block; each step's loss
+    (the rank's logs) and ms, the collectives of the plain step, the
+    block's launches with its first step's X, Y and elastic held to their
+    plain versions; the variables on the CPU."""
+    cfg, model, tx, loss_fn, batch = _space_model(seed)
+    plain = ST.build_train_step(model, tx, loss_fn, {}, cfg.activation,
+                                None, mesh=mesh)
+    block = ST.build_train_step(model, tx, loss_fn, {}, cfg.activation,
+                                None, aug=LW.build_augmentation(
+                                    CONFIG2_BLOCK), mesh=mesh)
+    init = ST.create_train_state(model, tx, "cuda")
+    if mesh is not None:
+        batch = PM.shard_batch(batch, mesh)
+
+    def run(step, state, lr, **kw):
+        t0 = time.perf_counter()
+        state, logs = step(state, batch, lr, **kw)
+        loss = float(logs["loss"])    # waits for the step's last kernel
+        return state, loss, (time.perf_counter() - t0) * 1e3
+
+    cpu = lambda d: {k: v.cpu() for k, v in d.items()}  # noqa: E731
+    out = {}
+    with no_tf32():
+        DI.reset_counts()
+        new, out["loss"], ms = run(plain, init, SPACE_LR)
+        out["counts"], out["space_counts"] = DI.counts(), DI.space_counts()
+        out["params"], out["stats"] = cpu(new.params), cpu(new.batch_stats)
+        grad, _, ms1 = run(plain, init, 1.0)
+        out["grads"] = {k: (init.params[k] - grad.params[k]).cpu()
+                        for k in grad.params}
+        gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+        K.reset_launches()
+        calls, state, losses, times = {}, init, [], []
+        for i in range(SPACE_BLOCK_STEPS):
+            with captured(DDP_KERNELS if i == 0 else (), calls):
+                state, loss, t = run(block, state, SPACE_LR, gen=gen)
+            losses.append(loss)
+            times.append(t)
+        out["launches"] = K.launch_counts()
+    out.update(step_ms=[ms, ms1], block_loss=losses, block_step_ms=times,
+               held_to_plain=held_to_plain(calls, "train_space"),
+               block_params=cpu(state.params))
+    return out
+
+
+def _space_grads_f64(seed: int) -> dict:
+    """The plain step's gradient (its update at lr 1) from the same init
+    and batch in one process with every layer in float64 (the head's
+    logits and the loss stay float32): the witness of how far float32
+    rounding moves each float32 step."""
+    cfg, model, tx, loss_fn, batch = _space_model(seed)
+    model.double()
+    model.dtype = torch.float64       # the input's cast and every layer
+    step = ST.build_train_step(model, tx, loss_fn, {}, cfg.activation,
+                               None)
+    init = ST.create_train_state(model, tx, "cuda")
+    grad, _ = step(init, batch, 1.0)
+    return {k: (init.params[k] - grad.params[k]).cpu() for k in grad.params}
+
+
+def _grad_misses(got: dict, want: dict) -> list:
+    """Tensors whose gradient is farther from ``want``'s than
+    SPACE_GRAD_NORM_REL of its norm and the floor."""
+    norms = {k: float(v.norm()) for k, v in want.items()}
+    floor = SPACE_GRAD_FLOOR * float(np.median(list(norms.values())))
+    return [(k, float((got[k] - want[k]).norm()), norms[k]) for k in want
+            if float((got[k] - want[k]).norm())
+            > max(SPACE_GRAD_NORM_REL * norms[k], floor)]
+
+
+def _space_ranks(seed: int, data: int, space: int) -> list:
+    """:func:`_space_steps` on ``data × space`` gloo ranks."""
+    with tempfile.TemporaryDirectory() as tmp:
+        _spawn_ranks("space", tmp, str(seed), str(data), str(space),
+                     world=data * space)
+        return [torch.load(os.path.join(tmp, f"space-{r}.pt"))
+                for r in range(data * space)]
+
+
+def _kernel_over(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """How far the worst element of ``got`` lies past the kernel bar
+    around ``ref`` (≤ 0: within it)."""
+    return float(((got - ref).abs() - SPACE_KERNEL_ATOL
+                  - SPACE_KERNEL_RTOL * ref.abs()).max())
+
+
+def phase_train_space(seed: int) -> dict:
+    """SPACE_DATA × SPACE_SPACE gloo ranks (``--ddp-worker space``) on the
+    card against one process, on cuDNN's batch norm ("one") and as the
+    one rank of a group of one ("solo"); the float64 witness (see
+    SPACE_DATA)."""
+    one = _space_steps(seed)
+    f64 = _space_grads_f64(seed)
+    torch.cuda.empty_cache()
+    solo = _space_ranks(seed, 1, 1)[0]
+    world = SPACE_DATA * SPACE_SPACE
+    ranks = _space_ranks(seed, SPACE_DATA, SPACE_SPACE)
+    r0 = ranks[0]
+    # the group's logs count once: the ranks' losses sum to the batch's
+    loss = sum(r["loss"] for r in ranks)
+    block_loss = [sum(r["block_loss"][i] for r in ranks)
+                  for i in range(SPACE_BLOCK_STEPS)]
+    refs = {"solo": solo, "one": one}
+    norms = [float(v.norm()) for v in one["grads"].values()]
+    grad_floor = SPACE_GRAD_FLOOR * float(np.median(norms))
+
+    def rel(got, ref, k):
+        return float((got[k] - ref[k]).norm() / ref[k].norm())
+
+    def against(ref: dict) -> dict:
+        rels = {k: rel(r0["grads"], ref["grads"], k) for k in ref["grads"]
+                if float(ref["grads"][k].norm()) > grad_floor}
+        return dict(
+            loss=ref["loss"], loss_diff=abs(loss - ref["loss"]),
+            kernel_max_diff={k: float((r0["params"][k] - ref["params"][k])
+                                      .abs().max())
+                             for k in (SPACE_STEM, SPACE_UP5)},
+            kernel_over_bar={k: _kernel_over(r0["params"][k],
+                                             ref["params"][k])
+                             for k in (SPACE_STEM, SPACE_UP5)},
+            param_max_diff=_max_diff(r0["params"], ref["params"]),
+            stat_max_diff=_max_diff(r0["stats"], ref["stats"]),
+            grad_norm_rel_worst=sorted(rels.items(),
+                                       key=lambda t: -t[1])[:3],
+            grad_misses=_grad_misses(r0["grads"], ref["grads"])[:5],
+            step_ms=ref["step_ms"], block_loss=ref["block_loss"],
+            block_step_ms=ref["block_step_ms"])
+
+    vs = {name: against(ref) for name, ref in refs.items()}
+    stem_vs_f64 = {name: rel(run["grads"], f64, SPACE_STEM)
+                   for name, run in (("one", one), ("solo", solo),
+                                     ("ranks", r0))}
+    out = dict(
+        model="Unet-resnet34", dtype="float32", tf32=False, optimizer="SGD",
+        lr=SPACE_LR, loss_fn=SPACE_LOSS, batch=SPACE_BATCH,
+        size=[SIZE, SIZE],
+        mesh={"data": SPACE_DATA, "space": SPACE_SPACE}, world=world,
+        backend="gloo (rehearsal: four ranks share one card)",
+        slab_rows=SIZE // SPACE_SPACE, loss_ranks=loss,
+        against_solo=vs["solo"], against_one=vs["one"],
+        solo_vs_one_stem_max_diff=float(
+            (solo["params"][SPACE_STEM] - one["params"][SPACE_STEM])
+            .abs().max()),
+        stem_grad_rel_to_float64=stem_vs_f64,
+        grad_floor=grad_floor,
+        grad_tensors_below_floor=sum(n <= grad_floor for n in norms),
+        ranks_bit_equal=all(torch.equal(r0[p][k], r[p][k])
+                            for r in ranks[1:]
+                            for p in ("params", "stats", "block_params")
+                            for k in r0[p]),
+        step_ms_ranks=[r["step_ms"] for r in ranks],
+        block_loss_ranks=block_loss,
+        block_step_ms_ranks=[r["block_step_ms"] for r in ranks],
+        all_reduces_per_step=[r["counts"]["all_reduce"] for r in ranks],
+        all_reduce_bytes_per_step=[r["counts"]["bytes"] for r in ranks],
+        space_per_step=[r["space_counts"] for r in ranks],
+        launches_one_process=one["launches"], launches_solo=solo["launches"],
+        launches_per_rank=[r["launches"] for r in ranks],
+        held_to_plain_per_rank=[r["held_to_plain"] for r in ranks],
+        tolerance=dict(loss=[SPACE_LOSS_RTOL, SPACE_LOSS_ATOL],
+                       kernels=[SPACE_KERNEL_RTOL, SPACE_KERNEL_ATOL],
+                       params=DDP_PARAM_ATOL, stats=DDP_STAT_ATOL,
+                       grad_norm_rel=SPACE_GRAD_NORM_REL,
+                       grad_floor_of_median=SPACE_GRAD_FLOOR,
+                       not_held="the stem kernel against one"))
+    emit("train_space", **out)
+    want = {n: SPACE_BLOCK_STEPS if n in DDP_KERNELS else 0
+            for n in K.KERNELS}
+    check(all(r["launches"] == want for r in ranks + [solo, one]),
+          ("train_space launches", out["launches_per_rank"]))
+
+    def close(got, ref, rtol, atol):
+        return abs(got - ref) <= atol + rtol * abs(ref)
+
+    for name, ref in refs.items():
+        check(close(loss, ref["loss"], SPACE_LOSS_RTOL, SPACE_LOSS_ATOL),
+              ("train_space loss", name, loss, ref["loss"]))
+        # the block's first step from the shared init; the second's loss
+        # is reported, not held: one update's rounding moves the next
+        # step's gradients far (on the CPU at 64², 30% of their norm in a
+        # data-parallel step without the space axis, 8% with it)
+        check(close(block_loss[0], ref["block_loss"][0], SPACE_LOSS_RTOL,
+                    SPACE_LOSS_ATOL),
+              ("train_space block loss", name, block_loss,
+               ref["block_loss"]))
+        held = (SPACE_STEM, SPACE_UP5) if name == "solo" else (SPACE_UP5,)
+        for k in held:
+            check(vs[name]["kernel_over_bar"][k] <= 0.0,
+                  ("train_space kernel", k, name,
+                   vs[name]["kernel_max_diff"][k]))
+        check(vs[name]["param_max_diff"] < DDP_PARAM_ATOL,
+              ("train_space params", name, vs[name]["param_max_diff"]))
+        check(vs[name]["stat_max_diff"] < DDP_STAT_ATOL,
+              ("train_space BN statistics", name,
+               vs[name]["stat_max_diff"]))
+        check(not vs[name]["grad_misses"],
+              ("train_space gradients", name, vs[name]["grad_misses"]))
+    check(out["ranks_bit_equal"],
+          "train_space: the ranks' parameters differ")
+    check(all(r["space_counts"]["halo"] > 0 for r in ranks),
+          ("train_space halos", out["space_per_step"]))
     return out
 
 
@@ -2563,13 +2841,21 @@ def _forbid_writes() -> None:
 
 
 def ddp_worker(argv) -> int:
-    """One gloo rank of ``train_ddp`` or ``fit_ddp`` on the card."""
+    """One gloo rank of ``train_ddp``, ``fit_ddp`` or ``train_space`` on
+    the card."""
     mode, rank, world, store, out, *rest = argv
     rank = int(rank)
     DI.maybe_initialize(force=True, backend="gloo",
                         init_method=f"file://{store}",
                         world_size=int(world), rank=rank,
                         timeout_s=DDP_TIMEOUT_S)
+    if mode == "space":
+        seed, data, space = rest
+        mesh = PM.build_mesh(PM.MeshSpec(data=int(data), space=int(space)))
+        torch.save(_space_steps(int(seed), mesh),
+                   os.path.join(out, f"space-{rank}.pt"))
+        DI.shutdown()
+        return 0
     mesh = PM.build_mesh()
     if mode == "train":
         torch.save(_ddp_steps(int(rest[0]), mesh),
@@ -2668,6 +2954,7 @@ def main(argv=None) -> int:
     timed("accuracy", phase_accuracy, SEED)
     ddp = timed("train_ddp", phase_train_ddp, SEED)
     timed("fit_ddp", phase_fit_ddp, SEED, fit, bool(a.profile))
+    space = timed("train_space", phase_train_space, SEED)
     # launches on each kernel's main path: X, Y and elastic in the Unet
     # step, YE in the FPN step, the shear in the unfused warp path
     launches = dict(train["launches"], warp_ye=train_fpn["launches"][
@@ -2679,6 +2966,8 @@ def main(argv=None) -> int:
         row["launches_train_kitchen"] = kitchen["launches"][name]
         row["launches_train_ddp_per_rank"] = [
             r[name] for r in ddp["launches_per_rank"]]
+        row["launches_train_space_per_rank"] = [
+            r[name] for r in space["launches_per_rank"]]
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}),

@@ -23,7 +23,9 @@ One initial weight file for both packages (the JAX side is
 
 ``--write-init INIT`` writes, for each config, a fold-0 init as a
 flax-format checkpoint ``INIT/config{N}.weights`` and its sha256 beside it
-(``.sha256``), then stops.  The init has the laws of the port's
+(``.sha256``), then stops; ``--init-seed N`` draws it from
+``numpy.random.default_rng(N)`` instead, for other inits of the same
+configs.  The init has the laws of the port's
 ``init_model`` (each conv kernel a truncated normal of flax's
 ``lecun_normal`` scale, biases 0, BatchNorm 1/0/0/1), drawn from
 ``numpy.random.default_rng(random_state + 0)`` in module order: torch's
@@ -156,10 +158,11 @@ def numpy_init(model, seed: int):
     return model
 
 
-def write_init(init_dir: str, config: str, epochs: int) -> str:
-    """Write ``config``'s fold-0 init (``numpy_init`` from
-    ``random_state + 0``); return its sha256 (also written beside the
-    file)."""
+def write_init(init_dir: str, config: str, epochs: int,
+               seed: int = None) -> str:
+    """Write ``config``'s fold-0 init (``numpy_init`` from ``seed``, by
+    default ``random_state + 0``); return its sha256 (also written beside
+    the file)."""
     import segmentation_training_pipeline_tpu_torch as stp
     from segmentation_training_pipeline_tpu_torch.models.factory import (
         model_from_config)
@@ -167,7 +170,8 @@ def write_init(init_dir: str, config: str, epochs: int) -> str:
         save_checkpoint)
 
     cfg = stp.parse_dict(config_dicts(epochs)[config], directory=init_dir)
-    model = numpy_init(model_from_config(cfg).cpu(), cfg.random_state + 0)
+    model = numpy_init(model_from_config(cfg).cpu(),
+                       cfg.random_state + 0 if seed is None else seed)
     path = init_path(init_dir, config)
     save_checkpoint(path, model.state_dict())
     digest = sha256(path)
@@ -215,12 +219,17 @@ def main(argv=None) -> dict:
                         "DIR/config{N}.weights (as --write-init wrote it; "
                         "examples/accuracy_reference_jax.py --init takes "
                         "the same files)")
+    p.add_argument("--init-seed", type=int, default=None,
+                   help="--write-init draws from numpy.random.default_rng("
+                        "INIT_SEED) instead of random_state (folds, plans "
+                        "and augmentation draws keep random_state): other "
+                        "inits of the same configs")
     args = p.parse_args(argv)
     wanted = {"all": "1234", "both": "12"}.get(args.config, args.config)
 
     if args.write_init:
-        inits = {c: write_init(args.write_init, c, args.epochs)
-                 for c in wanted}
+        inits = {c: write_init(args.write_init, c, args.epochs,
+                               args.init_seed) for c in wanted}
         for c, digest in inits.items():
             print(f"init config{c}: {init_path(args.write_init, c)} "
                   f"sha256 {digest}", flush=True)

@@ -17,7 +17,9 @@ deeplab.py``:
 Both return the stride-4 map (a bilinear resize keeps the compute dtype,
 which CUDA autocast would widen to f32); the model head resizes the f32 logits to
 the input size (``models.factory``).  The image-pooling branch resizes a
-1×1 map, which both of JAX's methods copy to every pixel.
+1×1 map, which both of JAX's methods copy to every pixel.  Under the
+space axis the image pooling is a mean over the group
+(``parallel/spatial.py:mean_hw``).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..encoders.xception_aligned import add_sep_conv_bn, sep_conv_bn
+from ...parallel import spatial
 from ..layers import BatchNorm, Conv, ConvBN, Dropout, resize_to
 
 Tensor = torch.Tensor
@@ -53,7 +56,7 @@ class ASPP(nn.Module):
         for r in self.rates:
             branches.append(F.relu(m[f"rate{r}_bn"](m[f"rate{r}_conv"](x),
                                                    train)))
-        g = self.pool_conv(x.mean(dim=(2, 3), keepdim=True), train)
+        g = self.pool_conv(spatial.mean_hw(x), train)
         branches.append(resize_to(g, x.shape[2], x.shape[3]))
         return self.project(torch.cat(branches, dim=1), train)
 
@@ -104,7 +107,7 @@ class AlignedDeepLabDecoder(nn.Module):
 
     def forward(self, feats: List[Tensor], train: bool = False) -> Tensor:
         x, skip = feats[4], feats[1]
-        b4 = x.mean(dim=(2, 3), keepdim=True)
+        b4 = spatial.mean_hw(x)
         b4 = F.relu(self.image_pooling_BN(self.image_pooling(b4), train))
         branches = [resize_to(b4, x.shape[2], x.shape[3], "bilinear"),
                     F.relu(self.aspp0_BN(self.aspp0(x), train))]

@@ -5,7 +5,8 @@ pspnet.py``: pyramid pooling over C3 (stride 8) to 1/2/3/6 bins by exact
 adaptive average pooling, a 1×1 conv-BN-ReLU per bin (``bin{b}_conv``),
 a bilinear resize back, a concat with C3 and ``fuse_conv`` (3×3 to 512).
 The output stays at stride 8; the model resizes the f32 logits to the
-input size (``models.factory``).
+input size (``models.factory``).  Under the space axis the bins are whole
+on every rank and each resize back is cut to the rank's slab.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ...parallel import spatial
 from ..layers import ConvBN, resize_to
 
 Tensor = torch.Tensor
@@ -35,11 +37,20 @@ def _adaptive_pool_matrix(n: int, bins: int) -> np.ndarray:
 def adaptive_avg_pool(y: Tensor, b: int) -> Tensor:
     """NCHW → (N, C, b, b) by two matmuls with the pooling matrices in
     ``y``'s dtype, as the reference builds them (1/48 rounds to bf16 under
-    bf16 compute)."""
+    bf16 compute).  A slab of a split level multiplies its columns of the
+    whole image's H matrix and sums the products over the space group:
+    the bins are whole on every rank."""
+    split = spatial.is_split(y)
+    h = spatial.current().global_h(y) if split else y.shape[2]
     mh, mw = (torch.from_numpy(_adaptive_pool_matrix(n, b)).to(y.device,
                                                                y.dtype)
-              for n in y.shape[2:])
+              for n in (h, y.shape[3]))
+    if split:
+        n = y.shape[2]
+        mh = mh[:, spatial.current().index * n:][:, :n]
     p = torch.einsum("ih,nchw->nciw", mh, y)
+    if split:
+        p = spatial.space_sum(p)
     return torch.einsum("jw,nciw->ncij", mw, p)
 
 

@@ -3,7 +3,8 @@
 Counterpart of ``segmentation_training_pipeline_tpu/models/encoders/
 densenet.py``: dense layers (BN → ReLU → 1×1 to 4·growth → BN → ReLU →
 3×3 to growth, concatenated onto the input), growth 32, transitions of
-BN → ReLU → 1×1 to half the channels → 2×2/2 average pool (VALID).
+BN → ReLU → 1×1 to half the channels → 2×2/2 average pool (VALID; under
+the space axis on the slab, or whole where the pooled level runs whole).
 Taps: C1 post-stem ReLU (stride 2), C2..C4 each dense block before its
 transition, C5 the final BN + ReLU.
 """
@@ -16,6 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...parallel import spatial
 from ..layers import BatchNorm, Conv, max_pool_same
 
 Tensor = torch.Tensor
@@ -69,6 +71,7 @@ class DenseNetEncoder(nn.Module):
             if bi < last:
                 feats.append(y)                       # C2..C4
                 y = F.relu(m[f"trans{bi + 1}_bn"](y, train))
-                y = F.avg_pool2d(m[f"trans{bi + 1}_conv"](y), 2, 2)
+                y = spatial.valid_pool(m[f"trans{bi + 1}_conv"](y), 2,
+                                       F.avg_pool2d)
         feats.append(F.relu(self.final_bn(y, train)))  # C5, stride 32
         return feats

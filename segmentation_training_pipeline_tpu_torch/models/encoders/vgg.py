@@ -3,7 +3,8 @@
 Counterpart of ``segmentation_training_pipeline_tpu/models/encoders/
 vgg.py``: per stage, 3×3 conv → BN → ReLU ``stage_convs[s]`` times, then a
 2×2/2 max-pool (VALID: an odd size floors); taps after each pool (strides
-2..32).  Names ``stage{s}_conv{c}`` / ``stage{s}_bn{c}`` as the flax
+2..32; under the space axis on the slab, or whole where the pooled level
+runs whole).  Names ``stage{s}_conv{c}`` / ``stage{s}_bn{c}`` as the flax
 tree; without BN (``use_bn=False``) the convs carry a bias.
 """
 
@@ -15,6 +16,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...parallel import spatial
 from ..layers import BatchNorm, Conv
 
 Tensor = torch.Tensor
@@ -48,6 +50,6 @@ class VGGEncoder(nn.Module):
                 if self.use_bn:
                     y = m[f"stage{stage + 1}_bn{c}"](y, train)
                 y = F.relu(y)
-            y = F.max_pool2d(y, 2, 2)
+            y = spatial.valid_pool(y, 2, F.max_pool2d)
             feats.append(y)                       # C1..C5
         return feats

@@ -21,6 +21,13 @@ inside).  Three conventions of the flax reference are kept exactly:
   * Initialisation as flax's defaults: conv kernels from
     variance_scaling(1, fan_in, truncated normal), biases 0, BN scale 1 and
     bias 0.
+
+Under the ``space`` axis (``parallel/spatial.py``) the windowed ops
+(``pad_same`` and so ``Conv``, ``max_pool_same``, ``avg_pool_same``; the
+odd-window path of ``Conv``), the resizes, the SE mean and a bound
+dropout mask work on this rank's H slab: halo rows from the neighbours,
+padding only at the image's true edges, a level too short to cut run
+whole.  Without it they are the one-process ops.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from ..parallel import distributed as dist
+from ..parallel import spatial
 
 Tensor = torch.Tensor
 Size2 = Union[int, Tuple[int, int]]
@@ -57,10 +65,18 @@ def same_pads(n: int, k: int, s: int) -> Tuple[int, int]:
 
 def pad_same(x: Tensor, k: Size2, s: int, value: float = 0.0) -> Tensor:
     """Pad an NCHW tensor for a VALID k×k (or (kh, kw), effective sizes)
-    / s window to act as SAME."""
+    / s window to act as SAME.  A slab of a split level takes its H halo
+    from its neighbours (or is gathered first when the window's output
+    level runs whole)."""
     kh, kw = _pair(k)
-    (t, b), (l, r) = (same_pads(x.shape[2], kh, s),
-                      same_pads(x.shape[3], kw, s))
+    l, r = same_pads(x.shape[3], kw, s)
+    if spatial.is_split(x):
+        if spatial.split_after(x, s):
+            t = same_pads(spatial.current().global_h(x), kh, s)[0]
+            x = spatial.halo(x, t, kh - s - t, value)
+            return F.pad(x, (l, r), value=value) if l or r else x
+        x = spatial.gather(x)
+    t, b = same_pads(x.shape[2], kh, s)
     if t == b == l == r == 0:
         return x
     return F.pad(x, (l, r, t, b), value=value)
@@ -103,9 +119,13 @@ class Conv(nn.Module):
     def forward(self, x: Tensor) -> Tensor:
         (eh, ew), s, r, g = self.span, self.stride, self.dilation, self.groups
         if s == 1 and eh % 2 == 1 and ew % 2 == 1:
-            # SAME pads an odd window at stride 1 by (e − 1)/2 both sides
-            return F.conv2d(x, self.weight, self.bias, 1, (eh // 2, ew // 2),
-                            r, g)
+            # SAME pads an odd window at stride 1 by (e − 1)/2 both sides;
+            # a slab takes those rows from its neighbours instead
+            ph = eh // 2
+            if ph and spatial.is_split(x):
+                x, ph = spatial.halo(x, ph, ph), 0
+            return F.conv2d(x, self.weight, self.bias, 1, (ph, ew // 2), r,
+                            g)
         return F.conv2d(pad_same(x, self.span, s), self.weight, self.bias, s,
                         0, r, g)
 
@@ -216,9 +236,15 @@ def avg_pool_same(x: Tensor, k: int = 3, s: int = 1,
     sums = F.avg_pool2d(pad_same(x, k, s), k, s, divisor_override=1)
     if count_include_pad:
         return sums / (k * k)
-    ones = torch.ones((1, 1, *x.shape[2:]), dtype=x.dtype, device=x.device)
-    return sums / F.avg_pool2d(pad_same(ones, k, s), k, s,
-                               divisor_override=1)
+    # the count over the whole image's map (its true edges), then the
+    # rows of a slab
+    sp = spatial.current()
+    h = sp.global_h(x) if sp is not None else x.shape[2]
+    ones = torch.ones((1, 1, h, x.shape[3]), dtype=x.dtype, device=x.device)
+    (t, b), (l, r) = same_pads(h, k, s), same_pads(x.shape[3], k, s)
+    counts = F.avg_pool2d(F.pad(ones, (l, r, t, b)), k, s,
+                          divisor_override=1)
+    return sums / spatial.slab_of(counts, sums)
 
 
 def linear_resize_matrix(n: int, m: int, dtype=np.float32) -> np.ndarray:
@@ -249,13 +275,21 @@ def resize_to(x: Tensor, h: int, w: int, method: str = "nearest") -> Tensor:
     the half-pixel triangle filter with clamped edges, which is
     ``align_corners=False`` when no axis shrinks; JAX antialiases a
     downsample (the triangle widened by the shrink factor), so an axis
-    that shrinks takes JAX's weight matrices in ``x``'s dtype instead."""
+    that shrinks takes JAX's weight matrices in ``x``'s dtype instead.
+    Under the space axis the output is in its level's layout
+    (``parallel/spatial.py:resize``)."""
     if tuple(x.shape[2:]) == (h, w):
         return x
     if tuple(x.shape[2:]) == (1, 1) and method in ("nearest", "bilinear"):
         # one source pixel: both methods copy it (JAX's one bilinear
         # weight normalises to exactly 1)
         return x.expand(-1, -1, h, w)
+    if spatial.current() is not None:
+        return spatial.resize(x, h, w, method, _resize)
+    return _resize(x, h, w, method)
+
+
+def _resize(x: Tensor, h: int, w: int, method: str) -> Tensor:
     if method == "nearest":
         with torch.autocast(x.device.type, enabled=False):
             return F.interpolate(x, size=(h, w), mode="nearest-exact")
@@ -289,7 +323,7 @@ class SEBlock(nn.Module):
         self.act = F.relu if act == "relu" else F.silu
 
     def forward(self, x: Tensor) -> Tensor:
-        s = x.mean(dim=(2, 3), keepdim=True)
+        s = spatial.mean_hw(x)
         s = self.expand(self.act(self.reduce(s)))
         return x * torch.sigmoid(s)
 
@@ -335,6 +369,8 @@ class Dropout(nn.Module):
         mask = self.keep_mask
         if mask is None:
             mask = torch.rand(x.shape, device=x.device) < keep
+        else:
+            mask = spatial.slab_of(mask, x)   # a whole image's mask
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                        device=x.device))
 

@@ -37,8 +37,12 @@ are reduced in one all-reduce before the best-epoch choice and the
 callbacks, so every rank takes the same decisions.  Only the primary
 writes the checkpoint, the CSV and the event file; two barriers (after
 the best save, after the done marker) keep a resume's skips the same on
-every rank.  A process without a group runs the one-process path.  The
-``space`` axis is not ported (``NotImplementedError``).
+every rank.  A process without a group runs the one-process path.  With
+``mesh: {data: D, space: S}`` the D·S ranks form D space groups: every
+rank of a group decodes and augments its data block's rows whole, the
+model runs on H slabs (``parallel/spatial.py``), and the group's logs and
+validation weights count once (``train/step.py``), so the one all-reduce
+of the epoch's sums stays as it is.
 """
 
 from __future__ import annotations
@@ -319,7 +323,9 @@ def fit_pipeline(cfg, dataset, foldsToExecute: Optional[Sequence[int]] = None,
                 print(f"[fold {fold} stage {si}] epochs={stage.epochs} "
                       f"lr={base_lr} loss={loss_expr} frozen={frozen} "
                       f"batch={batch} device={device}"
-                      + (f" rank={mesh.rank}/{mesh.world}" if dp else ""))
+                      + (f" rank={mesh.rank}/{mesh.world}" if dp else "")
+                      + (f" slab={mesh.s}/{mesh.space}" if mesh.space > 1
+                         else ""))
 
             # profile: a torch.profiler trace of epoch 1 (epoch 0 holds the
             # first-call setup) unless the stage has only one epoch

@@ -36,6 +36,17 @@ clipping sees the global gradient.  The logs are the rank's shares
 logs; the stage runner sums them once an epoch.  Without ``mesh`` nothing
 of this runs.
 
+The ``space`` axis (``mesh.space`` S above 1): every rank of a space group
+holds its data rows whole and augments them whole, then keeps its H slab
+(``Mesh.slab``) of the images; the model runs on the slabs under
+``parallel/spatial.py:partitioned``.  Its logits are gathered over the
+group (``spatial.gather``, the float32 B·H·W·C values) and the loss and
+metrics run on whole images and whole masks, so dice, jaccard, tversky
+and the Lovász sorts see every pixel.  Each rank of the group then
+computes the same whole loss: its share is the loss / S (the gather's
+backward sums the group's gradients), and its logs count once, on the
+group's slab-0 rank, zeros on the others.
+
 ``debug`` (YAML ``debug:``), the counterpart of the JAX package's
 ``jax_debug_nans`` and ``checkify``: ``True`` fails the step with
 ``FloatingPointError`` (the exception ``jax_debug_nans`` raises) on a
@@ -59,6 +70,7 @@ import torch
 from ..models.factory import apply_activation, apply_model, model_variables
 from ..ops.preprocess import preprocess
 from ..parallel import distributed as dist
+from ..parallel import spatial
 
 Tensor = torch.Tensor
 
@@ -132,6 +144,7 @@ def build_train_step(model, tx, loss_fn, metric_fns: Dict[str, Callable],
     sampled from ``gen`` after the augmentation's draws.  ``debug``: see
     the module's notes.  ``mesh``: data parallelism (the module's notes);
     ``draws`` and ``drop_masks`` are then the global batch's."""
+    space = mesh is not None and mesh.space > 1
 
     def train_step(state: TrainState, batch, lr: float,
                    gen: Optional[torch.Generator] = None, draws=None,
@@ -166,19 +179,27 @@ def build_train_step(model, tx, loss_fn, metric_fns: Dict[str, Callable],
             drop_masks = model.sample_drop_masks(gen, bg)
         if drop_masks is not None and rows is not None:
             drop_masks = {k: v[rows] for k, v in drop_masks.items()}
+        hg, wg = images.shape[1], images.shape[2]
+        if space:
+            images = images[:, mesh.slab(hg)]
         x = preprocess(images, preprocessing or "tf", model.dtype)
-        masks = masks.float()
+        masks = masks.float()      # whole: the loss runs on whole images
 
         names = tx.trainable(state.params)
         train = {k: state.params[k].detach().requires_grad_(True)
                  for k in names}
         params = {**state.params, **train}
         with (_anomaly_checks() if debug == "checks"
-              else contextlib.nullcontext()):
+              else contextlib.nullcontext()), spatial.partitioned(
+                  mesh, hg, wg):
             logits, new_stats = apply_model(model, params, state.batch_stats,
                                             x, train=True,
                                             drop_masks=drop_masks)
-            loss = (loss_fn.per_example(masks, logits) * w_rows).sum() / wsum
+            if space:
+                logits = spatial.gather(logits, 1)
+            full = (loss_fn.per_example(masks, logits) * w_rows).sum() / wsum
+            # every rank of a space group computes this whole loss
+            loss = full / mesh.space if space else full
             if debug:
                 _check_finite("loss", {"loss": loss})
             # a parameter the loss does not reach (PSPNet reads C3 only, so
@@ -200,13 +221,16 @@ def build_train_step(model, tx, loss_fn, metric_fns: Dict[str, Callable],
                 **{f"grad {k}": g for k, g in grads.items()},
                 **{k: new_params[k] for k in names}})
 
-        logs = {"loss": loss.detach()}
+        logs = {"loss": full.detach()}
         if metric_fns:
             probs = apply_activation(logits.detach(), activation)
             for name, fn in metric_fns.items():
                 logs[name] = ((fn(masks, probs, activation) * w_rows).sum()
                               / wsum)
         logs["_wsum"] = w_rows.sum()
+        if space and mesh.s:
+            # the group's logs count once, on its slab-0 rank
+            logs = {k: torch.zeros_like(v) for k, v in logs.items()}
         return TrainState(new_params, new_stats, new_opt,
                           state.step + 1), logs
 
@@ -220,7 +244,11 @@ def build_eval_step(model, loss_fn, metric_fns: Dict[str, Callable],
     "weight": (B,)}``: per-example values with BatchNorm in eval mode,
     under ``torch.inference_mode()``.  ``transform`` is the deterministic
     ``transforms:`` preprocessing: validation sees what training saw.
-    With ``mesh`` the values are the rank's rows' (and their weights)."""
+    With ``mesh`` the values are the rank's rows' (and their weights);
+    under the space axis the model runs on the slabs, the values on the
+    gathered logits, and the weights are zeros but on the group's slab-0
+    rank, so the group's rows count once."""
+    space = mesh is not None and mesh.space > 1
 
     def eval_step(state: TrainState, batch):
         with torch.inference_mode():
@@ -233,9 +261,18 @@ def build_eval_step(model, loss_fn, metric_fns: Dict[str, Callable],
                 images, masks = (transform(images, masks) if rows is None
                                  else transform(images, masks, rows,
                                                 batch["weight"].shape[0]))
+            hg, wg = images.shape[1], images.shape[2]
+            if space:
+                images = images[:, mesh.slab(hg)]
+                if mesh.s:
+                    w = torch.zeros_like(w)
             x = preprocess(images, preprocessing or "tf", model.dtype)
             masks = masks.float()
-            logits = apply_model(model, state.params, state.batch_stats, x)
+            with spatial.partitioned(mesh, hg, wg):
+                logits = apply_model(model, state.params, state.batch_stats,
+                                     x)
+                if space:
+                    logits = spatial.gather(logits, 1)
             logs = {"loss": loss_fn.per_example(masks, logits),
                     "weight": w}
             probs = apply_activation(logits, activation)

@@ -331,7 +331,8 @@ def test_fit_with_config4_augmentation_runs(tmp_path):
 
 
 @pytest.mark.parametrize("mesh,trains", [
-    ({"data": -1, "space": 2}, (NotImplementedError, "spatial partitioning")),
+    ({"data": -1, "space": 2}, (ValueError, "mesh 0x2 .* does not cover 1 "
+                                "devices.*--nproc-per-node 2")),
     ({"hosts": 2, "data": -1}, (ValueError, "divisible by the DCN/hosts")),
     ({"data": 2}, (ValueError, "does not cover 1 devices.*torchrun "
                                "--nproc-per-node 2")),
@@ -341,8 +342,8 @@ def test_fit_refuses_meshes_over_more_than_one_device(mesh, trains, tmp_path):
     """In one process (no process group) a mesh over more than one device
     is refused before the fit reads the data: ``data`` or ``hosts`` above 1
     with the JAX package's ``ValueError`` (``data`` naming torchrun, since
-    torch drives one card per process), ``space`` above 1 with
-    ``NotImplementedError`` (spatial partitioning is not ported).
+    torch drives one card per process; ``space: 2`` over all processes
+    leaves a data axis of 0, as in JAX).
     ``data: -1`` means every process, here one: those meshes train."""
     xs, ys = _data()
     cfg = TC.parse_dict({**CONFIG, "mesh": mesh,

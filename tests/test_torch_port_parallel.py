@@ -4,12 +4,12 @@ in one process on the CPU (the two-process runs are
 
   * ``MeshSpec.from_config`` and ``build_mesh`` against the JAX package's
     on its 8-device CPU mesh (the port's world 8 on one node): the same
-    data and hosts factors, the same ``ValueError`` texts; ``space`` above
-    1 raises ``NotImplementedError`` before any other check (spatial
-    partitioning is not ported), so those cases only hold the JAX side's
-    outcome beside the refusal.
+    data, space and hosts factors, the same ``ValueError`` texts, and with
+    ``space`` above 1 each rank's data index, H slab and rows where JAX's
+    mesh puts device ``r`` (``reshape(data, space)``).
   * ``shard_batch`` against the JAX ``shard_batch``'s addressable shards:
-    each rank's rows, the 1-D ``weight`` whole.
+    each rank's rows, whole in H, then its H slab (``Mesh.slab``), on the
+    ``data`` and ``data × space`` meshes; the 1-D ``weight`` whole.
   * Without a process group the bootstrap is a no-op and this process is
     the primary.
   * ``Augmentation.take`` for every registry name and alias:
@@ -64,10 +64,6 @@ def test_build_mesh_matches_jax(data, space, hosts):
                                                       jspec.hosts)
     assert TM.MeshSpec.from_config({}) == TM.MeshSpec()
     want = _jax_mesh(jspec)
-    if space > 1:
-        with pytest.raises(NotImplementedError, match="spatial partition"):
-            TM.build_mesh(tspec, world=8, rank=0, local_world=8)
-        return
     if isinstance(want, ValueError):
         with pytest.raises(ValueError) as got:
             TM.build_mesh(tspec, world=8, rank=0, local_world=8)
@@ -78,6 +74,13 @@ def test_build_mesh_matches_jax(data, space, hosts):
         assert (m.data, m.space, m.world, m.rank) == (
             want.devices.shape[0], want.devices.shape[1], 8, rank)
         assert m.hosts == (hosts if hosts > 0 else 1)
+        # the layout: rank r is device r, at (d, s) of JAX's mesh
+        (d, s), = np.argwhere(want.devices == jax.devices()[rank])
+        assert (m.d, m.s) == (d, s)
+        per = 16 // m.data
+        assert m.rows(16) == slice(d * per, (d + 1) * per)
+        assert m.slab(32) == slice(s * 32 // m.space,
+                                   (s + 1) * 32 // m.space)
 
 
 def test_build_mesh_hosts_default_to_the_node_count():
@@ -101,27 +104,31 @@ def test_one_process_data_axis_names_torchrun():
     assert (m.data, m.world, m.rank, m.rows(5)) == (1, 1, 0, slice(0, 5))
 
 
-def test_shard_batch_matches_jax_shards():
+@pytest.mark.parametrize("data,space", [(8, 1), (4, 2), (2, 4)])
+def test_shard_batch_matches_jax_shards(data, space):
+    """Each rank's rows whole in H (the augmentation reads any source
+    row), then its slab: JAX's shard of device ``rank``."""
     r = np.random.RandomState(0)
-    batch = {"image": r.randint(0, 255, (16, 4, 4, 3)).astype(np.uint8),
-             "mask": r.rand(16, 4, 4, 1).astype(np.float32),
+    batch = {"image": r.randint(0, 255, (16, 8, 4, 3)).astype(np.uint8),
+             "mask": r.rand(16, 8, 4, 1).astype(np.float32),
              "weight": r.rand(16).astype(np.float32)}
-    jm = JM.build_mesh(JM.MeshSpec(data=8, space=1))
+    jm = JM.build_mesh(JM.MeshSpec(data=data, space=space))
     jout = JM.shard_batch(batch, jm)
     order = list(jm.devices.flat)
     assert jout["weight"].sharding.is_fully_replicated
     for rank in range(8):
-        tm = TM.build_mesh(TM.MeshSpec(data=8), world=8, rank=rank,
-                           local_world=8)
+        tm = TM.build_mesh(TM.MeshSpec(data=data, space=space), world=8,
+                           rank=rank, local_world=8)
         tout = TM.shard_batch({k: torch.from_numpy(v)
                                for k, v in batch.items()}, tm)
         np.testing.assert_array_equal(tout["weight"].numpy(),
                                       batch["weight"])
         for k in ("image", "mask"):
+            assert tout[k].shape[1] == 8
             shard = next(s for s in jout[k].addressable_shards
                          if order.index(s.device) == rank)
-            np.testing.assert_array_equal(tout[k].numpy(),
-                                          np.asarray(shard.data))
+            np.testing.assert_array_equal(
+                tout[k][:, tm.slab(8)].numpy(), np.asarray(shard.data))
 
 
 def test_single_process_bootstrap_noop():
@@ -139,7 +146,8 @@ def test_guard_scan_covers_parallel():
     names = {os.path.relpath(p, G.PKG) for p in G.SOURCES
              if str(p).startswith(str(G.PKG))}
     assert {os.path.join("parallel", f) for f in
-            ("__init__.py", "distributed.py", "mesh.py")} <= names
+            ("__init__.py", "distributed.py", "mesh.py",
+             "spatial.py")} <= names
 
 
 # --- take: every name's draws cut to rows 2:4 -----------------------------
