@@ -38,7 +38,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
+_D = ctypes.c_double
 
 
 def find_nvcc() -> str:
@@ -113,7 +115,7 @@ class Kernel:
         self.source = source          # file under csrc/
         self.symbol = symbol
         self.argtypes = list(argtypes)
-        self.replaces = replaces      # the TPU kernel, file:line
+        self.replaces = replaces      # the TPU kernel, file:line, or none
         self.launches = 0
         self._fn = None
 
@@ -131,6 +133,10 @@ class Kernel:
 
 
 _PLANE_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]
+# a batch-norm launch's geometry (models/batchnorm.py:_plan): rows, outer,
+# inner, span, channels, slices, tile width, 16-byte accesses
+_BN_GEO = [_I, _L, _L, _L, _I, _I, _I, _I]
+BN_REPLACES = "none: flax nn.BatchNorm, XLA-lowered"
 
 KERNELS: Dict[str, Kernel] = {
     k.name: k for k in (
@@ -150,6 +156,17 @@ KERNELS: Dict[str, Kernel] = {
                [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
                "segmentation_training_pipeline_tpu/ops/aug/"
                "pallas_warp.py:312"),
+        Kernel("bn_stats", "batchnorm.cu", "stp_bn_stats",
+               [_P, _I, *_BN_GEO, _P, _P, _P, _P], BN_REPLACES),
+        Kernel("bn_apply", "batchnorm.cu", "stp_bn_apply",
+               [_P, _P, _I, *_BN_GEO, _P, _P, _P, _P, _P, _D, _D, _P, _P,
+                _P, _P, _P], BN_REPLACES),
+        Kernel("bn_grad_stats", "batchnorm.cu", "stp_bn_grad_stats",
+               [_P, _P, _I, *_BN_GEO, _P, _P, _P, _P, _P, _P, _P, _P],
+               BN_REPLACES),
+        Kernel("bn_grad_apply", "batchnorm.cu", "stp_bn_grad_apply",
+               [_P, _P, _P, _I, *_BN_GEO, _P, _P, _P, _P, _P, _P],
+               BN_REPLACES),
     )
 }
 
@@ -164,8 +181,10 @@ def launch_counts() -> Dict[str, int]:
 
 
 def stream_of(t: torch.Tensor) -> int:
-    """The current CUDA stream of ``t``'s device, as a pointer value."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current CUDA stream of ``t``'s device, as a pointer value (the
+    raw query: ``torch.cuda.current_stream`` builds a ``Stream`` object
+    each call, the larger part of a small launch's host time)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 # the shared memory one block may take on the H100, in bytes, and the

@@ -9,15 +9,13 @@ inside).  Three conventions of the flax reference are kept exactly:
     0), split low = total // 2, high = the rest.  At even sizes a strided
     conv pads asymmetrically (the 7×7/2 stem pads (2, 3), a 3×3/2 conv
     (0, 1)), which a symmetric ``padding=k//2`` gets wrong.
-  * BatchNorm with flax's running-statistics rule: running = m·running +
-    (1 − m)·batch with m = 0.9 (PyTorch's momentum 0.1; the Keras-derived
-    graphs use Keras's 0.99 and eps 1e-3, MobileNetV2 0.999), and the
-    BIASED batch variance (PyTorch folds in the unbiased one).  In training mode
-    the layer leaves its updated statistics in ``updated``; the caller
-    collects them (``models.factory.apply_model``).  In a process group
-    (``parallel/distributed.py``) the training statistics are the global
-    batch's: one all-reduce of each layer's per-channel sum, sum of squares
-    and count, the statistics GSPMD gives the JAX package.
+  * BatchNorm (``models/batchnorm.py``, re-exported here) with flax's
+    formula and running-statistics rule: running = m·running + (1 − m)·
+    batch with m = 0.9 (PyTorch's momentum 0.1; the Keras-derived graphs
+    use Keras's 0.99 and eps 1e-3, MobileNetV2 0.999), and the BIASED
+    batch variance.  In a process group (``parallel/distributed.py``) the
+    training statistics are the global batch's, the statistics GSPMD
+    gives the JAX package.
   * Initialisation as flax's defaults: conv kernels from
     variance_scaling(1, fan_in, truncated normal), biases 0, BN scale 1 and
     bias 0.
@@ -43,8 +41,8 @@ import torch.nn.functional as F
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
-from ..parallel import distributed as dist
 from ..parallel import spatial
+from .batchnorm import BatchNorm
 
 Tensor = torch.Tensor
 Size2 = Union[int, Tuple[int, int]]
@@ -128,80 +126,6 @@ class Conv(nn.Module):
                             g)
         return F.conv2d(pad_same(x, self.span, s), self.weight, self.bias, s,
                         0, r, g)
-
-
-class BatchNorm(nn.Module):
-    """BatchNorm over NCHW channels with flax's statistics rule.
-    ``scale=False`` is flax's ``use_scale=False`` (no ``weight``)."""
-
-    def __init__(self, channels: int, momentum: float = 0.9,
-                 eps: float = 1e-5, scale: bool = True):
-        super().__init__()
-        self.momentum = momentum       # flax convention (decay of running)
-        self.eps = eps
-        self.weight = nn.Parameter(torch.ones(channels)) if scale else None
-        self.bias = nn.Parameter(torch.zeros(channels))
-        self.register_buffer("running_mean", torch.zeros(channels))
-        self.register_buffer("running_var", torch.ones(channels))
-        self.updated: Optional[Tuple[Tensor, Tensor]] = None
-
-    def reset_parameters(self, gen: torch.Generator) -> None:
-        with torch.no_grad():
-            if self.weight is not None:
-                self.weight.fill_(1.0)
-            self.bias.zero_()
-            self.running_mean.zero_()
-            self.running_var.fill_(1.0)
-
-    def forward(self, x: Tensor, train: bool = False) -> Tensor:
-        # without a scale, a constant 1 (exact): cuDNN's backward returns
-        # no bias gradient when the weight is absent
-        weight = self.weight if self.weight is not None else \
-            torch.ones_like(self.bias)
-        if not train:
-            return F.batch_norm(x, self.running_mean, self.running_var,
-                                weight, self.bias, False, 0.0, self.eps)
-        if dist.active():
-            return self._synced(x, weight)
-        mean = self.running_mean.clone()
-        var = self.running_var.clone()
-        y = F.batch_norm(x, mean, var, weight, self.bias, True,
-                         1.0 - self.momentum, self.eps)
-        # PyTorch blended in the unbiased batch variance n/(n−1)·v; flax
-        # blends the biased v: rescale the blended-in part by (n−1)/n
-        n = x.numel() // x.shape[1]
-        kept = self.momentum * self.running_var
-        self.updated = (mean, kept + (var - kept) * ((n - 1) / n))
-        return y
-
-    def _synced(self, x: Tensor, weight: Tensor) -> Tensor:
-        """Train mode over the group's global batch: per-channel sum, sum
-        of squares and count of the float32 values (also under bf16
-        autocast), accumulated in float64, one differentiable all-reduce of
-        the three, then flax's fast variance E[x²] − mean² (clipped at 0)
-        and the running statistics blended with that biased variance of the
-        global batch (the (n − 1)/n rescale above, with the global n,
-        undone in one step).  The sums are float64 so that the
-        subtraction's cancellation (E[x²] far above the variance) stays out
-        of float32, where it leaves the variance less accurate than the
-        one-process path's."""
-        c = x.shape[1]
-        xf = x.float()
-        s1 = xf.sum((0, 2, 3), dtype=torch.float64)
-        s2 = (xf * xf).sum((0, 2, 3), dtype=torch.float64)
-        tot = dist.all_reduce_sum(torch.cat(
-            [s1, s2, s1.new_full((1,), x.numel() // c)]))
-        mean = tot[:c] / tot[2 * c]
-        var = torch.clamp(tot[c:2 * c] / tot[2 * c] - mean * mean,
-                          min=0.0).float()
-        mean = mean.float()
-        scale = torch.rsqrt(var + self.eps) * weight.float()
-        shift = self.bias.float() - mean * scale
-        y = xf * scale[None, :, None, None] + shift[None, :, None, None]
-        m = self.momentum
-        self.updated = (m * self.running_mean + (1.0 - m) * mean.detach(),
-                        m * self.running_var + (1.0 - m) * var.detach())
-        return y.to(x.dtype)
 
 
 class ConvBN(nn.Module):

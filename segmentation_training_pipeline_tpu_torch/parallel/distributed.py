@@ -169,25 +169,6 @@ def all_reduce_(t: Tensor) -> Tensor:
     return t
 
 
-class _AllReduceSum(torch.autograd.Function):
-    """Sum over the group in the forward pass, and the same sum of the
-    incoming gradient in the backward pass: each rank's loss depends on
-    every rank's input through the sum."""
-
-    @staticmethod
-    def forward(ctx, t: Tensor) -> Tensor:
-        return all_reduce_(t.clone())
-
-    @staticmethod
-    def backward(ctx, g: Tensor) -> Tensor:
-        return all_reduce_(g.clone())
-
-
-def all_reduce_sum(t: Tensor) -> Tensor:
-    """Differentiable sum of ``t`` over the group."""
-    return _AllReduceSum.apply(t)
-
-
 def all_reduce_flat(tensors: List[Tensor]) -> None:
     """Sum ``tensors`` over the group in place, through one flat bucket
     and one ``all_reduce``."""

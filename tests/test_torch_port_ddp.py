@@ -14,7 +14,9 @@ collective fails its test instead of hanging the suite.
     against the port's own one-process step at B8 from the same generator
     seed.  Bounds as ``tests/test_sharding.py``'s: the loss within 1e-5,
     the parameters within 5e-4, the BatchNorm statistics within 1e-4; the
-    ranks' parameters bit for bit equal.  SGD, not Adam: Adam's first step
+    ranks' parameters bit for bit equal; then rank 0 in a group of one on
+    the whole batch equal to the one-process step bit for bit (one
+    BatchNorm formula in every process).  SGD, not Adam: Adam's first step
     is ±lr·sign(g) and turns reduction-order noise on near-zero gradients
     into 2·lr flips (``test_sharding.py``).
   * A two-stage, two-epoch ``fit_pipeline`` in which rank 1's checkpoint,
@@ -118,7 +120,15 @@ def steps(tmp_path_factory):
     spawn("step", out)
     ranks = [torch.load(os.path.join(out, f"step-{r}.pt"))
              for r in range(WORLD)]
-    one = W.run_step(init, tbatch, blocks)
+    # one thread, as the ranks run: PyTorch's CPU sums and convolutions
+    # split their work by the thread count, which moves their rounding
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        one = {"plain": W.run_step(init, tbatch),
+               "block": W.run_step(init, tbatch, blocks)}
+    finally:
+        torch.set_num_threads(threads)
     return dict(jnew=jnew, jlogs=jlogs, ranks=ranks, one=one)
 
 
@@ -142,7 +152,7 @@ def test_two_ranks_match_jax_data2_mesh_step(steps):
 
 def test_two_ranks_match_one_process_step_with_the_block(steps):
     ranks = [r["block"] for r in steps["ranks"]]
-    params, stats, logs = steps["one"]
+    params, stats, logs = steps["one"]["block"]
     loss = sum(float(r["logs"]["loss"]) for r in ranks)
     assert abs(loss - float(logs["loss"])) < LOSS_ATOL
     assert _max_diff(ranks[0]["params"], params) < PARAM_ATOL
@@ -157,24 +167,38 @@ def test_ranks_hold_bit_equal_parameters(steps, case):
 
 
 @pytest.mark.parametrize("case", ["plain", "block"])
+def test_group_of_one_equals_the_one_process_step(steps, case):
+    """One BatchNorm formula in every process: rank 0 alone in a group of
+    one (every collective runs, over one rank) takes the one-process
+    step's parameters and statistics bit for bit."""
+    solo = steps["ranks"][0]["solo"][case]
+    params, stats, _ = steps["one"][case]
+    for got, want in ((solo["params"], params), (solo["stats"], stats)):
+        assert set(got) == set(want)
+        assert all(torch.equal(got[k], want[k]) for k in want)
+
+
+@pytest.mark.parametrize("case", ["plain", "block"])
 def test_one_gradient_all_reduce_per_step(steps, case):
     """Resnet18-Unet's BatchNorm layers each all-reduce their float64
-    sums once forward and once backward (their scale and bias are
-    trained), then one flat bucket: 2·BN + 1 calls, the bucket the
-    trainable parameters' bytes."""
+    sums once forward, (s1, s2, n): 2C + 1 values, and once backward,
+    (g1, g2): 2C values (their scale and bias are trained, from the local
+    sums), then one flat bucket: 2·BN + 1 calls, the bucket the trainable
+    parameters' bytes."""
     from segmentation_training_pipeline_tpu_torch.models import (
         factory as TF)
     from segmentation_training_pipeline_tpu_torch.models.layers import (
         BatchNorm)
 
     model = TF.create_model("Unet", "resnet18", 1, dtype="float32")
-    n_bn = sum(isinstance(m, BatchNorm) for m in model.modules())
-    bn_bytes = sum(8 * (2 * m.bias.numel() + 1) for m in model.modules()
-                   if isinstance(m, BatchNorm))
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    forward_bytes = sum(8 * (2 * m.bias.numel() + 1) for m in bns)
+    backward_bytes = sum(8 * 2 * m.bias.numel() for m in bns)
     grad_bytes = sum(4 * p.numel() for p in model.parameters())
     for r in steps["ranks"]:
-        assert r[case]["counts"] == {"all_reduce": 2 * n_bn + 1,
-                                     "bytes": 2 * bn_bytes + grad_bytes}
+        assert r[case]["counts"] == {
+            "all_reduce": 2 * len(bns) + 1,
+            "bytes": forward_bytes + backward_bytes + grad_bytes}
 
 
 @pytest.fixture(scope="module")

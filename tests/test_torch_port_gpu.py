@@ -12,7 +12,8 @@ shapes; these cover the edges the train shapes do not reach: non-square
 frames, a non-zero fill, mask ties, displacements beyond K, argument
 checks, the shear kernel's negative offsets (the sign of the modulo) and
 mostly out-of-bounds lines, kernel YE's band check, the three warp paths
-and the launch counts.  Every kernel tiles rows or lines and columns, so
+and the launch counts; the batch-norm kernels on channel counts, map
+sizes, layouts and types the train shapes do not reach.  Every kernel tiles rows or lines and columns, so
 the cases also take widths that are no multiple of 4, 32 or 128, heights
 and line counts that are no multiple of a tile, one and five channels,
 one image, ``py = K + 1``, elastic offsets of ±K at the frame's edges
@@ -145,8 +146,9 @@ def test_config2_block_on_card_matches_cpu(card):
     ci, cm = aug.apply(draws, imgs, masks)
     K.reset_launches()
     gi, gm = aug.apply(to(draws), imgs.to(card), masks.to(card))
-    assert K.launch_counts() == {"warp_x": 1, "warp_y": 1, "elastic": 1,
-                                 "shear": 0, "warp_ye": 0}
+    x_y_elastic = {"warp_x": 1, "warp_y": 1, "elastic": 1}
+    assert K.launch_counts() == {n: x_y_elastic.get(n, 0)
+                                 for n in K.KERNELS}
     assert float((gi.cpu() - ci).abs().max()) <= 0.05
     assert float((gm.cpu() != cm).float().mean()) <= 1e-3
 
@@ -367,16 +369,17 @@ def test_prefetcher_copies_pinned_batches_to_the_card(card):
 
 
 def test_scale_free_batchnorm_trains_on_the_card(card):
-    """The keras-preact graph's ``bn_data`` has no scale: cuDNN's backward
-    gives no bias gradient for a batch norm without a weight, so the
-    layer passes a constant 1 (``models/layers.py:BatchNorm``).  Its
-    train-mode output and gradients on the card equal the CPU's."""
+    """The keras-preact graph's ``bn_data`` has no scale: the batch-norm
+    kernels take a null weight (flax's ``use_scale=False``) and still
+    give the bias its gradient.  Its train-mode output and gradients on
+    the card equal the CPU's, through the four kernels."""
     from segmentation_training_pipeline_tpu_torch.models.layers import (
         BatchNorm)
 
     x = torch.from_numpy(np.random.RandomState(0).randn(4, 3, 9, 7).astype(
         np.float32))
     out = {}
+    K.reset_launches()
     for dev in ("cpu", card):
         bn = BatchNorm(3, 0.99, 1e-3, scale=False).to(dev)
         with torch.no_grad():
@@ -387,9 +390,203 @@ def test_scale_free_batchnorm_trains_on_the_card(card):
             ).backward()
         out[str(dev)] = [t.detach().cpu() for t in (y, xd.grad, bn.bias.grad)]
     assert bn.weight is None
+    assert {n: K.launch_counts()[n] for n in BN_KERNELS} == {
+        n: 1 for n in BN_KERNELS}
     for cpu, gpu in zip(out["cpu"], out[str(card)]):
         assert cpu.shape == gpu.shape
         torch.testing.assert_close(gpu, cpu, rtol=1e-5, atol=1e-5)
+
+
+BN_KERNELS = ("bn_stats", "bn_apply", "bn_grad_stats", "bn_grad_apply")
+
+
+def _ulps_apart(a, b):
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+            torch.float16: torch.int16, torch.float64: torch.int64}[a.dtype]
+    return int((a.contiguous().view(ints).long()
+                - b.contiguous().view(ints).long()).abs().max())
+
+
+@pytest.mark.parametrize("shape,dtype,layout,scale", [
+    ((2, 3, 5, 7), torch.float32, "nchw", True),         # odd planes
+    ((2, 40, 9, 7), torch.bfloat16, "channels_last", True),   # 5 columns
+    ((3, 37, 11, 13), torch.float32, "channels_last", False),  # 2 tiles
+    ((1, 300, 2, 2), torch.bfloat16, "nchw", True),      # below a slice
+    ((8, 2048, 1, 1), torch.float32, "nchw", True),      # H·W = 1: rows
+    ((5, 24, 1, 1), torch.float64, "nchw", False),
+    ((4, 64, 128, 128), torch.bfloat16, "nchw", True),   # many slices
+    ((2, 96, 64, 64), torch.float32, "channels_last", True),
+    ((2, 16, 32, 32), torch.float64, "channels_last", True),
+    ((64, 33, 40, 40), torch.bfloat16, "channels_last", False),
+    ((2, 40, 9, 7), torch.float16, "channels_last", True),    # 5 columns
+    ((4, 64, 128, 128), torch.float16, "nchw", False),   # many slices
+    ((3, 37, 11, 13), torch.float16, "channels_last", True),  # no vectors
+], ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
+def test_batchnorm_kernels_match_their_plain_versions(card, shape, dtype,
+                                                      layout, scale):
+    """Each batch-norm kernel against its plain version on the card, at
+    channel counts that are no multiple of a vector or a tile, a few
+    values a channel and many slices of them, H·W = 1, both layouts and
+    no scale: the float64 sums within 1e-12 of the sum of their terms'
+    magnitudes (another order of addition), every output derived from
+    given sums equal (the same operations in the same order), two
+    launches bit-identical, one launch counted each."""
+    from segmentation_training_pipeline_tpu_torch.models import (
+        batchnorm as BN)
+
+    gen = torch.Generator(device=card).manual_seed(sum(shape))
+    c, dims = shape[1], (0, 2, 3)
+    fmt = (torch.channels_last if layout == "channels_last"
+           else torch.contiguous_format)
+    x = (3 + 2 * torch.randn(shape, generator=gen, device=card)).to(
+        dtype).contiguous(memory_format=fmt)
+    dy = torch.randn(shape, generator=gen, device=card).to(dtype).contiguous(
+        memory_format=fmt)
+    acc = torch.float64 if dtype == torch.float64 else torch.float32
+    w = (0.5 + torch.rand(c, generator=gen, device=card)).to(acc) \
+        if scale else None
+    b, rm = (torch.randn(c, generator=gen, device=card).to(acc)
+             for _ in range(2))
+    rv = (1 + torch.rand(c, generator=gen, device=card)).to(acc)
+    K.reset_launches()
+    sums = BN.bn_stats(x)
+    app = BN.bn_apply(x, sums, w, b, rm, rv, 0.99, 1e-3)
+    mean, invstd = app[1], app[2]
+    gs, dw, db = BN.bn_grad_stats(dy, x, mean, invstd, w)
+    dx = BN.bn_grad_apply(dy, x, gs, sums, mean, invstd, w)
+    assert K.launch_counts() == {n: int(n in BN_KERNELS) for n in K.KERNELS}
+    xd, dyd = x.double(), dy.double()
+    d = (x.to(acc) - mean.view(1, -1, 1, 1)).double()
+    for got, want, scale_of in (
+            (sums, BN.bn_stats_plain(x), torch.cat([
+                xd.abs().sum(dims), (xd * xd).sum(dims), xd.new_ones(1)])),
+            (gs, BN.bn_grad_stats_plain(dy, x, mean, invstd, w)[0],
+             torch.cat([dyd.abs().sum(dims), (dyd * d).abs().sum(dims)]))):
+        assert float(((got - want).abs() / scale_of).max()) <= 1e-12
+    assert float(sums[2 * c]) == x.numel() // c
+    for got, want in zip(app, BN.bn_apply_plain(x, sums, w, b, rm, rv, 0.99,
+                                                1e-3)):
+        assert got.dtype == want.dtype and _ulps_apart(got, want) == 0
+    assert _ulps_apart(db, gs[:c].to(acc)) == 0
+    if scale:
+        assert _ulps_apart(dw, (gs[c:] * invstd.double()).to(acc)) == 0
+    else:
+        assert dw is None
+    want = BN.bn_grad_apply_plain(dy, x, gs, sums, mean, invstd, w)
+    assert dx.dtype == dtype and _ulps_apart(dx, want) == 0
+    assert dx.is_contiguous(memory_format=fmt)
+    # the reductions' order depends on the shape alone
+    assert torch.equal(BN.bn_stats(x), sums)
+    assert torch.equal(BN.bn_grad_stats(dy, x, mean, invstd, w)[0], gs)
+
+
+def test_batchnorm_layer_on_the_card_matches_the_cpu(card):
+    """The layer's train mode through the four kernels against its plain
+    versions on the CPU, on a channels-last input with a gradient of
+    another layout (copied to the input's before the backward kernels)
+    and on a strided view (copied to contiguous first)."""
+    from segmentation_training_pipeline_tpu_torch.models.layers import (
+        BatchNorm)
+
+    r = np.random.RandomState(4)
+    x = torch.from_numpy((2 + r.randn(3, 24, 10, 12)).astype(np.float32))
+    g = torch.from_numpy(r.randn(3, 24, 10, 12).astype(np.float32))
+    for view in ("channels_last", "strided"):
+        out = {}
+        for dev in ("cpu", card):
+            bn = BatchNorm(24).to(dev)
+            xd = x.to(dev)
+            if view == "channels_last":
+                xd = xd.contiguous(memory_format=torch.channels_last)
+            else:
+                xd = torch.cat([xd, xd], 3)[..., ::2]
+            xd = xd.detach().requires_grad_(True)
+            y = bn(xd, train=True)
+            y.backward(g.to(dev))
+            out[str(dev)] = [t.detach().cpu() for t in (
+                y, *bn.updated, xd.grad, bn.weight.grad, bn.bias.grad)]
+        for cpu, gpu in zip(out["cpu"], out[str(card)]):
+            torch.testing.assert_close(gpu, cpu, rtol=1e-5, atol=1e-5)
+
+
+def test_batchnorm_kernels_on_two_streams(card):
+    """Launches on two streams of one card at once: each stream has its
+    own tickets and partial sums, so neither disturbs the other's last
+    block, and every result equals the same launch on the default
+    stream."""
+    from segmentation_training_pipeline_tpu_torch.models import (
+        batchnorm as BN)
+
+    gen = torch.Generator(device=card).manual_seed(7)
+    xs = [(3 + torch.randn(shape, generator=gen, device=card)).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        for shape in ((16, 64, 128, 128), (16, 64, 96, 128))]
+    dys = [torch.randn_like(x) for x in xs]
+    want = []
+    for x, dy in zip(xs, dys):
+        sums = BN.bn_stats(x)
+        mean = (sums[:64] / sums[128]).float()
+        invstd = torch.ones(64, device=card)
+        want.append((sums, BN.bn_grad_stats(dy, x, mean, invstd, None)[0],
+                     mean, invstd))
+    streams = [torch.cuda.Stream(card) for _ in xs]
+    got = [[] for _ in xs]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(card))
+    for _ in range(20):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                _, _, mean, invstd = want[i]
+                got[i].append((BN.bn_stats(xs[i]), BN.bn_grad_stats(
+                    dys[i], xs[i], mean, invstd, None)[0]))
+    torch.cuda.synchronize(card)
+    for i, s in enumerate(streams):
+        assert (card.index or 0, s.cuda_stream) in BN._SCRATCH
+        for sums, gs in got[i]:
+            assert torch.equal(sums, want[i][0])
+            assert torch.equal(gs, want[i][1])
+
+
+def test_float16_model_trains_through_the_batchnorm_kernels(card):
+    """A config's ``dtype: float16``: the model runs under float16
+    autocast, so its batch norms take float16 maps.  One train-mode
+    forward and backward of Unet-resnet18 at 64² B2 launches each
+    batch-norm kernel once a layer, on float16 inputs, with finite
+    gradients; its logits within 5e-2 (relative L2) of the float32
+    model's from the same init, TF32 off (float16's rounding over the
+    layers, some 1e-3; a broken kernel would be of order 1)."""
+    from segmentation_training_pipeline_tpu_torch.models import (
+        batchnorm as BN)
+    from segmentation_training_pipeline_tpu_torch.models import (
+        factory as MF)
+
+    x = torch.from_numpy(np.random.RandomState(2).rand(2, 64, 64, 3).astype(
+        np.float32)).to(card)
+    logits = {}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for dtype in ("float16", "float32"):
+        model = MF.init_model(MF.create_model("Unet", "resnet18", 1,
+                                              dtype=dtype), 0, card)
+        layers = [m for m in model.modules() if isinstance(m, BN.BatchNorm)]
+        seen = set()
+        hooks = [m.register_forward_pre_hook(
+            lambda _m, args: seen.add(args[0].dtype)) for m in layers]
+        K.reset_launches()
+        out = model(x, train=True)
+        out.square().mean().backward()
+        torch.cuda.synchronize(card)
+        for h in hooks:
+            h.remove()
+        assert seen == {getattr(torch, dtype)}
+        assert {n: K.launch_counts()[n] for n in BN_KERNELS} == {
+            n: len(layers) for n in BN_KERNELS}
+        assert all(bool(torch.isfinite(p.grad).all())
+                   for p in model.parameters() if p.grad is not None)
+        logits[dtype] = out.detach().float()
+    a, b = logits["float16"], logits["float32"]
+    assert bool(torch.isfinite(a).all())
+    assert float((a - b).norm() / b.norm()) <= 5e-2
 
 
 def _to(x, device):

@@ -133,7 +133,8 @@ def test_entry_points_default_to_the_card(tmp_path):
         torch.Generator(device="cuda")
     assert K.launch_counts() == {n: 0 for n in K.KERNELS}
     assert set(K.KERNELS) == {"warp_x", "warp_y", "elastic", "shear",
-                              "warp_ye"}
+                              "warp_ye", "bn_stats", "bn_apply",
+                              "bn_grad_stats", "bn_grad_apply"}
 
 
 def test_config_parses_the_slice_experiment():

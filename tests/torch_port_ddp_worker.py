@@ -10,8 +10,10 @@ a port) and runs, on the CPU:
     augmentation block, then one from the same weights with the
     ``transforms:`` and ``augmentation:`` blocks of ``DIR/blocks.json``
     (the test's config-2 block), its draws sampled from a generator
-    seeded as the test's; each result (new parameters, BN statistics,
-    logs) goes to ``DIR/step-{RANK}.pt``;
+    seeded as the test's; then rank 0 leaves the group and runs both
+    steps again on the whole batch as the one rank of a group of one;
+    each result (new parameters, BN statistics, logs) goes to
+    ``DIR/step-{RANK}.pt``;
   * ``fit``: the two-stage ``fit_pipeline`` of ``fit_config`` on
     ``fit_dataset``, then the same fit again; on rank 1 the checkpoint,
     CSV and event-file writers raise if called (primary-only IO by
@@ -144,6 +146,19 @@ def main():
             params, stats, logs = run_step(init, batch, b, mesh)
             result[name] = dict(
                 params=params, stats=stats, logs=logs, counts=D.counts())
+        if rank == 0:
+            # then rank 0 alone, in a group of one, on the whole batch
+            D.shutdown()
+            D.maybe_initialize(force=True, backend="gloo",
+                               init_method=f"file://{store}-solo",
+                               world_size=1, rank=0, timeout_s=60)
+            solo = build_mesh()
+            whole = shard_batch(torch.load(os.path.join(out, "batch.pt")),
+                                solo)
+            result["solo"] = {}
+            for name, b in (("plain", None), ("block", blocks)):
+                params, stats, _ = run_step(init, whole, b, solo)
+                result["solo"][name] = dict(params=params, stats=stats)
         torch.save(result, os.path.join(out, f"step-{rank}.pt"))
     else:
         import segmentation_training_pipeline_tpu_torch as stp
