@@ -44,9 +44,13 @@ line with its seconds; any failure raises and the script exits non-zero:
      memory bound, its plain version and PyTorch's one-call counterpart
      (SyncBatchNorm's ``batch_norm_stats``, ``batch_norm_elemt``,
      ``batch_norm_backward_reduce``, ``batch_norm_backward_elemt``), and
-     ``F.batch_norm`` forward and forward+backward on the same tensors;
-     a layer's forward and backward on the host clock, through the
-     kernels and through ``F.batch_norm`` (``batchnorm_host``);
+     ``F.batch_norm`` forward and forward+backward on the same tensors,
+     and ``bn_apply``'s bytes streamed by one ``copy_``; the same on the
+     train step's five other maps in bf16 channels-last, and over its
+     seven maps the totals of one step (Σ launches × ms, bound and
+     library: ``batchnorm_step``); a layer's forward and backward on the
+     host clock, through the kernels and through ``F.batch_norm``
+     (``batchnorm_host``);
   6. warp_paths: the config-2 block at B16 512² through
      ``Augmentation.apply`` on one set of draws, the three paths timed
      (CUDA events, median), their launch counts read, and held against
@@ -1122,14 +1126,18 @@ def phase_kernels(args_of) -> dict:
 # the batchnorm phase: the four kernels at the train step's shapes
 # (Unet-resnet34 512² B16: the stem's map and layer 4's), in the card's
 # channels-last layout in bf16 (the train phase's) and f32, and in NCHW;
-# the stem's also in f16 (a config's ``dtype: float16``).
+# the stem's also in f16 (a ``dtype: float16`` config's); then the step's
+# five other batch-norm maps in bf16 channels-last, so that with the stem
+# and layer 4 the cases hold every map the step gives its 46 layers
+# (``BN_STEP_LAUNCHES``: each map's launches of each kernel a step).
 # Tolerances: the float64 sums against the plain version's within 1e-12
 # of the sum of their terms' magnitudes (the two add in other orders);
 # the outputs that derive from given sums (y, the saved mean and invstd,
 # the running statistics, dx; dw and db from the kernel's own sums)
 # within BN_ULPS units in the last place of their type: none, since both
 # sides take each float32 and float64 operation in the same order (the
-# build's -fmad=false) and round to bf16 to nearest even
+# build's -fmad=false; the sums' fused multiply-adds take exact products)
+# and round to bf16 to nearest even
 BN_CASES = [("stem", (BATCH, 64, SIZE // 2, SIZE // 2), dtype, layout)
             for dtype, layout in ((torch.bfloat16, "channels_last"),
                                   (torch.float32, "channels_last"),
@@ -1139,7 +1147,19 @@ BN_CASES = [("stem", (BATCH, 64, SIZE // 2, SIZE // 2), dtype, layout)
                           (torch.float32, "channels_last"),
                           (torch.float32, "nchw"))] + [
     ("stem", (BATCH, 64, SIZE // 2, SIZE // 2), torch.float16,
-     "channels_last")]
+     "channels_last")] + [
+    (name, (BATCH, c, SIZE // f, SIZE // f), torch.bfloat16,
+     "channels_last")
+    for name, c, f in (("layer1", 64, 4), ("layer2", 128, 8),
+                       ("layer3", 256, 16), ("decoder4", 32, 2),
+                       ("decoder5", 16, 1))]
+BN_STEP_LAUNCHES = {(BATCH, 64, SIZE // 2, SIZE // 2): 1,
+                    (BATCH, 64, SIZE // 4, SIZE // 4): 8,
+                    (BATCH, 128, SIZE // 8, SIZE // 8): 11,
+                    (BATCH, 256, SIZE // 16, SIZE // 16): 15,
+                    (BATCH, 512, SIZE // 32, SIZE // 32): 7,
+                    (BATCH, 32, SIZE // 2, SIZE // 2): 2,
+                    (BATCH, 16, SIZE, SIZE): 2}
 BN_SUM_REL = 1e-12
 BN_ULPS = 0
 BN_MOMENTUM, BN_EPS = 0.9, 1e-5
@@ -1192,13 +1212,17 @@ def _bn_inputs(shape, dtype, layout, seed: int) -> dict:
                 rv=1.0 + torch.rand(c, generator=gen, device="cuda"))
 
 
-def _bn_case(name: str, shape, dtype, layout, seed: int) -> dict:
+def _bn_case(name: str, shape, dtype, layout, seed: int,
+             yardsticks: bool = True, strict: bool = True) -> dict:
     """The four kernels against their plain versions on one case, two
-    launches of each, their times beside their bounds, the plain
-    versions' and PyTorch's one-call counterparts (SyncBatchNorm's
-    ``batch_norm_stats``, ``batch_norm_elemt``,
-    ``batch_norm_backward_reduce``, ``batch_norm_backward_elemt``), and
-    ``F.batch_norm`` forward and backward on the same tensors."""
+    launches of each, their times beside their bounds and, with
+    ``yardsticks``, the plain versions' and PyTorch's one-call
+    counterparts (SyncBatchNorm's ``batch_norm_stats``,
+    ``batch_norm_elemt``, ``batch_norm_backward_reduce``,
+    ``batch_norm_backward_elemt``), one ``copy_`` of x (``bn_apply``'s
+    bytes, read once and written once) and ``F.batch_norm`` forward and
+    backward on the same tensors.  ``strict`` fails the run on a check;
+    without it the case is only reported (``compare_kernels.py``)."""
     t = _bn_inputs(shape, dtype, layout, seed)
     x, dy, w, b, rm, rv = (t[k] for k in ("x", "dy", "w", "b", "rm", "rv"))
     c, dims = shape[1], (0, 2, 3)
@@ -1300,28 +1324,36 @@ def _bn_case(name: str, shape, dtype, layout, seed: int) -> dict:
                  + f64_ops * x.numel() / FP64_FLOPS) * 1e3
         ms = cuda_ms(kernel, 50, hold=True)
         rows[k] = dict(**errs[k], bit_identical_launches=repeat[k], ms=ms,
-                       plain_ms=cuda_ms(plain, 10, hold=True),
-                       library_ms=cuda_ms(library[k], 50, hold=True),
+                       plain_ms=None, library_ms=None,
                        bound_ms=max(t_bytes, t_ops),
                        bound_by="bytes" if t_bytes >= t_ops else "operations",
                        bytes=nbytes[k])
+        if yardsticks:
+            rows[k].update(plain_ms=cuda_ms(plain, 10, hold=True),
+                           library_ms=cuda_ms(library[k], 50, hold=True))
         rows[k]["bound_share"] = rows[k]["bound_ms"] / ms
-    fwd_ms = cuda_ms(f_forward, 20, hold=True)
-    both_ms = cuda_ms(f_both, 20, hold=True)
     out = dict(case=name, shape=list(shape), dtype=str(dtype).split(".")[-1],
                layout=layout, kernels=rows,
-               f_batch_norm_forward_ms=fwd_ms,
-               f_batch_norm_forward_backward_ms=both_ms,
                kernels_forward_ms=rows["bn_stats"]["ms"]
                + rows["bn_apply"]["ms"],
                kernels_forward_backward_ms=sum(r["ms"] for r in rows.values()),
                tolerance=dict(sum_rel=BN_SUM_REL, ulps=BN_ULPS))
-    emit("batchnorm", **out)
-    for k, r in rows.items():
-        check(r["bit_identical_launches"], (name, k, "two launches differ"))
-        check(r.get("sum_rel", 0.0) <= BN_SUM_REL, (name, k, r))
-        check(r.get("ulps", 0) <= BN_ULPS, (name, k, r))
-    check(errs["bn_stats"]["n_exact"], (name, "count", float(sums[2 * c])))
+    if yardsticks:
+        y = torch.empty_like(x)
+        rows["bn_apply"]["copy_ms"] = cuda_ms(lambda: y.copy_(x), 50,
+                                              hold=True)
+        out.update(f_batch_norm_forward_ms=cuda_ms(f_forward, 20, hold=True),
+                   f_batch_norm_forward_backward_ms=cuda_ms(f_both, 20,
+                                                            hold=True))
+    # two launches bit for bit, the sums within BN_SUM_REL, every derived
+    # output within BN_ULPS, the count exact
+    out["ok"] = all(
+        r["bit_identical_launches"] and r.get("sum_rel", 0.0) <= BN_SUM_REL
+        and r.get("ulps", 0) <= BN_ULPS for r in rows.values()) and errs[
+            "bn_stats"]["n_exact"]
+    if strict:
+        emit("batchnorm", **out)
+        check(out["ok"], (name, float(sums[2 * c]), rows))
     return out
 
 
@@ -1359,13 +1391,37 @@ def _bn_host_us(seed: int, calls: int = 200) -> dict:
     return out
 
 
+def bn_step_totals(cases) -> dict:
+    """Per kernel, the ms of one ``train`` step's launches on its seven
+    maps: Σ launches × ms over the cases in ``BN_STEP_LAUNCHES`` (bf16,
+    channels-last), and the same sums of the bounds and of the one-call
+    counterparts (None where one was not timed)."""
+    step = [c for c in cases if c["dtype"] == "bfloat16"
+            and c["layout"] == "channels_last"
+            and tuple(c["shape"]) in BN_STEP_LAUNCHES]
+    check(len(step) == len(BN_STEP_LAUNCHES), ("step maps", len(step)))
+    out = {}
+    for k in BN_KERNELS:
+        sums = {}
+        for f in ("ms", "bound_ms", "library_ms"):
+            vals = [BN_STEP_LAUNCHES[tuple(c["shape"])] * c["kernels"][k][f]
+                    for c in step if c["kernels"][k][f] is not None]
+            sums[f] = sum(vals) if len(vals) == len(step) else None
+        out[k] = sums
+    return out
+
+
 def phase_batchnorm(seed: int) -> dict:
     """Each batch-norm kernel against its plain version on ``BN_CASES``,
-    and a layer's host time (``_bn_host_us``); each kernel's row in the
-    ``kernels`` line from the first case (the stem in bf16,
-    channels-last: the train step's largest batch norm, as it runs)."""
+    the step-weighted totals (``bn_step_totals``) and a layer's host time
+    (``_bn_host_us``); each kernel's row in the ``kernels`` line from the
+    first case (the stem in bf16, channels-last: the train step's largest
+    batch norm, as it runs)."""
     cases = [_bn_case(name, shape, dtype, layout, seed + i)
              for i, (name, shape, dtype, layout) in enumerate(BN_CASES)]
+    emit("batchnorm_step", launches=[
+        dict(shape=list(s), launches=n) for s, n in BN_STEP_LAUNCHES.items()],
+         totals_ms=bn_step_totals(cases))
     emit("batchnorm_host", shape=list(BN_CASES[3][1]), dtype="bfloat16",
          layout="channels_last", forward_backward_us=_bn_host_us(seed))
     rows = {}
@@ -1386,6 +1442,8 @@ def phase_batchnorm(seed: int) -> dict:
                         **{f: c["kernels"][k][f] for f in (
                             "ms", "bound_ms", "library_ms", "max_abs_err")})
                    for c in cases])
+        if k == "bn_apply":
+            rows[k]["copy_ms"] = first["copy_ms"]
     return rows
 
 

@@ -105,6 +105,15 @@ def _library(source: str) -> ctypes.CDLL:
     return lib
 
 
+def function(source: str, symbol: str, argtypes: Sequence):
+    """A C function of ``source``'s library that launches nothing (a
+    query), returning an ``int``."""
+    fn = getattr(_library(source), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
 class Kernel:
     """One CUDA entry point with a plain C interface returning
     ``cudaGetLastError()`` after its launch."""
@@ -134,8 +143,9 @@ class Kernel:
 
 _PLANE_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]
 # a batch-norm launch's geometry (models/batchnorm.py:_plan): rows, outer,
-# inner, span, channels, slices, tile width, 16-byte accesses
-_BN_GEO = [_I, _L, _L, _L, _I, _I, _I, _I]
+# inner, span, channels, slices, tile width, mode (one value at a time, the
+# ring of bulk copies or direct 16-byte loads), cluster, items
+BN_GEO = [_I, _L, _L, _L, _I, _I, _I, _I, _I, _I]
 BN_REPLACES = "none: flax nn.BatchNorm, XLA-lowered"
 
 KERNELS: Dict[str, Kernel] = {
@@ -157,15 +167,15 @@ KERNELS: Dict[str, Kernel] = {
                "segmentation_training_pipeline_tpu/ops/aug/"
                "pallas_warp.py:312"),
         Kernel("bn_stats", "batchnorm.cu", "stp_bn_stats",
-               [_P, _I, *_BN_GEO, _P, _P, _P, _P], BN_REPLACES),
+               [_P, _I, *BN_GEO, _P, _P, _P, _P], BN_REPLACES),
         Kernel("bn_apply", "batchnorm.cu", "stp_bn_apply",
-               [_P, _P, _I, *_BN_GEO, _P, _P, _P, _P, _P, _D, _D, _P, _P,
+               [_P, _P, _I, *BN_GEO, _P, _P, _P, _P, _P, _D, _D, _P, _P,
                 _P, _P, _P], BN_REPLACES),
         Kernel("bn_grad_stats", "batchnorm.cu", "stp_bn_grad_stats",
-               [_P, _P, _I, *_BN_GEO, _P, _P, _P, _P, _P, _P, _P, _P],
+               [_P, _P, _I, *BN_GEO, _P, _P, _P, _P, _P, _P, _P, _P],
                BN_REPLACES),
         Kernel("bn_grad_apply", "batchnorm.cu", "stp_bn_grad_apply",
-               [_P, _P, _P, _I, *_BN_GEO, _P, _P, _P, _P, _P, _P],
+               [_P, _P, _P, _I, *BN_GEO, _P, _P, _P, _P, _P, _P],
                BN_REPLACES),
     )
 }

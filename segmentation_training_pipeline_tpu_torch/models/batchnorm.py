@@ -40,7 +40,8 @@ running statistics through ``F.batch_norm``.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import ctypes
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -54,13 +55,51 @@ Tensor = torch.Tensor
 _DIMS = (0, 2, 3)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2,
            torch.float16: 3}
-# four 256-thread blocks on each of the H100's 132 SMs
-_TARGET_BLOCKS = 4 * 132
 _THREADS = 256
+# blocks of a reduction's cluster (the portable size)
+_CLUSTER = 8
+# the least bytes a block of bn_stats, bn_apply or bn_grad_stats moves
+_SLICE_BYTES = 32 * 1024
+# the most rounds of loads a plan leaves the last cluster's partial sums
+_TAIL_ROUNDS = 2
+# bn_grad_apply's blocks an SM aimed at (its first design)
+_BLOCKS_PER_SM = 4
+# the kernels' codes in ``stp_bn_occupancy`` and the tensors each streams
+_KERNEL_CODES = {"bn_stats": 0, "bn_apply": 1, "bn_grad_stats": 2}
+_TENSORS = {"bn_stats": 1, "bn_apply": 2, "bn_grad_stats": 2}
+# the geometry's mode: one value at a time, 16-byte vectors through the
+# ring of bulk copies, 16-byte loads straight from device memory
+_PER_VALUE, _RING, _DIRECT = 0, 1, 2
+# channels-last maps of at most these bytes (a tensor) take the direct
+# mode: their blocks' few stages would not pay for the ring
+_DIRECT_BYTES = {"bn_stats": 8 << 20, "bn_apply": 16 << 20,
+                 "bn_grad_stats": 8 << 20}
+# the direct mode's tile (channels) and rows a thread
+_DIRECT_TILE, _DIRECT_ROWS = 64, 8
+# the partition's card, so that a sum's order depends on the shape alone:
+# the clusters of 1, 2, 4 and 8 blocks an H100 80GB HBM3 holds at once of
+# each kernel's ring instantiations (``stp_bn_occupancy``: 4 resident
+# blocks an SM of 132)
+_H100 = {"bn_stats": (528, 264, 124, 62), "bn_apply": (528,),
+         "bn_grad_stats": (528, 264, 124, 62)}
 # (device index, stream) → the reductions' scratch (``_scratch``)
 _SCRATCH: Dict[tuple, tuple] = {}
 # (dtype, shape, strides, aligned) → the launch geometry (``_geometry``)
 _GEOMETRY: Dict[tuple, tuple] = {}
+# (device, kernel, dtype code, rows, vec) → its ``Card`` (``_card``)
+_CARDS: Dict[tuple, "Card"] = {}
+
+
+class Card(NamedTuple):
+    """What a launch plan needs of the card for one kernel instantiation:
+    its SM count, the instantiation's resident blocks an SM, the largest
+    cluster it may take (a power of 2) and, for clusters of 1, 2, 4, …
+    that many blocks, how many the card holds at once (of 1: SMs × resident
+    blocks)."""
+    sms: int
+    blocks_per_sm: int
+    cluster: int
+    clusters: Tuple[int, ...]
 
 
 def _acc(dtype: torch.dtype) -> torch.dtype:
@@ -155,43 +194,188 @@ def _like(t: Tensor, x: Tensor) -> Tensor:
     return t.contiguous()
 
 
-def _plan(rows: bool, outer: int, c: int, inner: int, v: int):
-    """(span, slices, tile width) of a launch over ``outer`` × C ×
-    ``inner`` values, ``v`` a vector.  Rows: a tile of ``tw`` vector
-    columns and 256 // tw rows at a time, each block ``span`` rows, each
-    thread eight rows or more.  Planes: ``span`` values (a multiple of v)
-    of one channel a block, each thread four vectors or more.  The grid
-    aims at ``_TARGET_BLOCKS``."""
+def _mode(kernel: str, rows: bool, outer: int, c: int, inner: int,
+          esize: int, vec: bool) -> int:
+    """How ``kernel`` reads its map: one value at a time where 16-byte
+    accesses do not fit (``vec`` False); else the direct mode on a small
+    channels-last map (``_DIRECT_BYTES``) and on planes of at least four
+    vectors a thread (``bn_apply``, ``bn_grad_stats``), the ring
+    elsewhere."""
+    if not vec:
+        return _PER_VALUE
+    if rows:
+        small = outer * c * esize <= _DIRECT_BYTES[kernel]
+        return _DIRECT if small else _RING
+    wide = inner >= 4 * _THREADS * (16 // esize)
+    return _DIRECT if wide and kernel != "bn_stats" else _RING
+
+
+def _plan(kernel: str, rows: bool, outer: int, c: int, inner: int,
+          esize: int, mode: int, card: Card):
+    """(span, slices, tile width, cluster, items) of a ``kernel`` launch
+    (``bn_stats``, ``bn_apply`` or ``bn_grad_stats``) in ``mode``
+    (``_mode``) over ``outer`` × C × ``inner`` values of ``esize`` bytes,
+    on ``card``.
+
+    The partition, and with it each sum's order, comes from the shape
+    alone (``_partition``); the card sets only ``items``, the tiles on
+    the grid at once (grid y; where the tiles outnumber a wave each block
+    walks on by ``items``): as many as one wave of the instantiation's
+    resident blocks (of its clusters) holds."""
+    span, slices, tw, cluster = _partition(kernel, rows, outer, c, inner,
+                                           esize, mode)
+    tiles = -(-c // tw) if rows else c
+    wave = card.clusters[cluster.bit_length() - 1] * cluster
+    items = min(tiles, max(1, wave // slices), 65535)
+    return span, slices, tw, cluster, items
+
+
+def _partition(kernel: str, rows: bool, outer: int, c: int, inner: int,
+               esize: int, mode: int):
+    """(span, slices, tile width, cluster): a tile's slices and their
+    clusters, from the shape alone.
+
+    Rows: tiles of ``tw`` channels; planes: one channel a tile.  Direct
+    mode: tiles of ``_DIRECT_TILE`` channels, ``_DIRECT_ROWS`` rows a
+    thread, no clusters (rows); a channel in 8 slices (planes).  Ring and
+    per-value modes: tiles of the whole row up to 512 channels (256 in
+    float64 or one value at a time); each of a tile's ``slices`` blocks
+    moves ``_SLICE_BYTES`` or more: ``span`` rows (rows) or values
+    (planes, a multiple of the 16-byte vector; through the ring a
+    channel's planes are dealt out to its blocks a ring stage at a time,
+    ``stages_of`` in the source).  The blocks of all tiles fill at most one
+    wave of an H100 80GB HBM3 (``_H100``, the clusters of each size it
+    holds at once), in whole clusters along the slices: ``slices`` is a
+    multiple of ``cluster`` (trailing blocks may hold nothing).  Of the
+    cluster sizes that give every tile a cluster, the plan takes the one
+    with the most blocks whose last cluster adds the partials in at most
+    ``_TAIL_ROUNDS`` rounds of loads, the larger of equals (four resident
+    blocks an SM make 528 blocks, clusters of 8 only 480: the tail
+    decides which is faster); a tile takes one cluster where its map is
+    small enough."""
+    v = 16 // esize if mode != _PER_VALUE else 1
+    if mode == _DIRECT:
+        if rows:
+            tw = min(c, _DIRECT_TILE)
+            span = _DIRECT_ROWS * (_THREADS // (tw // v))
+            return span, -(-outer // span), tw, 1
+        span = -(-(-(-(outer * inner) // 8)) // v) * v
+        return span, -(-(outer * inner) // span), 0, 1
+    if rows:
+        tw = min(c, _THREADS * (2 if mode == _RING and esize <= 4 else 1))
+        tiles, length, unit = -(-c // tw), outer, tw * esize
+    else:
+        tw, tiles, length, unit = 0, c, outer * inner, esize
+    want = -(-length * unit * _TENSORS[kernel] // _SLICE_BYTES)
+    counts = _H100[kernel]
+    options = []
+    for i, count in enumerate(counts):
+        cluster = 1 << i
+        per_tile = count // tiles * cluster
+        if cluster > 1 and cluster > min(want, per_tile):
+            continue
+        slices = max(1, min(want, per_tile))
+        rounds = _tail_rounds(-(-slices // cluster), -(-max(tw, 1) //
+                                                        cluster))
+        options.append((rounds <= _TAIL_ROUNDS, slices, cluster))
+    _, slices, cluster = max(options)
+    span = -(-length // slices)
+    if not rows:
+        span = -(-span // v) * v
+    slices = -(-length // span)           # every slice holds values
+    slices = -(-slices // cluster) * cluster
+    return span, slices, tw, cluster
+
+
+def _tail_rounds(clusters: int, channels: int) -> int:
+    """Rounds of loads (``run_sum``'s 8 in flight) in which a block of a
+    tile's last cluster sums ``clusters`` partials of each of its
+    ``channels`` (0 with one cluster)."""
+    if clusters == 1:
+        return 0
+    parts = max(1, min(_THREADS // channels, clusters))
+    return -(-(-(-clusters // parts)) // 8)
+
+
+def _plan_grad_apply(rows: bool, outer: int, c: int, inner: int, v: int,
+                     sms: int):
+    """(span, slices, tile width in channels) of a ``bn_grad_apply``
+    launch (its first design): rows, a tile of ``tw // v`` vector columns
+    and 256 // (tw // v) rows at a time, each thread eight rows or more;
+    planes, ``span`` values (a multiple of v) of one channel a block, each
+    thread four vectors or more; ``_BLOCKS_PER_SM`` blocks on each SM
+    aimed at."""
+    target = _BLOCKS_PER_SM * sms
     if rows:
         tw = min(c // v, 32)
         tiles = -(-(c // v) // tw)
         ry = _THREADS // tw
-        slices = max(1, min(-(-_TARGET_BLOCKS // tiles),
-                            -(-outer // (8 * ry))))
+        slices = max(1, min(-(-target // tiles), -(-outer // (8 * ry))))
         span = -(-outer // slices)
-        return span, -(-outer // span), tw
+        return span, -(-outer // span), tw * v
     m = outer * inner
-    slices = max(1, min(-(-_TARGET_BLOCKS // c), -(-m // (4 * _THREADS * v))))
+    slices = max(1, min(-(-target // c), -(-m // (4 * _THREADS * v))))
     span = -(-(-(-m // slices)) // v) * v
     return span, -(-m // span), 0
 
 
+def _occupancy():
+    return K.function("batchnorm.cu", "stp_bn_occupancy",
+                      [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)
+
+
+def _card(device: torch.device, kernel: str, code: int, rows: bool,
+          mode: int) -> Card:
+    """The card's ``Card`` for one instantiation, from the occupancy API
+    (``stp_bn_occupancy``) and the device's SM count, asked once."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    key = (index, kernel, code, rows, mode)
+    card = _CARDS.get(key)
+    if card is None:
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+        cluster = 1 if kernel == "bn_apply" else _CLUSTER
+        counts = []
+        blocks, clusters = ctypes.c_int(), ctypes.c_int()
+        size = 1
+        while size <= cluster:
+            with torch.cuda.device(index):
+                err = _occupancy()(_KERNEL_CODES[kernel], code, int(rows),
+                                   mode, size, ctypes.addressof(blocks),
+                                   ctypes.addressof(clusters))
+            if err != 0 or blocks.value < 1:
+                raise RuntimeError(f"batch norm kernels: occupancy of "
+                                   f"{kernel} failed (cudaError {err})")
+            counts.append(sms * blocks.value if size == 1
+                          else clusters.value)
+            size *= 2
+        card = _CARDS[key] = Card(sms, blocks.value, cluster, tuple(counts))
+    return card
+
+
 def _geometry(x: Tensor, *others: Tensor):
-    """The kernels' dtype code, geometry arguments and slice count for
-    ``x`` (already dense) and the tensors of its shape beside it; cached
-    by type, shape, strides and whether every pointer is 16-byte
-    aligned."""
+    """``_new_geometry`` for ``x`` (already dense) and the tensors of its
+    shape beside it, on its card; cached by type, shape, strides and
+    whether every pointer is 16-byte aligned.  The device stays out of the
+    key (it costs every call a device object): the first card's tiles at
+    once serve another card too, as they would any card."""
     ptrs = x.data_ptr()
     for t in others:
         ptrs |= t.data_ptr()
     key = (x.dtype, x.shape, x.stride(), not ptrs & 15)
     geo = _GEOMETRY.get(key)
     if geo is None:
-        geo = _GEOMETRY[key] = _new_geometry(x, key[3])
+        geo = _GEOMETRY[key] = _new_geometry(
+            x, key[3], lambda *a: _card(x.device, *a))
     return geo
 
 
-def _new_geometry(x: Tensor, aligned: bool):
+def _new_geometry(x: Tensor, aligned: bool,
+                  card_of: Callable[[str, int, bool, int], Card]):
+    """The four kernels' geometry arguments (dtype code first; in the
+    order ``bn_stats``, ``bn_apply``, ``bn_grad_stats``, ``bn_grad_apply``)
+    and the most clusters a tile of the two reductions has (their partial
+    sums' count), from ``card_of(kernel, dtype code, rows, mode)``."""
     if x.dtype not in _DTYPES:
         raise ValueError(f"batch norm kernels: float32, bfloat16, float16 "
                          f"or float64 values, got {x.dtype}")
@@ -199,13 +383,27 @@ def _new_geometry(x: Tensor, aligned: bool):
         raise ValueError(f"batch norm kernels: a non-empty (B, C, H, W) "
                          f"tensor, got {tuple(x.shape)}")
     b, c, h, w = x.shape
-    rows = _rows(x)
+    code, esize, rows = _DTYPES[x.dtype], x.element_size(), _rows(x)
     outer, inner = (b * h * w, 1) if rows else (b, h * w)
-    v = 16 // x.element_size()
+    v = 16 // esize
     vec = aligned and (c if rows else inner) % v == 0
-    span, slices, tw = _plan(rows, outer, c, inner, v if vec else 1)
-    return (_DTYPES[x.dtype], int(rows), outer, inner, span, c, slices, tw,
-            int(vec)), slices
+    head = (code, int(rows), outer, inner)
+    geos, parts = [], 1
+    for kernel in ("bn_stats", "bn_apply", "bn_grad_stats"):
+        mode = _mode(kernel, rows, outer, c, inner, esize, vec)
+        span, slices, tw, cluster, items = _plan(
+            kernel, rows, outer, c, inner, esize, mode,
+            card_of(kernel, code, rows, mode))
+        geos.append(head + (span, c, slices, tw, mode, cluster, items))
+        if kernel != "bn_apply":
+            parts = max(parts, slices // cluster)
+    sms = card_of("bn_stats", code, rows, geos[0][8]).sms
+    span, slices, tw = _plan_grad_apply(rows, outer, c, inner,
+                                        v if vec else 1, sms)
+    tiles = -(-(c // (v if vec else 1)) // (tw // (v if vec else 1))) \
+        if rows else c
+    geos.append(head + (span, c, slices, tw, int(vec), 1, tiles))
+    return (*geos, parts)
 
 
 def _check(x: Tensor, *tensors: Optional[Tensor]) -> None:
@@ -228,17 +426,17 @@ def _check(x: Tensor, *tensors: Optional[Tensor]) -> None:
                              f"got {tuple(t.shape)} {t.dtype}")
 
 
-def _scratch(x: Tensor, stream: int, c: int, slices: int):
-    """Pointers to the reductions' slice tickets (at least ``c``) and
-    partial sums (at least 2·c·slices float64) of ``x``'s device and
-    ``stream``.  Launches on one stream run in order, so they share its
-    scratch; the tickets are zeroed once and every launch leaves them
-    zeroed."""
+def _scratch(x: Tensor, stream: int, c: int, parts: int):
+    """Pointers to the reductions' tile tickets (at least ``c``) and
+    partial sums (at least 2·c·parts float64, ``parts`` clusters a tile)
+    of ``x``'s device and ``stream``.  Launches on one stream run in
+    order, so they share its scratch; the tickets are zeroed once and
+    every launch leaves them zeroed."""
     key = (x.device.index, stream)
     s = _SCRATCH.get(key)
-    if s is None or s[0].numel() < c or s[1].numel() < 2 * c * slices:
+    if s is None or s[0].numel() < c or s[1].numel() < 2 * c * parts:
         n_t = max(c, 1024 if s is None else s[0].numel())
-        n_p = max(2 * c * slices, 1 << 16 if s is None else s[1].numel())
+        n_p = max(2 * c * parts, 1 << 16 if s is None else s[1].numel())
         t = torch.zeros(n_t, dtype=torch.int32, device=x.device)
         p = torch.empty(n_p, dtype=torch.float64, device=x.device)
         s = _SCRATCH[key] = (t, p, t.data_ptr(), p.data_ptr())
@@ -250,14 +448,14 @@ def _ptr(t: Optional[Tensor]):
 
 
 # The launches.  Each takes checked, dense tensors of one layout, the
-# geometry of ``_geometry`` and the stream, and allocates its outputs.
+# geometries of ``_geometry`` and the stream, and allocates its outputs.
 
 
-def _stats(x: Tensor, geo: tuple, slices: int, stream: int) -> Tensor:
+def _stats(x: Tensor, geo: tuple, stream: int) -> Tensor:
     c = x.shape[1]
-    tickets, partials = _scratch(x, stream, c, slices)
+    tickets, partials = _scratch(x, stream, c, geo[4])
     out = torch.empty(2 * c + 1, dtype=torch.float64, device=x.device)
-    K.KERNELS["bn_stats"].launch(x.data_ptr(), *geo, partials, tickets,
+    K.KERNELS["bn_stats"].launch(x.data_ptr(), *geo[0], partials, tickets,
                                  out.data_ptr(), stream)
     return out
 
@@ -268,23 +466,22 @@ def _apply(x: Tensor, y: Tensor, geo: tuple, stream: int, sums: Tensor,
     st = torch.empty((4, x.shape[1]), dtype=_acc(x.dtype), device=x.device)
     p, step = st.data_ptr(), st.stride(0) * st.element_size()
     K.KERNELS["bn_apply"].launch(
-        x.data_ptr(), y.data_ptr(), *geo, sums.data_ptr(), _ptr(weight),
+        x.data_ptr(), y.data_ptr(), *geo[1], sums.data_ptr(), _ptr(weight),
         bias.data_ptr(), running_mean.data_ptr(), running_var.data_ptr(),
         float(momentum), float(eps), p, p + step, p + 2 * step,
         p + 3 * step, stream)
     return st.unbind(0)             # mean, invstd, running mean and var
 
 
-def _grad_stats(dy: Tensor, x: Tensor, geo: tuple, slices: int,
-                stream: int, mean: Tensor, invstd: Tensor,
-                weight: Optional[Tensor]):
+def _grad_stats(dy: Tensor, x: Tensor, geo: tuple, stream: int,
+                mean: Tensor, invstd: Tensor, weight: Optional[Tensor]):
     c = x.shape[1]
-    tickets, partials = _scratch(x, stream, c, slices)
+    tickets, partials = _scratch(x, stream, c, geo[4])
     out = torch.empty(2 * c, dtype=torch.float64, device=x.device)
     grads = torch.empty((2, c), dtype=_acc(x.dtype), device=x.device)
     p, step = grads.data_ptr(), grads.stride(0) * grads.element_size()
     K.KERNELS["bn_grad_stats"].launch(
-        dy.data_ptr(), x.data_ptr(), *geo, mean.data_ptr(),
+        dy.data_ptr(), x.data_ptr(), *geo[2], mean.data_ptr(),
         invstd.data_ptr(), partials, tickets, out.data_ptr(),
         None if weight is None else p, p + step, stream)
     dw, db = grads.unbind(0)
@@ -295,7 +492,7 @@ def _grad_apply(dy: Tensor, x: Tensor, dx: Tensor, geo: tuple,
                 stream: int, gsums: Tensor, sums: Tensor, mean: Tensor,
                 invstd: Tensor, weight: Optional[Tensor]) -> None:
     K.KERNELS["bn_grad_apply"].launch(
-        dy.data_ptr(), x.data_ptr(), dx.data_ptr(), *geo, gsums.data_ptr(),
+        dy.data_ptr(), x.data_ptr(), dx.data_ptr(), *geo[3], gsums.data_ptr(),
         sums.data_ptr(), mean.data_ptr(), invstd.data_ptr(), _ptr(weight),
         stream)
 
@@ -310,8 +507,7 @@ def bn_stats(x: Tensor) -> Tensor:
     if x.device.type == "cpu":
         return bn_stats_plain(x)
     _check(x)
-    geo, slices = _geometry(x)
-    return _stats(x, geo, slices, K.stream_of(x))
+    return _stats(x, _geometry(x), K.stream_of(x))
 
 
 def bn_apply(x: Tensor, sums: Tensor, weight: Optional[Tensor],
@@ -324,7 +520,7 @@ def bn_apply(x: Tensor, sums: Tensor, weight: Optional[Tensor],
                               running_var, momentum, eps)
     _check(x, weight, bias, running_mean, running_var)
     y = torch.empty_like(x)
-    geo, _ = _geometry(x, y)
+    geo = _geometry(x, y)
     return (y, *_apply(x, y, geo, K.stream_of(x), sums, weight, bias,
                        running_mean, running_var, momentum, eps))
 
@@ -336,9 +532,8 @@ def bn_grad_stats(dy: Tensor, x: Tensor, mean: Tensor, invstd: Tensor,
     if x.device.type == "cpu":
         return bn_grad_stats_plain(dy, x, mean, invstd, weight)
     _check(x, dy, mean, invstd, weight)
-    geo, slices = _geometry(x, dy)
-    return _grad_stats(dy, x, geo, slices, K.stream_of(x), mean, invstd,
-                       weight)
+    return _grad_stats(dy, x, _geometry(x, dy), K.stream_of(x), mean,
+                       invstd, weight)
 
 
 def bn_grad_apply(dy: Tensor, x: Tensor, gsums: Tensor, sums: Tensor,
@@ -350,9 +545,8 @@ def bn_grad_apply(dy: Tensor, x: Tensor, gsums: Tensor, sums: Tensor,
         return bn_grad_apply_plain(dy, x, gsums, sums, mean, invstd, weight)
     _check(x, dy, mean, invstd, weight)
     dx = torch.empty_like(x)
-    geo, _ = _geometry(x, dy, dx)
-    _grad_apply(dy, x, dx, geo, K.stream_of(x), gsums, sums, mean, invstd,
-                weight)
+    _grad_apply(dy, x, dx, _geometry(x, dy, dx), K.stream_of(x), gsums,
+                sums, mean, invstd, weight)
     return dx
 
 
@@ -381,9 +575,9 @@ class BatchNormTrain(torch.autograd.Function):
         else:
             _check(x, weight, bias, running_mean, running_var)
             y = torch.empty_like(x)
-            geo, slices = _geometry(x, y)
+            geo = _geometry(x, y)
             stream = K.stream_of(x)
-            sums = _stats(x, geo, slices, stream)
+            sums = _stats(x, geo, stream)
             if group:
                 dist.all_reduce_(sums)
             mean, invstd, rm, rv = _apply(x, y, geo, stream, sums, weight,
@@ -403,10 +597,10 @@ class BatchNormTrain(torch.autograd.Function):
         else:
             # dy: autograd's gradient of y, on y's device in y's type
             dx = torch.empty_like(x) if need_dx else None
-            geo, slices = _geometry(x, dy, *(() if dx is None else (dx,)))
+            geo = _geometry(x, dy, *(() if dx is None else (dx,)))
             stream = K.stream_of(x)
-            gsums, dw, db = _grad_stats(dy, x, geo, slices, stream, mean,
-                                        invstd, weight)
+            gsums, dw, db = _grad_stats(dy, x, geo, stream, mean, invstd,
+                                        weight)
         if need_dx:
             if dist.active():
                 dist.all_reduce_(gsums)

@@ -219,7 +219,17 @@ def test_a_tensor_off_the_cpu_never_takes_the_plain_version():
         BN.bn_grad_apply(x, x, x, x, x, x, None)
 
 
-@pytest.mark.parametrize("shape,layout,dtype", [
+# a card's values for the CPU (an H100 80GB HBM3's SM count, resident
+# blocks and clusters of 1, 2, 4 and 8 blocks, as the occupancy API gives
+# them there), per kernel, and a smaller card's (fewer SMs and blocks)
+CARDS = {"bn_stats": BN.Card(132, 4, 8, (528, 264, 124, 62)),
+         "bn_apply": BN.Card(132, 4, 1, (528,)),
+         "bn_grad_stats": BN.Card(132, 4, 8, (528, 264, 124, 62))}
+SMALL_CARDS = {"bn_stats": BN.Card(114, 3, 8, (342, 171, 84, 42)),
+               "bn_apply": BN.Card(114, 3, 1, (342,)),
+               "bn_grad_stats": BN.Card(114, 3, 8, (342, 171, 84, 42))}
+GEO_KERNELS = ("bn_stats", "bn_apply", "bn_grad_stats", "bn_grad_apply")
+GEO_CASES = [
     ((16, 64, 256, 256), "channels_last", torch.bfloat16),
     ((16, 64, 256, 256), "nchw", torch.bfloat16),
     ((16, 512, 16, 16), "channels_last", torch.float32),
@@ -229,28 +239,191 @@ def test_a_tensor_off_the_cpu_never_takes_the_plain_version():
     ((3, 5, 7, 9), "nchw", torch.float32),
     ((8, 2048, 1, 1), "nchw", torch.float32),
     ((1, 3, 1, 1), "nchw", torch.float64),
-])
-def test_launch_geometry_covers_every_value_once(shape, layout, dtype):
-    """The kernels' grid (``_plan``, from ``_geometry``'s layout) on the
-    train shapes and the edges: the slices cover every row or value of a
-    channel once, in vectors that never straddle a plane or a row's
-    channels, at most 65535 tiles or channels on the grid's y axis."""
+    # the train step's other maps (Unet-resnet34 512² B16, bf16)
+    ((16, 64, 128, 128), "channels_last", torch.bfloat16),
+    ((16, 128, 64, 64), "channels_last", torch.bfloat16),
+    ((16, 256, 32, 32), "channels_last", torch.bfloat16),
+    ((16, 32, 256, 256), "channels_last", torch.bfloat16),
+    ((16, 16, 512, 512), "channels_last", torch.bfloat16),
+    # small maps (direct loads: 13 and 2 images, 17 tiles, the last
+    # ragged), through the ring clusters with blocks past the map (313 of
+    # 320 slices of bn_stats) and one cluster covering a tile (planes)
+    ((13, 64, 16, 16), "channels_last", torch.bfloat16),
+    ((2, 64, 16, 16), "channels_last", torch.bfloat16),
+    ((4, 1040, 8, 8), "channels_last", torch.bfloat16),
+    ((16, 512, 16, 16), "channels_last", torch.bfloat16),
+    ((1, 128, 200, 200), "channels_last", torch.bfloat16),
+    ((1, 16, 256, 256), "nchw", torch.bfloat16),
+]
+
+
+def _geometries(shape, layout, dtype, cards=CARDS):
     x = torch.empty(shape, dtype=dtype, device="meta")
     if layout == "channels_last":
         x = x.contiguous(memory_format=torch.channels_last)
-    (code, rows, outer, inner, span, c, slices, tw, vec), s2 = \
-        BN._geometry(x)
-    b, _, h, w = shape
-    assert s2 == slices and c == shape[1] and code == BN._DTYPES[dtype]
-    assert rows == int(layout == "channels_last" or h * w == 1)
-    v = 16 // x.element_size() if vec else 1
-    if rows:
-        assert (outer, inner) == (b * h * w, 1)
-        assert 1 <= tw <= 32 and tw == min(c // v, 32) and c % v == 0
-        assert (slices - 1) * span < outer <= slices * span
-        assert -(-(c // v) // tw) <= 65535
-    else:
-        assert (outer, inner) == (b, h * w) and inner % v == 0
-        assert span % v == 0
-        assert (slices - 1) * span < outer * inner <= slices * span
-        assert c <= 65535
+    return x, BN._new_geometry(x, True, lambda k, *_: cards[k])
+
+
+def _ids(v):
+    return "x".join(map(str, v)) if isinstance(v, tuple) else str(v)
+
+
+@pytest.mark.parametrize("shape,layout,dtype", GEO_CASES, ids=_ids)
+def test_launch_geometry_covers_every_value_once(shape, layout, dtype):
+    """The kernels' grids (``_plan`` and ``_plan_grad_apply``, from
+    ``_new_geometry``'s layout) on the train shapes and the edges: the
+    slices cover every row or value of a tile once, in bulk pieces or
+    vectors that never straddle a plane or a row's channels; rows' tiles
+    hold whole vectors and at most 512 channels through the ring (256 in
+    float64), 64 in the direct mode, 256 one value at a time, and
+    bn_grad_apply keeps its first design's tiles of at most 32 vector
+    columns, at most 65535 of them or of channels."""
+    x, geos = _geometries(shape, layout, dtype)
+    b, c, h, w = shape
+    v = 16 // x.element_size()
+    for kernel, geo in zip(GEO_KERNELS, geos[:4]):
+        (code, rows, outer, inner, span, c2, slices, tw, mode, cluster,
+         items) = geo
+        vec = int(mode != 0)
+        assert c2 == c and code == BN._DTYPES[dtype]
+        assert rows == int(layout == "channels_last" or h * w == 1)
+        vv = v if vec else 1
+        if rows:
+            assert (outer, inner) == (b * h * w, 1) and c % vv == 0
+            length = outer
+        else:
+            assert (outer, inner) == (b, h * w) and inner % vv == 0
+            assert span % vv == 0
+            length = outer * inner
+        filled = -(-length // span)
+        assert (filled - 1) * span < length <= filled * span
+        if kernel == "bn_grad_apply":
+            assert slices == filled and cluster == 1
+            if rows:
+                assert tw % vv == 0 and 1 <= tw // vv <= 32
+                assert tw // vv == min(c // vv, 32)
+                assert items == -(-(c // vv) // (tw // vv)) <= 65535
+            else:
+                assert tw == 0 and items == c <= 65535
+            continue
+        assert slices % cluster == 0 and slices - filled < cluster
+        assert mode == BN._mode(kernel, rows, outer, c, inner,
+                                x.element_size(), (c if rows else inner)
+                                % v == 0)
+        if rows:
+            most = {0: 256, 1: 256 * (2 if x.element_size() <= 4 else 1),
+                    2: 64}[mode]
+            assert tw == min(c, most) and tw % vv == 0
+        else:
+            assert tw == 0
+    assert geos[4] == max(geos[0][6] // geos[0][9], geos[2][6] // geos[2][9])
+
+
+@pytest.mark.parametrize("shape,layout,dtype", GEO_CASES, ids=_ids)
+def test_cluster_partition_covers_every_slice_once_in_rank_order(
+        shape, layout, dtype):
+    """The reductions' and bn_apply's grids: block (s, y) of a cluster of
+    ``cluster`` blocks along x is rank s % cluster of cluster s //
+    cluster, and takes slice s of tiles y, y + items, …; the slices of a
+    tile, in block order (clusters in order, ranks in order), cover its
+    rows or values once and in order, every tile is walked by one grid
+    row, and no axis, cluster or wave exceeds the card: at most 8 blocks a
+    cluster (portable), 65535 grid rows, one wave of resident blocks
+    (clusters) on the card, and partial sums for every cluster of a
+    tile."""
+    x, geos = _geometries(shape, layout, dtype)
+    for kernel, geo in zip(GEO_KERNELS[:3], geos[:3]):
+        (_, rows, outer, inner, span, c, slices, tw, mode, cluster,
+         items) = geo
+        card = CARDS[kernel]
+        assert cluster in (1, 2, 4, 8) and cluster <= card.cluster
+        assert mode != BN._DIRECT or cluster == 1
+        assert 1 <= items <= 65535 and slices % cluster == 0
+        # one wave: the clusters of this size the card holds at once
+        assert slices * items <= cluster * card.clusters[
+            cluster.bit_length() - 1]
+        length = outer if rows else outer * inner
+        tiles = -(-c // tw) if rows else c
+        walked = sorted(t for y in range(items)
+                        for t in range(y, tiles, items))
+        assert walked == list(range(tiles))
+        covered = 0
+        for k in range(slices // cluster):
+            for rank in range(cluster):
+                s = k * cluster + rank
+                u0, u1 = min(length, s * span), min(length, (s + 1) * span)
+                assert u0 == covered
+                covered = u1
+        assert covered == length
+        if kernel != "bn_apply":
+            assert geos[4] >= slices // cluster
+        if mode == BN._RING and not rows:
+            _check_plane_stages(x, inner, length, slices,
+                                2 if kernel != "bn_stats" else 1)
+
+
+@pytest.mark.parametrize("shape,layout,dtype", GEO_CASES, ids=_ids)
+def test_partition_depends_on_the_shape_alone(shape, layout, dtype):
+    """Each sum's order (the span, slices, tile width, mode and cluster of
+    the reductions and bn_apply) is the same on a smaller card; the card
+    sets only the tiles on the grid at once, at most its wave's worth
+    where a tile's slices fit in a wave."""
+    _, geos = _geometries(shape, layout, dtype)
+    _, small = _geometries(shape, layout, dtype, SMALL_CARDS)
+    assert small[4] == geos[4]
+    for kernel, geo, other in zip(GEO_KERNELS[:3], geos[:3], small[:3]):
+        assert other[:10] == geo[:10]
+        slices, cluster, items = other[6], other[9], other[10]
+        tiles = -(-other[5] // other[7]) if other[1] else other[5]
+        wave = cluster * SMALL_CARDS[kernel].clusters[
+            cluster.bit_length() - 1]
+        assert 1 <= items <= tiles
+        assert items == 1 or slices * items <= wave
+
+
+# the train step's maps (Unet-resnet34 512² B16, bf16, channels-last) and
+# the phase's other cases: the mode each kernel reads its map in
+MODES = [
+    ((16, 64, 256, 256), "channels_last", torch.bfloat16, "RRR"),
+    ((16, 64, 128, 128), "channels_last", torch.bfloat16, "RRR"),
+    ((16, 128, 64, 64), "channels_last", torch.bfloat16, "RDR"),
+    ((16, 256, 32, 32), "channels_last", torch.bfloat16, "DDD"),
+    ((16, 512, 16, 16), "channels_last", torch.bfloat16, "DDD"),
+    ((16, 32, 256, 256), "channels_last", torch.bfloat16, "RRR"),
+    ((16, 16, 512, 512), "channels_last", torch.bfloat16, "RRR"),
+    ((16, 512, 16, 16), "channels_last", torch.float32, "DDD"),
+    ((16, 512, 16, 16), "nchw", torch.float32, "RRR"),
+    ((16, 64, 256, 256), "nchw", torch.bfloat16, "RDD"),
+    ((16, 64, 256, 256), "channels_last", torch.float32, "RRR"),
+    ((2, 3, 16, 16), "channels_last", torch.bfloat16, "VVV"),
+]
+
+
+@pytest.mark.parametrize("shape,layout,dtype,modes", MODES, ids=_ids)
+def test_small_maps_and_wide_planes_take_the_direct_mode(shape, layout,
+                                                         dtype, modes):
+    """``bn_stats``, ``bn_apply`` and ``bn_grad_stats`` read a map
+    through the ring (R) where it is large, with 16-byte loads straight
+    from device memory (D) where a channels-last map is small or a plane
+    wide, one value at a time (V) where vectors do not fit."""
+    _, geos = _geometries(shape, layout, dtype)
+    code = {BN._RING: "R", BN._DIRECT: "D", BN._PER_VALUE: "V"}
+    assert "".join(code[g[8]] for g in geos[:3]) == modes
+
+
+def _check_plane_stages(x, inner, length, slices, tensors):
+    """The bulk-copy path's stages of a channel's planes (``stages_of`` in
+    ``csrc/batchnorm.cu``): block s of ``slices`` takes stages s, s +
+    slices, …; each stage holds whole 16-byte vectors, fits a ring slot
+    (8192 bytes over the tensors it streams) and spans at most 32 runs of
+    H·W (one bulk copy each); together they cover the channel once."""
+    elems = 8192 // tensors // x.element_size()
+    v = 16 // x.element_size()
+    step = elems if inner * 31 >= elems else 31 * inner
+    starts = list(range(0, length, step))
+    owners = [q % slices for q in range(len(starts))]
+    assert sorted(set(owners)) == list(range(min(slices, len(starts))))
+    for u in starts:
+        e = min(length, u + step)
+        assert u % v == 0 and e % v == 0 and e - u <= elems
+        assert (e - 1) // inner - u // inner + 1 <= 32

@@ -400,6 +400,20 @@ def test_scale_free_batchnorm_trains_on_the_card(card):
 BN_KERNELS = ("bn_stats", "bn_apply", "bn_grad_stats", "bn_grad_apply")
 
 
+def _one_value_off(t):
+    """``t``'s values in its layout (NCHW or channels-last), one value (2
+    bytes in bfloat16, 4 in float32) past the 16-byte aligned start of a
+    buffer."""
+    b, c, h, w = t.shape
+    n = t.numel()
+    flat = torch.empty(n + 16, dtype=t.dtype, device=t.device)[1:n + 1]
+    out = (flat.view(b, h, w, c).permute(0, 3, 1, 2)
+           if t.is_contiguous(memory_format=torch.channels_last)
+           and not t.is_contiguous() else flat.view(b, c, h, w))
+    out.copy_(t)
+    return out
+
+
 def _ulps_apart(a, b):
     ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
             torch.float16: torch.int16, torch.float64: torch.int64}[a.dtype]
@@ -421,6 +435,13 @@ def _ulps_apart(a, b):
     ((2, 40, 9, 7), torch.float16, "channels_last", True),    # 5 columns
     ((4, 64, 128, 128), torch.float16, "nchw", False),   # many slices
     ((3, 37, 11, 13), torch.float16, "channels_last", True),  # no vectors
+    ((1, 128, 200, 200), torch.bfloat16, "channels_last", True),  # ragged
+    ((1, 16, 256, 256), torch.bfloat16, "nchw", True),   # 1 cluster a tile
+    ((16, 512, 16, 16), torch.bfloat16, "channels_last", True),  # layer 4
+    ((4, 1040, 8, 8), torch.bfloat16, "channels_last", False),  # 17 tiles
+    ((2, 3, 16, 16), torch.bfloat16, "channels_last", True),  # 6-byte rows
+    ((4, 64, 32, 32), torch.bfloat16, "channels_last+2", True),  # off 16 B
+    ((4, 64, 32, 32), torch.float32, "nchw+4", False),   # off 16 bytes
 ], ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
 def test_batchnorm_kernels_match_their_plain_versions(card, shape, dtype,
                                                       layout, scale):
@@ -430,18 +451,24 @@ def test_batchnorm_kernels_match_their_plain_versions(card, shape, dtype,
     no scale: the float64 sums within 1e-12 of the sum of their terms'
     magnitudes (another order of addition), every output derived from
     given sums equal (the same operations in the same order), two
-    launches bit-identical, one launch counted each."""
+    launches bit-identical, one launch counted each.  The cases also hold
+    the redesigned reductions' clusters (a cluster with blocks past the
+    map, one cluster a tile, tiles narrower than a row) and maps one value
+    off 16-byte alignment (``+2``, ``+4`` bytes: one value at a time)."""
     from segmentation_training_pipeline_tpu_torch.models import (
         batchnorm as BN)
 
     gen = torch.Generator(device=card).manual_seed(sum(shape))
     c, dims = shape[1], (0, 2, 3)
-    fmt = (torch.channels_last if layout == "channels_last"
+    fmt = (torch.channels_last if layout.startswith("channels_last")
            else torch.contiguous_format)
     x = (3 + 2 * torch.randn(shape, generator=gen, device=card)).to(
         dtype).contiguous(memory_format=fmt)
     dy = torch.randn(shape, generator=gen, device=card).to(dtype).contiguous(
         memory_format=fmt)
+    if "+" in layout:
+        x, dy = _one_value_off(x), _one_value_off(dy)
+        assert x.data_ptr() % 16 == x.element_size()
     acc = torch.float64 if dtype == torch.float64 else torch.float32
     w = (0.5 + torch.rand(c, generator=gen, device=card)).to(acc) \
         if scale else None
