@@ -45,7 +45,8 @@ line with its seconds; any failure raises and the script exits non-zero:
      (SyncBatchNorm's ``batch_norm_stats``, ``batch_norm_elemt``,
      ``batch_norm_backward_reduce``, ``batch_norm_backward_elemt``), and
      ``F.batch_norm`` forward and forward+backward on the same tensors,
-     and ``bn_apply``'s bytes streamed by one ``copy_``; the same on the
+     ``bn_apply``'s bytes streamed by one ``copy_`` and
+     ``bn_grad_apply``'s by one ``torch.add(dy, x, out=dx)``; the same on the
      train step's five other maps in bf16 channels-last, and over its
      seven maps the totals of one step (Σ launches × ms, bound and
      library: ``batchnorm_step``); a layer's forward and backward on the
@@ -1220,8 +1221,9 @@ def _bn_case(name: str, shape, dtype, layout, seed: int,
     counterparts (SyncBatchNorm's ``batch_norm_stats``,
     ``batch_norm_elemt``, ``batch_norm_backward_reduce``,
     ``batch_norm_backward_elemt``), one ``copy_`` of x (``bn_apply``'s
-    bytes, read once and written once) and ``F.batch_norm`` forward and
-    backward on the same tensors.  ``strict`` fails the run on a check;
+    bytes, read once and written once), one ``torch.add(dy, x, out=dx)``
+    (``bn_grad_apply``'s: two read, one written) and ``F.batch_norm``
+    forward and backward on the same tensors.  ``strict`` fails the run on a check;
     without it the case is only reported (``compare_kernels.py``)."""
     t = _bn_inputs(shape, dtype, layout, seed)
     x, dy, w, b, rm, rv = (t[k] for k in ("x", "dy", "w", "b", "rm", "rv"))
@@ -1342,6 +1344,8 @@ def _bn_case(name: str, shape, dtype, layout, seed: int,
         y = torch.empty_like(x)
         rows["bn_apply"]["copy_ms"] = cuda_ms(lambda: y.copy_(x), 50,
                                               hold=True)
+        rows["bn_grad_apply"]["add_ms"] = cuda_ms(
+            lambda: torch.add(dy, x, out=y), 50, hold=True)
         out.update(f_batch_norm_forward_ms=cuda_ms(f_forward, 20, hold=True),
                    f_batch_norm_forward_backward_ms=cuda_ms(f_both, 20,
                                                             hold=True))
@@ -1444,6 +1448,8 @@ def phase_batchnorm(seed: int) -> dict:
                    for c in cases])
         if k == "bn_apply":
             rows[k]["copy_ms"] = first["copy_ms"]
+        if k == "bn_grad_apply":
+            rows[k]["add_ms"] = first["add_ms"]
     return rows
 
 

@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
 """Time versions of the port's CUDA kernels side by side on one card.
 
-    python3 compare_kernels.py SOURCE.cu[:ABLATION] [SOURCE.cu[:ABLATION] ...]
+    python3 compare_kernels.py SOURCE[:ABLATION] [SOURCE[:ABLATION] ...]
 
-Each SOURCE is a version of a file in
-``segmentation_training_pipeline_tpu_torch/csrc/``: an older commit's, or
-an edit of it.  It is built with the port's ``nvcc`` flags plus
-``-Xptxas -v`` (the register counts are printed), and each kernel entry
-point it exports stands in for the port's own while that kernel runs
-through its wrapper.  A version that disagrees with the plain versions is
-reported, not refused.  The versions run in turns, first to last and back
-(A B … B A), so that versions are compared within one call on one card.
+A SOURCE is either a version of a file in
+``segmentation_training_pipeline_tpu_torch/csrc/`` (an older commit's, or
+an edit of it), whose kernel entry points stand in for the port's own
+while each kernel runs through this tree's wrapper, or the root of a
+checkout of this repository (``git archive`` of a commit, unpacked under
+the git-ignored ``_versions/``), whose ``csrc/batchnorm.cu`` runs through
+that checkout's own wrappers and launch plan: its package is copied under
+another name and imported beside this one.  Each is built with the
+port's ``nvcc`` flags plus ``-Xptxas -v`` (the register counts are
+printed).  A version that disagrees with the plain versions is reported,
+not refused.  The versions run in turns, first to last and back (A B … B
+A), so that versions are compared within one call on one card.
 
 The warp, elastic and shear kernels run on the tensors ``chip_smoke.py``
 captures at the train shapes, one JSON line per version and kernel; the
@@ -20,43 +24,43 @@ copy (``copy_``, the same bytes read and written once) of the planes
 kernels X and Y take and of the lines the shear's x-pass takes.
 
 The batch-norm kernels (a version of ``batchnorm.cu``) run on every case
-of ``chip_smoke.py``'s ``batchnorm`` phase (``BN_CASES``), one JSON line
-per version and case with each kernel's ms, bound share and checks
-(``ok``: sums within 1e-12, derived outputs 0 ulp, two launches bit for
-bit), and per version and turn the step-weighted totals of the train
-step's seven maps.  Before the turns, one line per case times
-``y.copy_(x)`` (``bn_apply``'s bytes) and one line per version gives, for
-each of its ``bn_*`` kernel instantiations, the registers, static shared
-memory and resident blocks per SM that libcuda's
+of ``chip_smoke.py``'s ``batchnorm`` phase (``BN_CASES``) as the phase
+runs them (each kernel's launches, then its plain version and its
+PyTorch call, so that every kernel finds the card as it does there), one
+JSON line per version and case with each kernel's ms, bound share, plain
+and library ms and checks (``ok``: sums within 1e-12, derived outputs 0
+ulp, two launches bit for bit), the streaming yardsticks ``y.copy_(x)``
+(``bn_apply``'s bytes) and ``torch.add(dy, x, out=dx)``
+(``bn_grad_apply``'s), and per version and turn the step-weighted totals
+of the train step's seven maps.  One line per version gives, for each of
+its ``bn_*`` kernel instantiations, the registers, static shared memory
+and resident blocks per SM that libcuda's
 ``cuOccupancyMaxActiveBlocksPerMultiprocessor`` allows at its launch
 bound (a ``-cubin`` build of the same source, loaded with ``libcuda``).
-A source that exports no ``stp_bn_occupancy`` takes the launch geometry
-of the first design (``batchnorm.cu`` at commit 419b04d: one plan for the
-four kernels, four 256-thread blocks an SM aimed at), so that it runs
-through today's wrappers.
 
-``:ABLATION`` builds the source with a deliberate fault, to split a
-kernel's time.  Today's source defines them (``STP_BN_ABLATE_*`` in
-``batchnorm.cu``, passed with ``-D``): ``one_level`` (a cluster's first
-block finishes its cluster's sums: no partials, ticket or tail),
-``no_cluster`` (each block finishes its own sums), ``empty`` (the
-reductions return at once: the launch alone).  The first design's
-(``batchnorm.cu`` at commit 419b04d) are replacements of its text, each
-of which must match it: ``no_tail`` (the reductions' block 0 finishes
-alone: no ticket, no fence, no tail over the partials), ``f32_sums`` (the
-reductions accumulate in float32), ``const_coef`` (``bn_apply`` takes
-constant coefficients instead of computing them).  Their sums are wrong
-and reported so.  Needs one CUDA card and ``nvcc``.
+``:ABLATION`` builds the version with a deliberate fault, a macro that
+``batchnorm.cu`` defines (``STP_BN_ABLATE_*``, passed with ``-D``), to
+split a kernel's time: ``one_level`` (a cluster's first block finishes
+its cluster's sums: no partials, ticket or tail), ``no_cluster`` (each
+block finishes its own sums), ``const_coef`` (``bn_apply`` and
+``bn_grad_apply`` take constant coefficients instead of computing them),
+``empty`` (the reductions and ``bn_grad_apply`` return at once: the
+launch alone).  Their outputs are wrong and reported so.  Needs one CUDA
+card and ``nvcc``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import importlib
 import json
 import shutil
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
+from types import ModuleType
+from typing import NamedTuple
 
 import torch
 
@@ -66,103 +70,40 @@ from segmentation_training_pipeline_tpu_torch.models import batchnorm as BN
 
 FIELDS = ("ms", "plain_ms", "bound_ms", "bound_share", "max_abs_err",
           "mask_mismatch")
+PACKAGE = "segmentation_training_pipeline_tpu_torch"
 
-# the first design's deliberate faults, as (old, new) replacements of its
-# text (batchnorm.cu at commit 419b04d)
-ABLATIONS = {
-    "no_tail": [
-        ("    if (!last_arrival(tickets + c, g.slices)) return;",
-         "    if (s != 0) return;"),
-        ("    if (!last_arrival(tickets + t, g.slices)) return;",
-         "    if (s != 0) return;"),
-        ("                                        double& sb) {\n"
-         "  constexpr int kMlp = 8;",
-         "                                        double& sb) {\n"
-         "  if (n > 0) return;\n  constexpr int kMlp = 8;"),
-    ],
-    "f32_sums": [
-        ("                                           double* a, double* b) {",
-         "                                           float* a, float* b) {"),
-        ("      double gd = (double)dv[k];", "      float gd = (float)dv[k];"),
-        ("      b[kPerValue ? k : 0] += gd * (double)d;",
-         "      b[kPerValue ? k : 0] += gd * (float)d;"),
-        ("      double d = (double)xv[k];", "      float d = (float)xv[k];"),
-        ("    double a[1] = {0.0}, b[1] = {0.0};",
-         "    float a[1] = {0.f}, b[1] = {0.f};"),
-        ("    block_sum2(a[0], b[0]);\n    if (threadIdx.x == 0) {\n"
-         "      partials[(long long)c * S + s] = a[0];\n"
-         "      partials[((long long)g.nc + c) * S + s] = b[0];",
-         "    double a0 = a[0], b0 = b[0];\n    block_sum2(a0, b0);\n"
-         "    if (threadIdx.x == 0) {\n"
-         "      partials[(long long)c * S + s] = a0;\n"
-         "      partials[((long long)g.nc + c) * S + s] = b0;"),
-        ("    double a[V], b[V];", "    float a[V], b[V];"),
-    ],
-    "const_coef": [
-        ("    const Fwd<A> k = forward_coef<A>(sums, g.nc, c, eps, w, b);",
-         "    const Fwd<A> k = {A(0), A(1), A(1), A(1), A(0)};"),
-        ("      k[q] = forward_coef<A>(sums, g.nc, col * V + q, eps, w, b);",
-         "      k[q] = Fwd<A>{A(0), A(1), A(1), A(1), A(0)};"),
-    ],
-}
-# today's deliberate faults: macros that batchnorm.cu defines
+# deliberate faults: macros that batchnorm.cu defines
 MACROS = {"one_level": "STP_BN_ABLATE_ONE_LEVEL",
           "no_cluster": "STP_BN_ABLATE_NO_CLUSTER",
-          "empty": "STP_BN_ABLATE_EMPTY"}
+          "empty": "STP_BN_ABLATE_EMPTY",
+          "const_coef": "STP_BN_ABLATE_CONST_COEF"}
 
 
-# the first design's launch plan (commit 419b04d), for a source without
-# ``stp_bn_occupancy``: four 256-thread blocks on each SM aimed at, one
-# geometry for the four kernels
-FIRST_BN_GEO = [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
-                ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int]
+class Version(NamedTuple):
+    """One SOURCE: its label, the ``.cu`` file built, and the port's
+    ``kernels`` and ``models.batchnorm`` modules its launches go through
+    (this tree's for a bare file, the checkout's own for a root)."""
+    spec: str
+    source: Path
+    K: ModuleType
+    BN: ModuleType
 
 
-def first_plan(rows: bool, outer: int, c: int, inner: int, v: int):
-    target, threads = 4 * 132, 256
-    if rows:
-        tw = min(c // v, 32)
-        tiles = -(-(c // v) // tw)
-        slices = max(1, min(-(-target // tiles),
-                            -(-outer // (8 * (threads // tw)))))
-        span = -(-outer // slices)
-        return span, -(-outer // span), tw
-    m = outer * inner
-    slices = max(1, min(-(-target // c), -(-m // (4 * threads * v))))
-    span = -(-(-(-m // slices)) // v) * v
-    return span, -(-m // span), 0
-
-
-def first_geometry(x: torch.Tensor, *others: torch.Tensor):
-    """Today's ``BN._geometry`` shape (four launch geometries and the
-    partial sums' slices) with the first design's plan and arguments."""
-    ptrs = x.data_ptr()
-    for t in others:
-        ptrs |= t.data_ptr()
-    b, c, h, w = x.shape
-    rows = BN._rows(x)
-    outer, inner = (b * h * w, 1) if rows else (b, h * w)
-    v = 16 // x.element_size()
-    vec = not ptrs & 15 and (c if rows else inner) % v == 0
-    span, slices, tw = first_plan(rows, outer, c, inner, v if vec else 1)
-    geo = (BN._DTYPES[x.dtype], int(rows), outer, inner, span, c, slices,
-           tw, int(vec))
-    return (geo, geo, geo, geo, slices)
-
-
-def patched(src: str, ablation: str, out_dir: Path) -> str:
-    """``src`` with the replacements of ``ablation``, written beside the
-    builds; each replacement must match exactly once."""
-    text = Path(src).read_text()
-    for old, new in ABLATIONS[ablation]:
-        if text.count(old) != 1:
-            raise SystemExit(f"{src}: ablation {ablation} does not match "
-                             f"{old!r}")
-        text = text.replace(old, new)
-    out = out_dir / f"{Path(src).stem}-{ablation}.cu"
-    out.write_text(text)
-    return str(out)
+def version(spec: str, i: int, pkgs: Path) -> Version:
+    """``spec`` (``PATH[:ABLATION]``) resolved: a directory is the root of
+    a checkout, whose package is copied under ``pkgs`` as
+    ``stp_version{i}`` and imported under that name."""
+    path = Path(spec.partition(":")[0])
+    if not path.is_dir():
+        return Version(spec, path, K, BN)
+    name = f"stp_version{i}"
+    shutil.copytree(path / PACKAGE, pkgs / name,
+                    ignore=shutil.ignore_patterns("_build", "*.so"))
+    if str(pkgs) not in sys.path:
+        sys.path.insert(0, str(pkgs))
+    return Version(spec, path / PACKAGE / "csrc" / "batchnorm.cu",
+                   importlib.import_module(name + ".kernels"),
+                   importlib.import_module(name + ".models.batchnorm"))
 
 
 def demangle(names: list[str]) -> list[str]:
@@ -204,30 +145,30 @@ def occupancy(cubin: Path, names: list[str]) -> list[dict]:
     return out
 
 
-def build(sources: list[str]) -> list[ctypes.CDLL]:
-    """Compile every source in parallel into ``_build/compare/``: the
+def build(versions: list[Version]) -> list[ctypes.CDLL]:
+    """Compile every version in parallel into ``_build/compare/``: the
     shared library and, for a ``batchnorm.cu`` version, a cubin for the
-    occupancy line.  ``SOURCE:ABLATION`` is patched first."""
+    occupancy line.  ``:ABLATION`` adds its macro."""
     out_dir = K.BUILD_DIR / "compare"
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = K.find_nvcc()
     cubin_flags = [f for f in K.NVCC_FLAGS
                    if f not in ("-shared", "-Xcompiler", "-fPIC")]
     procs = []
-    for i, spec in enumerate(sources):
-        src, _, ablation = spec.partition(":")
-        inc = ["-I", str(K.CSRC_DIR)]
-        if ablation in MACROS:
+    for i, v in enumerate(versions):
+        ablation = v.spec.partition(":")[2]
+        inc = ["-I", str(v.source.parent)]
+        if ablation:
             inc.append(f"-D{MACROS[ablation]}")
-        elif ablation:
-            src = patched(src, ablation, out_dir)
-        lib = out_dir / f"{i}-{Path(src).stem}.so"
-        cubin = out_dir / f"{i}-{Path(src).stem}.cubin"
-        procs.append((spec, lib, cubin, subprocess.Popen(
+        lib = out_dir / f"{i}-{v.source.stem}.so"
+        cubin = out_dir / f"{i}-{v.source.stem}.cubin"
+        procs.append((v.spec, lib, cubin, subprocess.Popen(
             [nvcc, *K.NVCC_FLAGS, "-Xptxas", "-v", *inc, "-o", str(lib),
-             src], stdout=subprocess.PIPE, stderr=subprocess.STDOUT),
+             str(v.source)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT),
             subprocess.Popen([nvcc, *cubin_flags, "-cubin", *inc, "-o",
-                              str(cubin), src], stdout=subprocess.PIPE,
+                              str(cubin), str(v.source)],
+                             stdout=subprocess.PIPE,
                              stderr=subprocess.STDOUT)))
     # every build to its end before any is read, so a failure leaves none
     logs = [(p.communicate()[0].decode(errors="replace"), pc.communicate())
@@ -251,99 +192,70 @@ def build(sources: list[str]) -> list[ctypes.CDLL]:
     return libs
 
 
-# where each batch-norm entry point's geometry arguments start
-GEO_AT = {"bn_stats": 2, "bn_apply": 3, "bn_grad_stats": 3,
-          "bn_grad_apply": 4}
-
-
-def entry_points(lib: ctypes.CDLL):
-    """The port's kernels that ``lib`` exports, with their C signatures,
-    and whether they take the first design's geometry where today's
-    wrappers give another (then with its arguments)."""
-    first = (not hasattr(lib, "stp_bn_occupancy")
-             and len(K.BN_GEO) != len(FIRST_BN_GEO))
+def entry_points(lib: ctypes.CDLL, kernels: ModuleType) -> dict:
+    """The port's kernels that ``lib`` exports, with the C signatures of
+    ``kernels`` (the version's ``kernels`` module), and its occupancy
+    query where it has one."""
     fns = {}
-    for k in K.KERNELS.values():
+    for k in kernels.KERNELS.values():
         if hasattr(lib, k.symbol):
             fn = getattr(lib, k.symbol)
-            argtypes = k.argtypes
-            if first and k.name in GEO_AT:
-                at = GEO_AT[k.name]
-                argtypes = (argtypes[:at] + FIRST_BN_GEO
-                            + argtypes[at + len(K.BN_GEO):])
-            fn.argtypes = argtypes
+            fn.argtypes = k.argtypes
             fn.restype = ctypes.c_int
             fns[k.name] = fn
     if hasattr(lib, "stp_bn_occupancy"):
-        fns["occupancy"] = lib.stp_bn_occupancy
-    return fns, first
+        fn = lib.stp_bn_occupancy
+        fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+        fn.restype = ctypes.c_int
+        fns["occupancy"] = fn
+    return fns
 
 
-def bn_turn(source: str, fns: dict, first: bool) -> None:
-    """The batch-norm kernels of one version through today's wrappers on
-    every ``BN_CASES`` case, and the step-weighted totals."""
-    saved = {n: K.KERNELS[n]._fn for n in CS.BN_KERNELS}
-    geometry, occupancy_fn = BN._geometry, BN._occupancy
-    BN._GEOMETRY.clear()
-    BN._CARDS.clear()
+def bn_turn(v: Version, fns: dict) -> None:
+    """The batch-norm kernels of one version through its wrappers and
+    launch plan on every ``BN_CASES`` case, and the step-weighted
+    totals."""
+    kernels, bn = v.K, v.BN
+    saved = {n: kernels.KERNELS[n]._fn for n in CS.BN_KERNELS}
+    occupancy_fn, chip_bn = bn._occupancy, CS.BN
+    bn._GEOMETRY.clear()
+    bn._CARDS.clear()
     try:
         for n in CS.BN_KERNELS:
-            K.KERNELS[n]._fn = fns[n]
-        if first:
-            BN._geometry = first_geometry
-        elif "occupancy" in fns:
-            fn = fns["occupancy"]
-            fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
-            fn.restype = ctypes.c_int
-            BN._occupancy = lambda: fn
+            kernels.KERNELS[n]._fn = fns[n]
+        if "occupancy" in fns:
+            bn._occupancy = lambda: fns["occupancy"]
+        CS.BN = bn
         cases = [CS._bn_case(name, shape, dtype, layout, CS.SEED + i,
-                             yardsticks=False, strict=False)
+                             strict=False)
                  for i, (name, shape, dtype, layout)
                  in enumerate(CS.BN_CASES)]
     finally:
         for n in CS.BN_KERNELS:
-            K.KERNELS[n]._fn = saved[n]
-        BN._geometry, BN._occupancy = geometry, occupancy_fn
-        BN._GEOMETRY.clear()
-        BN._CARDS.clear()
+            kernels.KERNELS[n]._fn = saved[n]
+        bn._occupancy, CS.BN = occupancy_fn, chip_bn
+        bn._GEOMETRY.clear()
+        bn._CARDS.clear()
     for c in cases:
-        print(json.dumps({"source": source, "case": c["case"],
+        print(json.dumps({"source": v.spec, "case": c["case"],
                           "shape": c["shape"], "dtype": c["dtype"],
                           "layout": c["layout"], "ok": c["ok"],
                           "kernels": {k: {f: r.get(f) for f in (
-                              "ms", "bound_ms", "bound_share", "sum_rel",
+                              "ms", "bound_ms", "bound_share", "plain_ms",
+                              "library_ms", "copy_ms", "add_ms", "sum_rel",
                               "ulps", "bit_identical_launches")}
                               for k, r in c["kernels"].items()}}),
               flush=True)
     totals = CS.bn_step_totals(cases)
-    print(json.dumps({"source": source, "step_totals_ms": {
-        k: v["ms"] for k, v in totals.items()}, "step_bound_ms": {
-        k: v["bound_ms"] for k, v in totals.items()}}), flush=True)
+    print(json.dumps({"source": v.spec, "step_totals_ms": {
+        k: t["ms"] for k, t in totals.items()}, "step_bound_ms": {
+        k: t["bound_ms"] for k, t in totals.items()}}), flush=True)
 
 
-def bn_copies() -> None:
-    """``y.copy_(x)`` on each case's x: ``bn_apply``'s bytes, streamed."""
-    for i, (name, shape, dtype, layout) in enumerate(CS.BN_CASES):
-        x = CS._bn_inputs(shape, dtype, layout, CS.SEED + i)["x"]
-        y = torch.empty_like(x)
-        print(json.dumps({"yardstick": "copy_", "case": name,
-                          "shape": list(shape),
-                          "dtype": str(dtype).split(".")[-1],
-                          "layout": layout,
-                          "bytes": 2 * x.numel() * x.element_size(),
-                          "ms": CS.cuda_ms(lambda: y.copy_(x), 50,
-                                           hold=True)}), flush=True)
-
-
-def main(argv=None) -> int:
-    sources = sys.argv[1:] if argv is None else argv
-    if not sources:
-        print(__doc__, file=sys.stderr)
-        return 2
-    CS.phase_device()
-    versions = [entry_points(lib) for lib in build(sources)]
-    aug = any(n in CS.CALLS for fns, _ in versions for n in fns)
-    bn = any(n in CS.BN_KERNELS for fns, _ in versions for n in fns)
+def run(versions: list[Version], fns_of: list[dict]) -> None:
+    """The aug kernels' yardsticks, then every version's kernels in
+    turns."""
+    aug = any(n in CS.CALLS for fns in fns_of for n in fns)
     if aug:
         args_of = CS.phase_capture(*CS.train_shapes())
         # kernel Y's planes and the shear's x-pass lines
@@ -355,11 +267,9 @@ def main(argv=None) -> int:
                               * planes.element_size(),
                               "ms": CS.cuda_ms(lambda: copy.copy_(planes),
                                                50, hold=True)}), flush=True)
-    if bn:
-        bn_copies()
-    turns = list(range(len(sources)))
+    turns = list(range(len(versions)))
     for i in turns + turns[::-1]:
-        fns, first = versions[i]
+        v, fns = versions[i], fns_of[i]
         for name, fn in fns.items():
             if name not in CS.CALLS:
                 continue
@@ -369,14 +279,29 @@ def main(argv=None) -> int:
                 m = CS.measure_kernel(name, args_of)
             finally:
                 kernel._fn = saved
-            row = {"source": sources[i], "kernel": name,
+            row = {"source": v.spec, "kernel": name,
                    **{f: m[f] for f in FIELDS}}
             if "passes" in m:
                 row["pass_ms"] = [p["ms"] for p in m["passes"]]
                 row["pass_bound_ms"] = [p["bound_ms"] for p in m["passes"]]
             print(json.dumps(row), flush=True)
         if all(n in fns for n in CS.BN_KERNELS):  # a batchnorm.cu version
-            bn_turn(sources[i], fns, first)
+            bn_turn(v, fns)
+
+
+def main(argv=None) -> int:
+    specs = sys.argv[1:] if argv is None else argv
+    if not specs:
+        print(__doc__, file=sys.stderr)
+        return 2
+    CS.phase_device()
+    # the checkouts' packages stay importable for the whole run
+    with tempfile.TemporaryDirectory() as tmp:
+        versions = [version(spec, i, Path(tmp))
+                    for i, spec in enumerate(specs)]
+        fns_of = [entry_points(lib, v.K)
+                  for lib, v in zip(build(versions), versions)]
+        run(versions, fns_of)
     return 0
 
 

@@ -37,6 +37,12 @@ import torch
 PACKAGE = "segmentation_training_pipeline_tpu_torch"
 SHAPES = {"tiny": (2, 64, 8, 8), "layer4": (16, 512, 16, 16)}
 CALLS, TURNS = 200, 20
+# each kernel's ``Card`` fields on an H100 80GB HBM3 (bf16 channels-last:
+# the reductions' and bn_apply's ring instantiations, bn_grad_apply's)
+H100_CARDS = {"bn_stats": (132, 4, 8, (528, 264, 124, 62)),
+              "bn_apply": (132, 4, 1, (528,)),
+              "bn_grad_stats": (132, 4, 8, (528, 264, 124, 62)),
+              "bn_grad_apply": (132, 2, 1, (264,))}
 
 
 def stubbed_layer(name: str, address: int):
@@ -51,9 +57,7 @@ def stubbed_layer(name: str, address: int):
     BN._check = lambda *a, **kw: None
     K.stream_of = lambda x: 0
     if hasattr(BN, "_card"):          # an H100 80GB HBM3's occupancy
-        BN._card = lambda device, kernel, *a: BN.Card(
-            132, 4, 1 if kernel == "bn_apply" else 8,
-            (528,) if kernel == "bn_apply" else (528, 264, 124, 62))
+        BN._card = lambda device, kernel, *a: BN.Card(*H100_CARDS[kernel])
     return L.BatchNorm
 
 

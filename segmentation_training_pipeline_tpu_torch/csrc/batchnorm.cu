@@ -38,35 +38,47 @@
 // (channels-last, the port's layout on the card, or H*W = 1), cut into
 // tiles of at most 512 channels through the ring (256 in float64 or one
 // value at a time; up to that a tile is the whole row, so a run of rows is
-// one run of bytes) or of 64 with direct loads.  A grid row of blocks takes a tile (rows) or a channel (planes),
-// and walks on to the next one where the grid holds fewer of them.
+// one run of bytes) or of 64 with direct loads.  A grid row of blocks
+// takes a tile (rows) or a channel (planes), and walks on to the next one
+// where the grid holds fewer of them.
 //
 // What bounds them on an H100: memory.  The forward reads x twice and
 // writes y; the backward reads x and dy twice and writes dx.  The sums cost
 // one or two float32-to-float64 conversions and two float64 operations a
 // value, under half of what the card issues at the rate HBM delivers
-// values.  What holds them back is latency and the cross-block sums: a
-// block that waits on each of its loads, one block that adds hundreds of
-// blocks' partials (as long as the stream on the middle maps), a channel's
-// float64 coefficients computed in every thread before its first value.
-// Where every pointer is 16-byte aligned and a row (or a plane) is a
-// multiple of 16 bytes, the wrapper picks one of two ways to read a map
-// (models/batchnorm.py:_mode):
-//   - the ring, on large maps: one thread streams the block's stages
-//     through four 8 KB slots in shared memory with cp.async.bulk and an
-//     mbarrier a slot, which the block's threads read; rows' stages are
-//     whole rows of the block's slice, planes' stages are dealt out across
-//     the channel's blocks in turn (block s of S takes stages s, s + S, …),
-//     so that the blocks of all channels sweep their planes together; the
-//     reductions' threads each own two channels (one of float64 values)
-//     across rows, so a thread keeps four float64 sums;
+// values; bn_grad_apply's five float32 operations a value are far below
+// it.  What holds them back is latency and the cross-block sums: a block
+// that waits on each of its loads, one block that adds hundreds of blocks'
+// partials (as long as the stream on the middle maps), a channel's float64
+// coefficients (two divisions, products and conversions) computed in
+// every thread before its first value.  Where every pointer is 16-byte
+// aligned and a row (or a plane) is a multiple of 16 bytes, the wrapper
+// picks how each kernel reads a map (models/batchnorm.py:_mode):
+//   - the ring, on large maps (bn_stats, bn_apply, bn_grad_stats): one
+//     thread streams the block's stages through four 8 KB slots in shared
+//     memory with cp.async.bulk and an mbarrier a slot, which the block's
+//     threads read; rows' stages are whole rows of the block's slice,
+//     planes' stages are dealt out across the channel's blocks in turn
+//     (block s of S takes stages s, s + S, …), so that the blocks of all
+//     channels sweep their planes together; the reductions' threads each
+//     own two channels (one of float64 values) across rows, so a thread
+//     keeps four float64 sums;
 //   - direct 16-byte loads, on channels-last maps of a few MB and on wide
 //     planes (bn_apply, bn_grad_stats): a block's few stages would not pay
 //     for the ring's barriers, where loads issued at once by every thread
 //     cover the latency; rows take tiles of 64 channels and eight rows a
 //     thread, a thread one 16-byte vector's channels; a plane's thread
-//     keeps two pairs of sums (two chains of float64 additions).
-// Both end the same way:
+//     keeps two pairs of sums (two chains of float64 additions);
+//   - bn_grad_apply reads every map with direct loads: each thread issues
+//     a batch of loads of both tensors (eight rows, or a plane's eight
+//     vectors, of 2-byte values: 256 bytes in flight; four of wider ones,
+//     three blocks an SM), computes nothing before they are all issued,
+//     and stores from registers with a streaming hint (evict first).  With
+//     nothing to sum and nothing to stage, the ring's barrier rounds and
+//     halved stages (two tensors in a slot) lost to these loads at every
+//     map on this card, the largest too (examples/batchnorm_modes.py), so
+//     it has no ring.
+// They end the same way:
 //   - thread block clusters (the ring's reductions): the blocks of a
 //     cluster (up to 8 along the slices) add their sums in the first block
 //     through distributed shared memory, in rank order, so one partial a
@@ -74,17 +86,25 @@
 //     covers a tile there are no partials, no fence, no ticket and no
 //     tail; else the last cluster to arrive shares the partials' sum among
 //     its blocks, each a part of the tile's channels;
-//   - the partition (slices, tiles, clusters) is the wrapper's, from the
-//     shape alone, sized to one wave of an H100 80GB HBM3; the card's
-//     occupancy sets only how many tiles run at once, and blocks walk on
-//     to the next tile where the grid holds fewer;
-//   - bn_apply computes each channel's coefficients once a block (one
-//     thread a channel, into shared memory; through the ring while its
-//     first stages load), and writes y with 16-byte stores.
+//   - the partition (slices, tiles, clusters) of the kernels whose sums it
+//     orders (and bn_apply's) is the wrapper's, from the shape alone, sized
+//     to one wave of an H100 80GB HBM3; bn_grad_apply sums nothing, so no
+//     order is at stake: its slice is one batch of loads, and the wave of
+//     the card it runs on sets the rest; the card's occupancy sets how
+//     many tiles run at once, and blocks walk on to the next tile where
+//     the grid holds fewer (a persistent grid); where one tile's slices
+//     outnumber a wave (bn_grad_apply's large maps) the card runs them in
+//     waves, since a block that looped over batches idled between them;
+//   - bn_apply and bn_grad_apply compute each channel's coefficients once
+//     a block (one thread a channel, into shared memory, then one
+//     barrier): bn_apply while the ring's first stages load; bn_grad_apply
+//     copies each channel's inputs with cp.async ahead of the map's loads,
+//     so that the float64 chain runs while they are in flight (on planes,
+//     a tile's one channel, every thread runs the chain itself, with no
+//     barrier); with forward_coef's and backward_coef's own expressions,
+//     so no bit moves.
 // Elsewhere (a 6-byte row, a pointer off 16 bytes) the same blocks and
 // sums read and write one value at a time, straight from device memory.
-// bn_grad_apply keeps its first design: 16-byte accesses, four blocks an
-// SM aimed at.
 //
 // Determinism.  Each sum runs in a fixed order: each thread its rows or
 // vectors in order (a plane's two chains added at the end), the block's
@@ -123,11 +143,26 @@ __host__ __device__ constexpr int min_blocks(bool rows, bool ring) {
   return rows && !ring ? 3 : kMinBlocks;
 }
 
-// Deliberately wrong builds that split the reductions' time
+// bn_grad_apply: the rows (a plane's vectors) a thread loads at once, of
+// both tensors: eight of 2-byte values (64 registers of 16-byte vectors,
+// two blocks an SM), four of wider ones (three blocks an SM; a slice of
+// models/batchnorm.py's _DIRECT_ROWS = 8 rows then takes two batches)
+template <typename T>
+__host__ __device__ constexpr int batch_rows() {
+  return sizeof(T) == 2 ? 8 : 4;
+}
+template <typename T>
+__host__ __device__ constexpr int grad_apply_blocks() {
+  return sizeof(T) == 2 ? 2 : 3;
+}
+
+// Deliberately wrong builds that split the kernels' time
 // (compare_kernels.py SOURCE:ABLATION passes -DSTP_BN_ABLATE_<ABLATION>):
 // ONE_LEVEL, a cluster's first block finishes its cluster's sums (no
 // partials, ticket or tail); NO_CLUSTER, each block finishes its own;
-// EMPTY, the reductions return at once (the launch alone).
+// CONST_COEF, bn_apply and bn_grad_apply take constant coefficients (mean
+// 0, scale 1, bias 0; c1 = c2 = 0) instead of computing them; EMPTY, the
+// reductions and bn_grad_apply return at once (the launch alone).
 #if defined(STP_BN_ABLATE_ONE_LEVEL) || defined(STP_BN_ABLATE_NO_CLUSTER)
 constexpr bool kAblateOneLevel = true;
 #else
@@ -142,6 +177,11 @@ constexpr bool kAblateCluster = false;
 constexpr bool kAblateAll = true;
 #else
 constexpr bool kAblateAll = false;
+#endif
+#ifdef STP_BN_ABLATE_CONST_COEF
+constexpr bool kAblateCoef = true;
+#else
+constexpr bool kAblateCoef = false;
 #endif
 
 template <typename T>
@@ -178,6 +218,10 @@ __device__ __forceinline__ void narrow(double v, double* p) { *p = v; }
 template <int B>
 struct Raw;
 template <>
+struct Raw<2> {
+  using type = uint16_t;
+};
+template <>
 struct Raw<4> {
   using type = uint32_t;
 };
@@ -202,6 +246,17 @@ __device__ __forceinline__ void load(const T* p, A (&v)[N]) {
 #pragma unroll
     for (int k = 0; k < N; ++k) v[k] = widen(e[k]);
   }
+}
+
+// N consecutive values as they lie in memory (one access), and widened
+template <typename T, int N>
+using RawOf = typename Raw<N * sizeof(T)>::type;
+
+template <typename T, int N, typename A>
+__device__ __forceinline__ void unpack(const RawOf<T, N>& raw, A (&v)[N]) {
+  const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int k = 0; k < N; ++k) v[k] = widen(e[k]);
 }
 
 template <typename T, int N, typename A>
@@ -260,6 +315,21 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       : "memory");
 }
 
+// B bytes (4 or 8) from device memory into shared memory without a
+// register (cp.async), in program order with the thread's loads around it;
+// async_wait waits for the thread's own copies
+template <int B>
+__device__ __forceinline__ void async_copy(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "n"(B)
+               : "memory");
+}
+
+__device__ __forceinline__ void async_wait() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
 // ------------------------------------------------ geometry
 
 struct Geo {
@@ -268,8 +338,7 @@ struct Geo {
   long long span;   // a slice: rows (rows) or a channel's values (planes)
   int nc;           // channels
   int slices;       // blocks along a tile or channel (grid x)
-  int tw;           // rows: channels per tile (bn_grad_apply, in shape_of:
-                    // vector columns)
+  int tw;           // rows: channels per tile
   int cluster;      // blocks of a cluster along the slices
   int items;        // grid y: tiles or channels at once (blocks walk on)
 };
@@ -398,35 +467,6 @@ __device__ __forceinline__ void planes_each(const Geo& g, long long u,
       f(base + (long long)q * V);
     u = end;
   }
-}
-
-// bn_grad_apply's first design: f(offset) for each V-vector of slice s of
-// channel c (planes), or each of this thread's rows of slice s (rows)
-template <int V, typename F>
-__device__ __forceinline__ void planes_slice(const Geo& g, int s, int c,
-                                             F f) {
-  long long m = g.outer * g.inner;
-  long long j = (long long)s * g.span;
-  long long j1 = min(m, j + g.span);
-  while (j < j1) {
-    long long o = j / g.inner;
-    long long end = min(j1, (o + 1) * g.inner);
-    long long base = (o * g.nc + c) * g.inner + (j - o * g.inner);
-    int count = (int)((end - j) / V);
-#pragma unroll 4
-    for (int q = threadIdx.x; q < count; q += blockDim.x)
-      f(base + (long long)q * V);
-    j = end;
-  }
-}
-
-template <typename F>
-__device__ __forceinline__ void rows_slice(const Geo& g, int s, int ty, int ry,
-                                           F f) {
-  long long r0 = (long long)s * g.span;
-  long long r1 = min(g.outer, r0 + g.span);
-#pragma unroll 4
-  for (long long r = r0 + ty; r < r1; r += ry) f(r * g.nc);
 }
 
 // a and b summed over the block in a fixed order; the sums in thread 0
@@ -898,7 +938,9 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kRows, kRing))
       Fwd<A> k[2];
 #pragma unroll
       for (int i = 0; i < 2; ++i)
-        k[i] = forward_coef<A>(sums, g.nc, c0 + cc[i], eps, w, b);
+        k[i] = kAblateCoef
+                   ? Fwd<A>{A(0), A(1), A(1), A(1), A(0)}
+                   : forward_coef<A>(sums, g.nc, c0 + cc[i], eps, w, b);
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         if (i == 1 && c + kThreads >= ct) break;
@@ -1002,19 +1044,33 @@ struct Bwd {
   A mean, c1, c2, scale;
 };
 
+// what backward_coef reads of channel c, loaded apart so that the loads
+// can go out before a thread's loads of the map (w 1 where it is null)
 template <typename A>
-__device__ __forceinline__ Bwd<A> backward_coef(const double* gs,
+struct BwdIn {
+  double n, g1, g2;
+  A is, mean, w;
+};
+
+template <typename A>
+__device__ __forceinline__ BwdIn<A> backward_in(const double* gs,
                                                 const double* sums, int nc,
                                                 int c, const A* mean,
                                                 const A* invstd, const A* w) {
-  double n = sums[2 * nc];
-  A is = invstd[c];
-  double isd = (double)is;
+  return BwdIn<A>{sums[2 * nc], gs[c], gs[nc + c], invstd[c], mean[c],
+                  w != nullptr ? w[c] : A(1)};
+}
+
+template <typename A>
+__device__ __forceinline__ Bwd<A> backward_coef(const BwdIn<A>& in,
+                                                bool scaled) {
+  if (kAblateCoef) return Bwd<A>{A(0), A(0), A(0), A(1)};
+  double isd = (double)in.is;
   Bwd<A> k;
-  k.mean = mean[c];
-  k.c1 = (A)(gs[c] / n);
-  k.c2 = (A)((gs[nc + c] / n) * (isd * isd));
-  k.scale = w != nullptr ? is * w[c] : is;
+  k.mean = in.mean;
+  k.c1 = (A)(in.g1 / in.n);
+  k.c2 = (A)((in.g2 / in.n) * (isd * isd));
+  k.scale = scaled ? in.is * in.w : in.is;
   return k;
 }
 
@@ -1026,82 +1082,211 @@ __device__ __forceinline__ A input_grad(A dv, A xv, const Bwd<A>& k) {
   return k.scale * t;
 }
 
+// A rows tile's coefficient inputs in shared memory (at most 256
+// channels): thread c copies channel c's with cp.async before its loads of
+// the map, so that the map's loads need not wait on them and no register
+// holds them
+template <typename A>
+struct TileIn {
+  double n[kThreads], g1[kThreads], g2[kThreads];
+  A is[kThreads], mean[kThreads], w[kThreads];
+
+  __device__ __forceinline__ void copy(const Geo& g, int c0, int ct,
+                                       const double* gs, const double* sums,
+                                       const A* m, const A* invstd,
+                                       const A* wt) {
+    const int c = threadIdx.x;
+    if (c >= ct) return;
+    async_copy<8>(n + c, sums + 2 * g.nc);
+    async_copy<8>(g1 + c, gs + c0 + c);
+    async_copy<8>(g2 + c, gs + g.nc + c0 + c);
+    async_copy<sizeof(A)>(is + c, invstd + c0 + c);
+    async_copy<sizeof(A)>(mean + c, m + c0 + c);
+    if (wt != nullptr) async_copy<sizeof(A)>(w + c, wt + c0 + c);
+  }
+
+  // the coefficients into coef, one thread a channel, then one barrier
+  template <int W>
+  __device__ __forceinline__ void coef_of(A (*coef)[W], int ct,
+                                          bool scaled) {
+    const int c = threadIdx.x;
+    if (c < ct) {
+      async_wait();
+      const Bwd<A> k = backward_coef(
+          BwdIn<A>{n[c], g1[c], g2[c], is[c], mean[c], scaled ? w[c] : A(1)},
+          scaled);
+      coef[0][c] = k.mean;
+      coef[1][c] = k.c1;
+      coef[2][c] = k.c2;
+      coef[3][c] = k.scale;
+    }
+    __syncthreads();
+  }
+};
+
+template <typename A, int W, int N>
+__device__ __forceinline__ void read_coef(A (*coef)[W], int first, bool on,
+                                          Bwd<A> (&k)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int c = first + i;
+    k[i] = on ? Bwd<A>{coef[0][c], coef[1][c], coef[2][c], coef[3][c]}
+              : Bwd<A>{A(0), A(0), A(0), A(0)};
+  }
+}
+
+template <typename T, int N>
+__device__ __forceinline__ RawOf<T, N> load_raw(const T* p) {
+  return *reinterpret_cast<const RawOf<T, N>*>(p);
+}
+
+// dx from N values of dy and x, channel i of the N taking k[i] (rows) or
+// all k[0] (planes), stored with one streaming access (st.global.cs:
+// evict first, so that dx does not push dy and x out of L2 while the map
+// is read; the loads keep the default policy, which measured faster)
+template <typename T, int N, bool kPerValue, typename A>
+__device__ __forceinline__ void grad_out(const RawOf<T, N>& rd,
+                                         const RawOf<T, N>& rx,
+                                         const Bwd<A>* k, T* out) {
+  A dv[N], xv[N];
+  unpack<T, N>(rd, dv);
+  unpack<T, N>(rx, xv);
+  RawOf<T, N> raw;
+  T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    narrow(input_grad(dv[i], xv[i], k[kPerValue ? i : 0]), e + i);
+  __stcs(reinterpret_cast<RawOf<T, N>*>(out), raw);
+}
+
+// dx = (invstd * w) * ((dy - g1/n) - (x - mean) * c2).  It sums nothing:
+// each output is its own, so its grid may take any partition (a slice of
+// eight rows or vectors a thread, the card's wave: models/batchnorm.py:
+// _plan).  No ring: every thread issues all its loads of both tensors for
+// kBatch rows (planes: vectors), then computes and stores them; V values
+// a load (16 bytes, or one value where vectors do not fit).  Rows: thread
+// (gy, col) takes channels c0 + col·V … of rows gy, gy + ry, …, each
+// tile's coefficients computed once a block (TileIn) while the first
+// loads are in flight.  Planes: a tile is one channel, whose coefficients
+// every thread computes while its first loads are in flight (a warp's one
+// chain, no barrier).
 template <typename T, int V, bool kRows>
-__global__ void __launch_bounds__(kThreads) bn_grad_apply_kernel(
+__global__ void __launch_bounds__(kThreads, grad_apply_blocks<T>())
+    bn_grad_apply_kernel(
     const T* __restrict__ dy, const T* __restrict__ x, T* __restrict__ dx,
     Geo g, const double* __restrict__ gs, const double* __restrict__ sums,
     const typename AccOf<T>::type* __restrict__ mean,
     const typename AccOf<T>::type* __restrict__ invstd,
     const typename AccOf<T>::type* __restrict__ w) {
   using A = typename AccOf<T>::type;
-  const int s = blockIdx.x;
-  if constexpr (!kRows) {
-    const int c = blockIdx.y;
-    const Bwd<A> k = backward_coef<A>(gs, sums, g.nc, c, mean, invstd, w);
-    planes_slice<V>(g, s, c, [&](long long off) {
-      A dv[V], xv[V];
-      load<T, V>(dy + off, dv);
-      load<T, V>(x + off, xv);
+  constexpr int kBatch = batch_rows<T>();
+  if (kAblateAll) return;
+  const int tid = threadIdx.x;
+  const int tiles = kRows ? (g.nc + g.tw - 1) / g.tw : g.nc;
+  const long long len = kRows ? g.outer : g.outer * g.inner;
+  const long long u0 = min(len, (long long)blockIdx.x * g.span);
+  const long long u1 = min(len, u0 + g.span);
+  for (int t = blockIdx.y; t < tiles; t += gridDim.y) {
+    if constexpr (kRows) {
+      __shared__ A coef[4][kThreads];  // the tile's
+      __shared__ TileIn<A> tin;
+      __syncthreads();  // coef free from the last tile
+      const int c0 = t * g.tw, ct = min(g.tw, g.nc - c0);
+      const int tpr = ct / V, ry = kThreads / tpr;
+      const int gy = tid / tpr, col = tid % tpr;
+      const bool on = gy < ry;
+      tin.copy(g, c0, ct, gs, sums, mean, invstd, w);
+      Bwd<A> k[V];
+      for (long long r0 = u0; r0 < u1; r0 += (long long)kBatch * ry) {
+        RawOf<T, V> rd[kBatch], rx[kBatch];
 #pragma unroll
-      for (int q = 0; q < V; ++q) dv[q] = input_grad(dv[q], xv[q], k);
-      store<T, V>(dx + off, dv);
-    });
-  } else {
-    const int tw = g.tw, ry = blockDim.x / tw;
-    const int tx = threadIdx.x % tw, ty = threadIdx.x / tw;
-    const int col = blockIdx.y * tw + tx;
-    if (col >= g.nc / V) return;
-    Bwd<A> k[V];
+        for (int i = 0; i < kBatch; ++i) {
+          const long long r = r0 + gy + (long long)i * ry;
+          if (on && r < u1) {
+            const long long off = r * g.nc + c0 + col * V;
+            rd[i] = load_raw<T, V>(dy + off);
+            rx[i] = load_raw<T, V>(x + off);
+          }
+        }
+        if (r0 == u0) {
+          tin.coef_of(coef, ct, w != nullptr);
+          read_coef(coef, col * V, on, k);
+        }
 #pragma unroll
-    for (int q = 0; q < V; ++q)
-      k[q] = backward_coef<A>(gs, sums, g.nc, col * V + q, mean, invstd, w);
-    rows_slice(g, s, ty, ry, [&](long long roff) {
-      A dv[V], xv[V];
-      load<T, V>(dy + roff + col * V, dv);
-      load<T, V>(x + roff + col * V, xv);
+        for (int i = 0; i < kBatch; ++i) {
+          const long long r = r0 + gy + (long long)i * ry;
+          if (on && r < u1)
+            grad_out<T, V, true>(rd[i], rx[i], k,
+                                 dx + r * g.nc + c0 + col * V);
+        }
+      }
+    } else {
+      // thread tid's next vector lies at value p of plane o, and a step of
+      // kThreads vectors moves it by (so, sp): walked twice a batch, for
+      // the loads and for the stores, so that no offset is kept
+      const int c0 = t;
+      const BwdIn<A> in = backward_in<A>(gs, sums, g.nc, c0, mean, invstd, w);
+      Bwd<A> k[1];
+      const long long nv = (u1 - u0) / V;
+      const long long first = u0 + (long long)tid * V;
+      const long long hop = (long long)kThreads * V;
+      const long long so = hop / g.inner, sp = hop - so * g.inner;
+      long long o = first / g.inner, p = first - o * g.inner;
+      const long long batch = (long long)kBatch * kThreads;
+      for (long long j0 = 0; j0 < nv; j0 += batch) {
+        RawOf<T, V> rd[kBatch], rx[kBatch];
+        const long long ob = o, pb = p;
 #pragma unroll
-      for (int q = 0; q < V; ++q) dv[q] = input_grad(dv[q], xv[q], k[q]);
-      store<T, V>(dx + roff + col * V, dv);
-    });
+        for (int i = 0; i < kBatch; ++i) {
+          if (j0 + tid + (long long)i * kThreads < nv) {
+            const long long off = (o * g.nc + c0) * g.inner + p;
+            rd[i] = load_raw<T, V>(dy + off);
+            rx[i] = load_raw<T, V>(x + off);
+          }
+          o += so;
+          p += sp;
+          if (p >= g.inner) {
+            p -= g.inner;
+            ++o;
+          }
+        }
+        if (j0 == 0) k[0] = backward_coef(in, w != nullptr);
+        o = ob;
+        p = pb;
+#pragma unroll
+        for (int i = 0; i < kBatch; ++i) {
+          if (j0 + tid + (long long)i * kThreads < nv)
+            grad_out<T, V, false>(rd[i], rx[i], k,
+                                  dx + (o * g.nc + c0) * g.inner + p);
+          o += so;
+          p += sp;
+          if (p >= g.inner) {
+            p -= g.inner;
+            ++o;
+          }
+        }
+      }
+    }
   }
 }
 
-// The launch shape of a geometry; false where an argument is out of range.
-// bn_stats, bn_apply and bn_grad_stats (`first` false): grid (slices,
-// items), clusters of `cluster` along x, tiles of at most 512 channels, a
-// multiple of the vector, that 256 threads cover (two channels a thread
-// through the ring, a vector's without); bn_grad_apply (`first`): its first
-// design's grid (slices, tiles or channels), g.tw then vector columns
-bool shape_of(Geo& g, bool rows, int width, int mode, bool first,
-              dim3& grid, dim3& block) {
+// The launch shape of a geometry; false where an argument is out of range:
+// grid (slices, items), clusters of `cluster` along x, rows' tiles of at
+// most 512 channels through the ring (256 of float64 values, and without
+// the ring), a multiple of the vector, that 256 threads cover (two
+// channels a thread through the ring of a reduction, a vector's
+// elsewhere)
+bool shape_of(const Geo& g, bool rows, int width, int mode, dim3& grid) {
   const bool vec = mode != 0;
   const int v = vec ? 16 / width : 1;
   if (g.slices < 1 || g.nc < 1 || g.span < 1) return false;
-  block = dim3(kThreads);
-  if (first) {
-    if (rows) {
-      if (g.tw % v != 0) return false;
-      g.tw /= v;
-      int ncol = g.nc / v;
-      if (g.tw < 1 || g.tw > 32 || ncol * v != g.nc) return false;
-      int tiles = (ncol + g.tw - 1) / g.tw;
-      if (tiles > 65535) return false;
-      grid = dim3(g.slices, tiles);
-      block = dim3(g.tw * (kThreads / g.tw));
-    } else {
-      if (g.nc > 65535 || g.inner % v != 0 || g.span % v != 0 ||
-          g.span / v > 0x7fffffffLL)
-        return false;
-      grid = dim3(g.slices, g.nc);
-    }
-    return true;
-  }
   if (g.cluster < 1 || g.cluster > kMaxCluster || g.slices % g.cluster != 0 ||
       g.items < 1 || g.items > 65535)
     return false;
   if (rows) {
     const int per = mode == 1 ? pairs(width) : v;
-    if (g.tw < 1 || g.tw > 2 * kThreads || g.tw > kThreads * per ||
+    const int most = width == 8 || mode != 1 ? kThreads : 2 * kThreads;
+    if (g.tw < 1 || g.tw > most || g.tw > kThreads * per ||
         g.tw % v != 0 || g.nc % v != 0 || g.inner != 1)
       return false;
   } else {
@@ -1235,18 +1420,22 @@ struct GradStatsLaunch {
   }
 };
 
+// bn_grad_apply has no ring: mode 1 is refused
 struct GradApplyLaunch {
   template <typename T, int V, bool R, bool kRing>
-  static void run(cudaError_t* err, dim3 grid, dim3 block, cudaStream_t st,
+  static void run(cudaError_t* err, dim3 grid, int cluster, cudaStream_t st,
                   const void* dy, const void* x, void* dx, Geo g,
                   const double* gs, const double* sums, const void* mean,
                   const void* invstd, const void* w) {
     using A = typename AccOf<T>::type;
-    bn_grad_apply_kernel<T, V, R><<<grid, block, 0, st>>>(
-        static_cast<const T*>(dy), static_cast<const T*>(x),
-        static_cast<T*>(dx), g, gs, sums, static_cast<const A*>(mean),
-        static_cast<const A*>(invstd), static_cast<const A*>(w));
-    *err = cudaGetLastError();
+    if constexpr (kRing)
+      *err = cudaErrorInvalidValue;
+    else
+      *err = launch(bn_grad_apply_kernel<T, V, R>, grid, cluster, st,
+                    static_cast<const T*>(dy), static_cast<const T*>(x),
+                    static_cast<T*>(dx), g, gs, sums,
+                    static_cast<const A*>(mean),
+                    static_cast<const A*>(invstd), static_cast<const A*>(w));
   }
 };
 
@@ -1291,8 +1480,11 @@ struct Occupancy {
                             clusters);
         break;
       case 3:
-        *err = occupancy_of(bn_grad_apply_kernel<T, V, R>, cluster, blocks,
-                            clusters);
+        if constexpr (kRing)
+          *err = cudaErrorInvalidValue;
+        else
+          *err = occupancy_of(bn_grad_apply_kernel<T, V, R>, cluster, blocks,
+                              clusters);
         break;
       default:
         *err = cudaErrorInvalidValue;
@@ -1309,19 +1501,17 @@ int dtype_width(int dtype) {
 // The geometry arguments of every entry point: rows (0 planes, 1 rows),
 // outer, inner, span, channels, slices, tw, mode (0 one value at a time;
 // 16-byte accesses, 1 through the ring of bulk copies, 2 straight from
-// device memory; bn_grad_apply: vectors where not 0), cluster, items
-// (models/batchnorm.py:_plan)
+// device memory), cluster, items (models/batchnorm.py:_plan)
 #define STP_BN_GEO                                                       \
   int rows, long long outer, long long inner, long long span, int nc,    \
       int slices, int tw, int mode, int cluster, int items
 
-#define STP_BN_SHAPE(first)                                              \
+#define STP_BN_SHAPE                                                     \
   Geo g = geo_of(outer, inner, span, nc, slices, tw, cluster, items);    \
   int width = dtype_width(dtype);                                        \
   if (width == 0) return (int)cudaErrorInvalidValue;                     \
-  dim3 grid, block;                                                      \
-  if (mode < 0 || mode > 2 ||                                            \
-      !shape_of(g, rows != 0, width, mode, first, grid, block))          \
+  dim3 grid;                                                             \
+  if (mode < 0 || mode > 2 || !shape_of(g, rows != 0, width, mode, grid)) \
     return (int)cudaErrorInvalidValue;                                   \
   cudaStream_t st = (cudaStream_t)stream;                                \
   cudaError_t err = cudaSuccess;
@@ -1342,7 +1532,7 @@ extern "C" int stp_bn_occupancy(int kernel, int dtype, int rows, int mode,
 extern "C" int stp_bn_stats(const void* x, int dtype, STP_BN_GEO,
                             double* partials, unsigned* tickets, double* out,
                             void* stream) {
-  STP_BN_SHAPE(false)
+  STP_BN_SHAPE
   dispatch<StatsLaunch>(dtype, mode, rows != 0, &err, grid, g.cluster,
                         st, x, g, partials, tickets, out);
   return (int)err;
@@ -1353,7 +1543,7 @@ extern "C" int stp_bn_apply(const void* x, void* y, int dtype, STP_BN_GEO,
                             const void* rm, const void* rv, double momentum,
                             double eps, void* mean_out, void* invstd_out,
                             void* rm_out, void* rv_out, void* stream) {
-  STP_BN_SHAPE(false)
+  STP_BN_SHAPE
   dispatch<ApplyLaunch>(dtype, mode, rows != 0, &err, grid, 1, st, x, y,
                         g, sums, w, b, rm, rv, momentum, eps, mean_out,
                         invstd_out, rm_out, rv_out);
@@ -1365,7 +1555,7 @@ extern "C" int stp_bn_grad_stats(const void* dy, const void* x, int dtype,
                                  const void* invstd, double* partials,
                                  unsigned* tickets, double* out, void* dw,
                                  void* db, void* stream) {
-  STP_BN_SHAPE(false)
+  STP_BN_SHAPE
   dispatch<GradStatsLaunch>(dtype, mode, rows != 0, &err, grid,
                             g.cluster, st, dy, x, g, mean, invstd, partials,
                             tickets, out, dw, db);
@@ -1377,8 +1567,8 @@ extern "C" int stp_bn_grad_apply(const void* dy, const void* x, void* dx,
                                  const double* sums, const void* mean,
                                  const void* invstd, const void* w,
                                  void* stream) {
-  STP_BN_SHAPE(true)
-  dispatch<GradApplyLaunch>(dtype, mode, rows != 0, &err, grid, block,
+  STP_BN_SHAPE
+  dispatch<GradApplyLaunch>(dtype, mode, rows != 0, &err, grid, g.cluster,
                             st, dy, x, dx, g, gs, sums, mean, invstd, w);
   return (int)err;
 }

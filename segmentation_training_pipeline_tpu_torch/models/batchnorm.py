@@ -58,28 +58,33 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2,
 _THREADS = 256
 # blocks of a reduction's cluster (the portable size)
 _CLUSTER = 8
-# the least bytes a block of bn_stats, bn_apply or bn_grad_stats moves
+# the least bytes a block moves (the ring and one value at a time)
 _SLICE_BYTES = 32 * 1024
 # the most rounds of loads a plan leaves the last cluster's partial sums
 _TAIL_ROUNDS = 2
-# bn_grad_apply's blocks an SM aimed at (its first design)
-_BLOCKS_PER_SM = 4
 # the kernels' codes in ``stp_bn_occupancy`` and the tensors each streams
-_KERNEL_CODES = {"bn_stats": 0, "bn_apply": 1, "bn_grad_stats": 2}
-_TENSORS = {"bn_stats": 1, "bn_apply": 2, "bn_grad_stats": 2}
+_KERNELS = ("bn_stats", "bn_apply", "bn_grad_stats", "bn_grad_apply")
+_KERNEL_CODES = {k: i for i, k in enumerate(_KERNELS)}
+_TENSORS = {"bn_stats": 1, "bn_apply": 2, "bn_grad_stats": 2,
+            "bn_grad_apply": 3}
+# the kernels that add across blocks (in clusters, then partial sums)
+_REDUCTIONS = ("bn_stats", "bn_grad_stats")
 # the geometry's mode: one value at a time, 16-byte vectors through the
 # ring of bulk copies, 16-byte loads straight from device memory
 _PER_VALUE, _RING, _DIRECT = 0, 1, 2
 # channels-last maps of at most these bytes (a tensor) take the direct
-# mode: their blocks' few stages would not pay for the ring
+# mode: their blocks' few stages would not pay for the ring (bn_grad_apply
+# has no ring: direct loads beat it on every map, examples/batchnorm_modes.py)
 _DIRECT_BYTES = {"bn_stats": 8 << 20, "bn_apply": 16 << 20,
                  "bn_grad_stats": 8 << 20}
-# the direct mode's tile (channels) and rows a thread
+# the direct mode's tile (channels) and rows (bn_grad_apply's planes:
+# vectors) a thread
 _DIRECT_TILE, _DIRECT_ROWS = 64, 8
 # the partition's card, so that a sum's order depends on the shape alone:
 # the clusters of 1, 2, 4 and 8 blocks an H100 80GB HBM3 holds at once of
 # each kernel's ring instantiations (``stp_bn_occupancy``: 4 resident
-# blocks an SM of 132)
+# blocks an SM of 132); bn_grad_apply, which sums nothing, takes the wave
+# of the card it runs on
 _H100 = {"bn_stats": (528, 264, 124, 62), "bn_apply": (528,),
          "bn_grad_stats": (528, 264, 124, 62)}
 # (device index, stream) → the reductions' scratch (``_scratch``)
@@ -197,12 +202,15 @@ def _like(t: Tensor, x: Tensor) -> Tensor:
 def _mode(kernel: str, rows: bool, outer: int, c: int, inner: int,
           esize: int, vec: bool) -> int:
     """How ``kernel`` reads its map: one value at a time where 16-byte
-    accesses do not fit (``vec`` False); else the direct mode on a small
+    accesses do not fit (``vec`` False); else the direct mode for
+    ``bn_grad_apply`` on every map, and for the others on a small
     channels-last map (``_DIRECT_BYTES``) and on planes of at least four
     vectors a thread (``bn_apply``, ``bn_grad_stats``), the ring
     elsewhere."""
     if not vec:
         return _PER_VALUE
+    if kernel == "bn_grad_apply":
+        return _DIRECT
     if rows:
         small = outer * c * esize <= _DIRECT_BYTES[kernel]
         return _DIRECT if small else _RING
@@ -213,17 +221,18 @@ def _mode(kernel: str, rows: bool, outer: int, c: int, inner: int,
 def _plan(kernel: str, rows: bool, outer: int, c: int, inner: int,
           esize: int, mode: int, card: Card):
     """(span, slices, tile width, cluster, items) of a ``kernel`` launch
-    (``bn_stats``, ``bn_apply`` or ``bn_grad_stats``) in ``mode``
-    (``_mode``) over ``outer`` × C × ``inner`` values of ``esize`` bytes,
-    on ``card``.
+    in ``mode`` (``_mode``) over ``outer`` × C × ``inner`` values of
+    ``esize`` bytes, on ``card``.
 
     The partition, and with it each sum's order, comes from the shape
-    alone (``_partition``); the card sets only ``items``, the tiles on
-    the grid at once (grid y; where the tiles outnumber a wave each block
-    walks on by ``items``): as many as one wave of the instantiation's
-    resident blocks (of its clusters) holds."""
-    span, slices, tw, cluster = _partition(kernel, rows, outer, c, inner,
-                                           esize, mode)
+    alone (``_partition`` on ``_H100``'s wave), but for ``bn_grad_apply``,
+    which sums nothing and takes ``card``'s wave; the card sets ``items``,
+    the tiles on the grid at once (grid y; where the tiles outnumber a
+    wave each block walks on by ``items``): as many as one wave of the
+    instantiation's resident blocks (of its clusters) holds."""
+    span, slices, tw, cluster = _partition(
+        kernel, rows, outer, c, inner, esize, mode,
+        _H100.get(kernel, card.clusters))
     tiles = -(-c // tw) if rows else c
     wave = card.clusters[cluster.bit_length() - 1] * cluster
     items = min(tiles, max(1, wave // slices), 65535)
@@ -231,21 +240,22 @@ def _plan(kernel: str, rows: bool, outer: int, c: int, inner: int,
 
 
 def _partition(kernel: str, rows: bool, outer: int, c: int, inner: int,
-               esize: int, mode: int):
+               esize: int, mode: int, counts: Tuple[int, ...]):
     """(span, slices, tile width, cluster): a tile's slices and their
-    clusters, from the shape alone.
+    clusters, from the shape and ``counts`` (the clusters of 1, 2, 4, …
+    blocks a wave holds) alone.
 
     Rows: tiles of ``tw`` channels; planes: one channel a tile.  Direct
     mode: tiles of ``_DIRECT_TILE`` channels, ``_DIRECT_ROWS`` rows a
-    thread, no clusters (rows); a channel in 8 slices (planes).  Ring and
-    per-value modes: tiles of the whole row up to 512 channels (256 in
+    thread, no clusters (rows); a channel in 8 slices (planes), or for
+    ``bn_grad_apply`` in slices of ``_DIRECT_ROWS`` vectors a thread (one
+    batch of loads a block, as its rows).  Ring and per-value modes: tiles of the whole row up to 512 channels (256 in
     float64 or one value at a time); each of a tile's ``slices`` blocks
     moves ``_SLICE_BYTES`` or more: ``span`` rows (rows) or values
     (planes, a multiple of the 16-byte vector; through the ring a
     channel's planes are dealt out to its blocks a ring stage at a time,
     ``stages_of`` in the source).  The blocks of all tiles fill at most one
-    wave of an H100 80GB HBM3 (``_H100``, the clusters of each size it
-    holds at once), in whole clusters along the slices: ``slices`` is a
+    wave (``counts``), in whole clusters along the slices: ``slices`` is a
     multiple of ``cluster`` (trailing blocks may hold nothing).  Of the
     cluster sizes that give every tile a cluster, the plan takes the one
     with the most blocks whose last cluster adds the partials in at most
@@ -259,15 +269,18 @@ def _partition(kernel: str, rows: bool, outer: int, c: int, inner: int,
             tw = min(c, _DIRECT_TILE)
             span = _DIRECT_ROWS * (_THREADS // (tw // v))
             return span, -(-outer // span), tw, 1
-        span = -(-(-(-(outer * inner) // 8)) // v) * v
-        return span, -(-(outer * inner) // span), 0, 1
+        length = outer * inner
+        if kernel == "bn_grad_apply":
+            span = min(_DIRECT_ROWS * _THREADS * v, -(-length // v) * v)
+        else:
+            span = -(-(-(-length // 8)) // v) * v
+        return span, -(-length // span), 0, 1
     if rows:
         tw = min(c, _THREADS * (2 if mode == _RING and esize <= 4 else 1))
         tiles, length, unit = -(-c // tw), outer, tw * esize
     else:
         tw, tiles, length, unit = 0, c, outer * inner, esize
     want = -(-length * unit * _TENSORS[kernel] // _SLICE_BYTES)
-    counts = _H100[kernel]
     options = []
     for i, count in enumerate(counts):
         cluster = 1 << i
@@ -297,28 +310,6 @@ def _tail_rounds(clusters: int, channels: int) -> int:
     return -(-(-(-clusters // parts)) // 8)
 
 
-def _plan_grad_apply(rows: bool, outer: int, c: int, inner: int, v: int,
-                     sms: int):
-    """(span, slices, tile width in channels) of a ``bn_grad_apply``
-    launch (its first design): rows, a tile of ``tw // v`` vector columns
-    and 256 // (tw // v) rows at a time, each thread eight rows or more;
-    planes, ``span`` values (a multiple of v) of one channel a block, each
-    thread four vectors or more; ``_BLOCKS_PER_SM`` blocks on each SM
-    aimed at."""
-    target = _BLOCKS_PER_SM * sms
-    if rows:
-        tw = min(c // v, 32)
-        tiles = -(-(c // v) // tw)
-        ry = _THREADS // tw
-        slices = max(1, min(-(-target // tiles), -(-outer // (8 * ry))))
-        span = -(-outer // slices)
-        return span, -(-outer // span), tw * v
-    m = outer * inner
-    slices = max(1, min(-(-target // c), -(-m // (4 * _THREADS * v))))
-    span = -(-(-(-m // slices)) // v) * v
-    return span, -(-m // span), 0
-
-
 def _occupancy():
     return K.function("batchnorm.cu", "stp_bn_occupancy",
                       [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)
@@ -334,7 +325,7 @@ def _card(device: torch.device, kernel: str, code: int, rows: bool,
     card = _CARDS.get(key)
     if card is None:
         sms = torch.cuda.get_device_properties(index).multi_processor_count
-        cluster = 1 if kernel == "bn_apply" else _CLUSTER
+        cluster = _CLUSTER if kernel in _REDUCTIONS else 1
         counts = []
         blocks, clusters = ctypes.c_int(), ctypes.c_int()
         size = 1
@@ -358,7 +349,8 @@ def _geometry(x: Tensor, *others: Tensor):
     shape beside it, on its card; cached by type, shape, strides and
     whether every pointer is 16-byte aligned.  The device stays out of the
     key (it costs every call a device object): the first card's tiles at
-    once serve another card too, as they would any card."""
+    once (and ``bn_grad_apply``'s slices) serve another card too, as they
+    would any card."""
     ptrs = x.data_ptr()
     for t in others:
         ptrs |= t.data_ptr()
@@ -385,24 +377,17 @@ def _new_geometry(x: Tensor, aligned: bool,
     b, c, h, w = x.shape
     code, esize, rows = _DTYPES[x.dtype], x.element_size(), _rows(x)
     outer, inner = (b * h * w, 1) if rows else (b, h * w)
-    v = 16 // esize
-    vec = aligned and (c if rows else inner) % v == 0
+    vec = aligned and (c if rows else inner) % (16 // esize) == 0
     head = (code, int(rows), outer, inner)
     geos, parts = [], 1
-    for kernel in ("bn_stats", "bn_apply", "bn_grad_stats"):
+    for kernel in _KERNELS:
         mode = _mode(kernel, rows, outer, c, inner, esize, vec)
         span, slices, tw, cluster, items = _plan(
             kernel, rows, outer, c, inner, esize, mode,
             card_of(kernel, code, rows, mode))
         geos.append(head + (span, c, slices, tw, mode, cluster, items))
-        if kernel != "bn_apply":
+        if kernel in _REDUCTIONS:
             parts = max(parts, slices // cluster)
-    sms = card_of("bn_stats", code, rows, geos[0][8]).sms
-    span, slices, tw = _plan_grad_apply(rows, outer, c, inner,
-                                        v if vec else 1, sms)
-    tiles = -(-(c // (v if vec else 1)) // (tw // (v if vec else 1))) \
-        if rows else c
-    geos.append(head + (span, c, slices, tw, int(vec), 1, tiles))
     return (*geos, parts)
 
 

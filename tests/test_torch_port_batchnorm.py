@@ -224,10 +224,12 @@ def test_a_tensor_off_the_cpu_never_takes_the_plain_version():
 # them there), per kernel, and a smaller card's (fewer SMs and blocks)
 CARDS = {"bn_stats": BN.Card(132, 4, 8, (528, 264, 124, 62)),
          "bn_apply": BN.Card(132, 4, 1, (528,)),
-         "bn_grad_stats": BN.Card(132, 4, 8, (528, 264, 124, 62))}
+         "bn_grad_stats": BN.Card(132, 4, 8, (528, 264, 124, 62)),
+         "bn_grad_apply": BN.Card(132, 2, 1, (264,))}
 SMALL_CARDS = {"bn_stats": BN.Card(114, 3, 8, (342, 171, 84, 42)),
                "bn_apply": BN.Card(114, 3, 1, (342,)),
-               "bn_grad_stats": BN.Card(114, 3, 8, (342, 171, 84, 42))}
+               "bn_grad_stats": BN.Card(114, 3, 8, (342, 171, 84, 42)),
+               "bn_grad_apply": BN.Card(114, 2, 1, (228,))}
 GEO_KERNELS = ("bn_stats", "bn_apply", "bn_grad_stats", "bn_grad_apply")
 GEO_CASES = [
     ((16, 64, 256, 256), "channels_last", torch.bfloat16),
@@ -254,6 +256,9 @@ GEO_CASES = [
     ((16, 512, 16, 16), "channels_last", torch.bfloat16),
     ((1, 128, 200, 200), "channels_last", torch.bfloat16),
     ((1, 16, 256, 256), "nchw", torch.bfloat16),
+    # bn_grad_apply's direct tiles outnumber its grid rows (7 tiles of 64
+    # channels, the last of 16, on 6 rows): blocks walk on
+    ((16, 400, 32, 32), "channels_last", torch.bfloat16),
 ]
 
 
@@ -270,14 +275,13 @@ def _ids(v):
 
 @pytest.mark.parametrize("shape,layout,dtype", GEO_CASES, ids=_ids)
 def test_launch_geometry_covers_every_value_once(shape, layout, dtype):
-    """The kernels' grids (``_plan`` and ``_plan_grad_apply``, from
-    ``_new_geometry``'s layout) on the train shapes and the edges: the
-    slices cover every row or value of a tile once, in bulk pieces or
-    vectors that never straddle a plane or a row's channels; rows' tiles
-    hold whole vectors and at most 512 channels through the ring (256 in
-    float64), 64 in the direct mode, 256 one value at a time, and
-    bn_grad_apply keeps its first design's tiles of at most 32 vector
-    columns, at most 65535 of them or of channels."""
+    """The four kernels' grids (``_plan``, from ``_new_geometry``'s
+    layout) on the train shapes and the edges: the slices cover every row
+    or value of a tile once, in bulk pieces or vectors that never straddle
+    a plane or a row's channels; rows' tiles, in channels, hold whole
+    vectors and at most 512 channels through the ring (256 in float64),
+    64 in the direct mode, 256 one value at a time; each kernel reads its
+    map in the mode ``_mode`` gives it."""
     x, geos = _geometries(shape, layout, dtype)
     b, c, h, w = shape
     v = 16 // x.element_size()
@@ -297,15 +301,6 @@ def test_launch_geometry_covers_every_value_once(shape, layout, dtype):
             length = outer * inner
         filled = -(-length // span)
         assert (filled - 1) * span < length <= filled * span
-        if kernel == "bn_grad_apply":
-            assert slices == filled and cluster == 1
-            if rows:
-                assert tw % vv == 0 and 1 <= tw // vv <= 32
-                assert tw // vv == min(c // vv, 32)
-                assert items == -(-(c // vv) // (tw // vv)) <= 65535
-            else:
-                assert tw == 0 and items == c <= 65535
-            continue
         assert slices % cluster == 0 and slices - filled < cluster
         assert mode == BN._mode(kernel, rows, outer, c, inner,
                                 x.element_size(), (c if rows else inner)
@@ -322,17 +317,18 @@ def test_launch_geometry_covers_every_value_once(shape, layout, dtype):
 @pytest.mark.parametrize("shape,layout,dtype", GEO_CASES, ids=_ids)
 def test_cluster_partition_covers_every_slice_once_in_rank_order(
         shape, layout, dtype):
-    """The reductions' and bn_apply's grids: block (s, y) of a cluster of
-    ``cluster`` blocks along x is rank s % cluster of cluster s //
-    cluster, and takes slice s of tiles y, y + items, …; the slices of a
-    tile, in block order (clusters in order, ranks in order), cover its
-    rows or values once and in order, every tile is walked by one grid
-    row, and no axis, cluster or wave exceeds the card: at most 8 blocks a
-    cluster (portable), 65535 grid rows, one wave of resident blocks
-    (clusters) on the card, and partial sums for every cluster of a
-    tile."""
+    """The four kernels' grids: block (s, y) of a cluster of ``cluster``
+    blocks along x is rank s % cluster of cluster s // cluster, and takes
+    slice s of tiles y, y + items, …; the slices of a tile, in block order
+    (clusters in order, ranks in order), cover its rows or values once and
+    in order, every tile is walked by one grid row, and no axis, cluster
+    or wave exceeds the card: at most 8 blocks a cluster (portable; 1 for
+    bn_apply and bn_grad_apply), 65535 grid rows, one wave of resident
+    blocks (clusters) on the card (bn_grad_apply: where one tile's
+    slices, each a batch of loads, fit in one; else one grid row), and
+    partial sums for every cluster of a reduction's tile."""
     x, geos = _geometries(shape, layout, dtype)
-    for kernel, geo in zip(GEO_KERNELS[:3], geos[:3]):
+    for kernel, geo in zip(GEO_KERNELS, geos[:4]):
         (_, rows, outer, inner, span, c, slices, tw, mode, cluster,
          items) = geo
         card = CARDS[kernel]
@@ -340,8 +336,11 @@ def test_cluster_partition_covers_every_slice_once_in_rank_order(
         assert mode != BN._DIRECT or cluster == 1
         assert 1 <= items <= 65535 and slices % cluster == 0
         # one wave: the clusters of this size the card holds at once
-        assert slices * items <= cluster * card.clusters[
-            cluster.bit_length() - 1]
+        wave = cluster * card.clusters[cluster.bit_length() - 1]
+        if kernel == "bn_grad_apply" and slices > wave:
+            assert items == 1
+        else:
+            assert slices * items <= wave
         length = outer if rows else outer * inner
         tiles = -(-c // tw) if rows else c
         walked = sorted(t for y in range(items)
@@ -355,8 +354,10 @@ def test_cluster_partition_covers_every_slice_once_in_rank_order(
                 assert u0 == covered
                 covered = u1
         assert covered == length
-        if kernel != "bn_apply":
+        if kernel in BN._REDUCTIONS:
             assert geos[4] >= slices // cluster
+        else:
+            assert cluster == 1
         if mode == BN._RING and not rows:
             _check_plane_stages(x, inner, length, slices,
                                 2 if kernel != "bn_stats" else 1)
@@ -384,18 +385,18 @@ def test_partition_depends_on_the_shape_alone(shape, layout, dtype):
 # the train step's maps (Unet-resnet34 512² B16, bf16, channels-last) and
 # the phase's other cases: the mode each kernel reads its map in
 MODES = [
-    ((16, 64, 256, 256), "channels_last", torch.bfloat16, "RRR"),
-    ((16, 64, 128, 128), "channels_last", torch.bfloat16, "RRR"),
-    ((16, 128, 64, 64), "channels_last", torch.bfloat16, "RDR"),
-    ((16, 256, 32, 32), "channels_last", torch.bfloat16, "DDD"),
-    ((16, 512, 16, 16), "channels_last", torch.bfloat16, "DDD"),
-    ((16, 32, 256, 256), "channels_last", torch.bfloat16, "RRR"),
-    ((16, 16, 512, 512), "channels_last", torch.bfloat16, "RRR"),
-    ((16, 512, 16, 16), "channels_last", torch.float32, "DDD"),
-    ((16, 512, 16, 16), "nchw", torch.float32, "RRR"),
-    ((16, 64, 256, 256), "nchw", torch.bfloat16, "RDD"),
-    ((16, 64, 256, 256), "channels_last", torch.float32, "RRR"),
-    ((2, 3, 16, 16), "channels_last", torch.bfloat16, "VVV"),
+    ((16, 64, 256, 256), "channels_last", torch.bfloat16, "RRRD"),
+    ((16, 64, 128, 128), "channels_last", torch.bfloat16, "RRRD"),
+    ((16, 128, 64, 64), "channels_last", torch.bfloat16, "RDRD"),
+    ((16, 256, 32, 32), "channels_last", torch.bfloat16, "DDDD"),
+    ((16, 512, 16, 16), "channels_last", torch.bfloat16, "DDDD"),
+    ((16, 32, 256, 256), "channels_last", torch.bfloat16, "RRRD"),
+    ((16, 16, 512, 512), "channels_last", torch.bfloat16, "RRRD"),
+    ((16, 512, 16, 16), "channels_last", torch.float32, "DDDD"),
+    ((16, 512, 16, 16), "nchw", torch.float32, "RRRD"),
+    ((16, 64, 256, 256), "nchw", torch.bfloat16, "RDDD"),
+    ((16, 64, 256, 256), "channels_last", torch.float32, "RRRD"),
+    ((2, 3, 16, 16), "channels_last", torch.bfloat16, "VVVV"),
 ]
 
 
@@ -405,10 +406,26 @@ def test_small_maps_and_wide_planes_take_the_direct_mode(shape, layout,
     """``bn_stats``, ``bn_apply`` and ``bn_grad_stats`` read a map
     through the ring (R) where it is large, with 16-byte loads straight
     from device memory (D) where a channels-last map is small or a plane
-    wide, one value at a time (V) where vectors do not fit."""
+    wide, ``bn_grad_apply`` with direct loads on every map; all four one
+    value at a time (V) where vectors do not fit."""
     _, geos = _geometries(shape, layout, dtype)
     code = {BN._RING: "R", BN._DIRECT: "D", BN._PER_VALUE: "V"}
-    assert "".join(code[g[8]] for g in geos[:3]) == modes
+    assert "".join(code[g[8]] for g in geos[:4]) == modes
+
+
+def test_bn_grad_apply_blocks_walk_on_past_a_wave():
+    """Where ``bn_grad_apply``'s tiles outnumber the grid rows one wave
+    holds, its blocks walk on (fewer ``items`` than tiles, each tile
+    walked by one grid row), the last tile ragged, the grid one wave."""
+    _, geos = _geometries((16, 400, 32, 32), "channels_last",
+                          torch.bfloat16)
+    _, rows, outer, _, span, c, slices, tw, mode, cluster, items = geos[3]
+    tiles = -(-c // tw)
+    assert rows and mode == BN._DIRECT and cluster == 1 and c % tw != 0
+    assert items < tiles
+    assert slices * items <= CARDS["bn_grad_apply"].clusters[0]
+    assert sorted(t for y in range(items) for t in range(y, tiles, items)) \
+        == list(range(tiles))
 
 
 def _check_plane_stages(x, inner, length, slices, tensors):

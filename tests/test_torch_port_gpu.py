@@ -442,6 +442,11 @@ def _ulps_apart(a, b):
     ((2, 3, 16, 16), torch.bfloat16, "channels_last", True),  # 6-byte rows
     ((4, 64, 32, 32), torch.bfloat16, "channels_last+2", True),  # off 16 B
     ((4, 64, 32, 32), torch.float32, "nchw+4", False),   # off 16 bytes
+    # bn_grad_apply's ring on rows and on planes, its direct tiles walking
+    # on past a wave with a ragged last tile
+    ((16, 64, 128, 128), torch.bfloat16, "channels_last", True),
+    ((8, 96, 24, 24), torch.bfloat16, "nchw", False),
+    ((16, 400, 32, 32), torch.bfloat16, "channels_last", True),
 ], ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
 def test_batchnorm_kernels_match_their_plain_versions(card, shape, dtype,
                                                       layout, scale):
@@ -454,7 +459,9 @@ def test_batchnorm_kernels_match_their_plain_versions(card, shape, dtype,
     launches bit-identical, one launch counted each.  The cases also hold
     the redesigned reductions' clusters (a cluster with blocks past the
     map, one cluster a tile, tiles narrower than a row) and maps one value
-    off 16-byte alignment (``+2``, ``+4`` bytes: one value at a time)."""
+    off 16-byte alignment (``+2``, ``+4`` bytes: one value at a time),
+    and each of bn_grad_apply's modes (the ring, direct loads, one value
+    at a time) and its blocks walking on past a wave."""
     from segmentation_training_pipeline_tpu_torch.models import (
         batchnorm as BN)
 
@@ -505,6 +512,7 @@ def test_batchnorm_kernels_match_their_plain_versions(card, shape, dtype,
     # the reductions' order depends on the shape alone
     assert torch.equal(BN.bn_stats(x), sums)
     assert torch.equal(BN.bn_grad_stats(dy, x, mean, invstd, w)[0], gs)
+    assert torch.equal(BN.bn_grad_apply(dy, x, gs, sums, mean, invstd, w), dx)
 
 
 def test_batchnorm_layer_on_the_card_matches_the_cpu(card):

@@ -50,7 +50,8 @@ SOURCES = sorted(PKG.rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "compare_kernels.py",
     ROOT / "examples" / "accuracy_evidence_torch.py",
     ROOT / "examples" / "accuracy_gap_torch.py",
-    ROOT / "examples" / "photo_block_ab.py"]
+    ROOT / "examples" / "photo_block_ab.py",
+    ROOT / "examples" / "batchnorm_modes.py"]
 PORT_MODULES = sorted(
     ".".join(p.relative_to(ROOT).with_suffix("").parts).replace(
         ".__init__", "") for p in PKG.rglob("*.py"))
