@@ -9,9 +9,10 @@ line with its seconds; any failure raises and the script exits non-zero:
 
   1. device: ``nvidia-smi`` name and power limit, torch, capability, the
      host's CPU count (``nproc``, the decode pool's default threads),
-     whether ``cv2`` and ``msgpack`` import (the serve phase needs
-     neither), and whether the system OpenCV C++ headers and libraries
-     are there (a throwaway ``g++`` link);
+     whether ``cv2``, ``msgpack`` and ``h5py`` import (the serve phase
+     needs none of them, the Keras legs of ``pretrained`` no ``h5py``),
+     and whether the system OpenCV C++ headers and libraries are there (a
+     throwaway ``g++`` link);
   2. build: compile the CUDA kernels from ``csrc/`` (parallel ``nvcc``);
   3. reference: on a small input, the augmentation with the kernels on
      the card against the plain versions on the CPU (same draws), and the
@@ -124,20 +125,33 @@ line with its seconds; any failure raises and the script exits non-zero:
      to 2: the JAX CSV columns, a ``done`` checkpoint, no kernel launch,
      then ``cfg.load`` and ``predict_all_to_dir`` writing class-index
      masks in [0, 7]; train img/s, the epoch split and peak memory;
-  12b. pretrained: ``encoder_weights: imagenet`` from a temporary
+  12b. pretrained: ``encoder_weights`` from a temporary
      ``STP_PRETRAINED_DIR`` (``STP_REQUIRE_PRETRAINED`` set): a
      torchvision-named resnet34 state dict written from the seed with
      ``torch.save`` loads into Unet-resnet34, whose encoder on the card
      equals the file bit for bit, and its ``.npz`` export loads to the same
-     tensors; with ``h5py`` (its presence is on the device line), a
-     Keras-named preact resnet34 ``.h5`` makes the factory build
-     ``keras-preact`` and loads bit for bit; then 10 bf16 train steps at
-     512² B16 from the ``.pt`` under ``GEO_BLOCK`` (the geometric entries
-     of ``examples/kitchen_sink.yaml``, its fixed sizes scaled to 512²),
-     which takes the exact gather (K far above 64): every X, Y or elastic
-     launch of the first step held bit for bit (none on that route), the
-     route printed, a falling loss, img/s, peak memory, and three profiled
-     steps for the device's busy and idle time;
+     tensors; then 10 bf16 train steps at 512² B16 from the ``.pt`` under
+     ``GEO_BLOCK`` (the geometric entries of ``examples/kitchen_sink.yaml``,
+     its fixed sizes scaled to 512²), which takes the exact gather (K far
+     above 64): every X, Y or elastic launch of the first step held bit for
+     bit (none on that route), the route printed, a falling loss, img/s,
+     peak memory, and three profiled steps for the device's busy and idle
+     time.  Then the Keras legs, always run: each ``.h5`` is written from
+     the seed by ``write_h5`` (no ``h5py``, which the card machine lacks:
+     ``imports`` on the device line) and read by the port's own HDF5
+     reader.  ``pretrained_h5``: a classification_models preact
+     ``resnet34.h5`` under ``imagenet`` makes the factory build
+     ``keras-preact``, every encoder tensor on the card equals the file bit
+     for bit, and the keras-preact Unet trains 10 bf16 steps at 512² B16
+     under the config-2 block (X, Y and elastic once a step, held bit for
+     bit on the first step; a falling loss, img/s, peak memory);
+     ``pretrained_deeplab``: a bonlime full-model ``xception_aligned.h5``
+     (``model_weights``, a ~49 KB ``model_config``, an ``optimizer_weights``
+     group the reader skips) under ``pascal_voc`` loads DeepLabV3's
+     encoder, decoder and head bit for bit, then 3 steps with a finite
+     loss; ``pretrained_load``: each file's ``load_into_model`` seconds
+     and bytes beside the ``.pt``'s; ``h5py`` must stay out of
+     ``sys.modules``;
   12c. geo_paths: each geometric name alone through ``Augmentation.apply``
      at 512² B16, Rot90 also on a 384×512 frame, two field blocks with
      K ≤ 64 and ``GEO_BLOCK``: the route, the block's ms (CUDA events,
@@ -260,6 +274,7 @@ import os
 import shutil
 import signal
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -776,7 +791,7 @@ def _opencv_probe() -> dict:
 
 def _imports(module: str) -> bool:
     """Whether ``module`` imports here (in a child process, so that this
-    one stays without it: the serve phase needs neither)."""
+    one stays without it)."""
     return subprocess.run([sys.executable, "-c", f"import {module}"],
                           capture_output=True, timeout=120).returncode == 0
 
@@ -2159,133 +2174,403 @@ def torchvision_resnet_state(model, seed: int) -> dict:
     return out
 
 
-def _write_preact_h5(path: str, model, seed: int) -> dict:
-    """A Keras-named (classification_models) pre-activation resnet34 file
-    for ``model``'s ``keras-preact`` encoder, values from ``seed``; returns
-    ``{layer: {weight: array}}`` as written."""
-    import h5py
+# --------------------------------------------------------------------------
+# Keras .h5 files written from a seed, without h5py (test support: the
+# port only reads HDF5).  The subset: superblock 0 (or 1), 8-byte offsets
+# and lengths, version 1 object headers, symbol-table groups (libhdf5's
+# default leaf K 4 and internal K 16: a node of up to 8 links, B-tree nodes
+# of up to 32 children, as many levels as it takes), contiguous float32
+# datasets and null-padded fixed-length string attributes.
+# --------------------------------------------------------------------------
 
-    tree = BR.jax_from_state_dict(model.state_dict())
-    params, stats = tree["params"]["encoder"], tree["batch_stats"]["encoder"]
+_H5_UNDEF = 2 ** 64 - 1
+_H5_LEAF_K, _H5_NODE_K = 4, 16
+_H5_FLOAT32 = bytes.fromhex("11201f00" "04000000" "00002000" "1708" "0017"
+                            "7f000000")
+# fill value message 2: allocated late, written if set, the default (0)
+_H5_FILL = bytes.fromhex("0202020100000000")
+_H5_NODE_BYTES = 24 + (2 * _H5_NODE_K + 1) * 8 + 2 * _H5_NODE_K * 8
+_H5_SNOD_BYTES = 8 + 2 * _H5_LEAF_K * 40
+
+
+def _pad8(b: bytes) -> bytes:
+    return b + bytes(-len(b) % 8)
+
+
+def _h5_message(mtype: int, body: bytes) -> bytes:
+    body = _pad8(body)
+    return struct.pack("<HHB3x", mtype, len(body), 0) + body
+
+
+def _h5_dataspace(shape) -> bytes:
+    return struct.pack(f"<BBB5x{len(shape)}Q", 1, len(shape), 0, *shape)
+
+
+def _h5_attribute(name: str, value) -> bytes:
+    """A fixed-length, null-padded ASCII string attribute (scalar or
+    array), attribute message version 1."""
+    arr = np.asarray(value)
+    if arr.dtype.kind != "S":
+        raise ValueError(f"attribute {name!r}: byte strings only")
+    size = max(arr.dtype.itemsize, 1)
+    dtype = struct.pack("<BBBBI", 0x13, 0x01, 0, 0, size)
+    space = _h5_dataspace(arr.shape)
+    label = name.encode() + b"\0"
+    return _h5_message(12, struct.pack(
+        "<BBHHH", 1, 0, len(label), len(dtype), len(space))
+        + _pad8(label) + _pad8(dtype) + _pad8(space)
+        + arr.astype(f"S{size}").tobytes())
+
+
+class _H5Writer:
+    """The file's bytes, objects appended bottom-up (a group after its
+    members), the superblock patched in last."""
+
+    def __init__(self, superblock: int):
+        self.superblock = superblock
+        self.buf = bytearray(96 if superblock == 0 else 100)
+
+    def put(self, data: bytes) -> int:
+        addr = len(self.buf)
+        self.buf += data
+        return addr
+
+    def header(self, messages) -> int:
+        body = b"".join(messages)
+        return self.put(struct.pack("<BBHII4x", 1, 0, len(messages), 1,
+                                    len(body)) + body)
+
+    def dataset(self, arr: np.ndarray) -> int:
+        arr = np.ascontiguousarray(arr)
+        if arr.dtype != np.dtype("<f4"):
+            raise ValueError(f"float32 datasets only, not {arr.dtype}")
+        addr = self.put(arr.tobytes())
+        return self.header([
+            _h5_message(1, _h5_dataspace(arr.shape)),
+            _h5_message(3, _H5_FLOAT32), _h5_message(5, _H5_FILL),
+            _h5_message(8, struct.pack("<BBQQ", 3, 1, addr, arr.nbytes))])
+
+    def group(self, attrs: dict, members: dict):
+        """Write a group's members, then its local heap of names, its
+        SNOD nodes and its B-tree; returns (object header, B-tree,
+        heap) addresses."""
+        entries = []
+        for name in sorted(members, key=str.encode):
+            v = members[name]
+            if isinstance(v, tuple):
+                head, tree, heap = self.group(*v)
+                entries.append((name, head, struct.pack("<IIQQ", 1, 0, tree,
+                                                        heap)))
+            else:
+                entries.append((name, self.dataset(v), bytes(24)))
+        names, offsets = bytearray(8), []
+        for name, _, _ in entries:
+            offsets.append(len(names))
+            names += _pad8(name.encode() + b"\0")
+        data = self.put(bytes(names))
+        # no free block: libhdf5's H5HL_FREE_NULL
+        heap = self.put(b"HEAP" + bytes(4) + struct.pack("<QQQ", len(names),
+                                                         1, data))
+        children = []          # (address, heap offset of its last name)
+        for i in range(0, len(entries), 2 * _H5_LEAF_K):
+            part = entries[i:i + 2 * _H5_LEAF_K]
+            node = b"SNOD" + struct.pack("<BBH", 1, 0, len(part)) + b"".join(
+                struct.pack("<QQ", offsets[i + j], head) + cache
+                for j, (_, head, cache) in enumerate(part))
+            children.append((self.put(node.ljust(_H5_SNOD_BYTES, b"\0")),
+                             offsets[i + len(part) - 1]))
+        level = 0
+        while True:
+            children = self._btree_level(children, level)
+            if len(children) == 1:
+                break
+            level += 1
+        tree = children[0][0]
+        messages = [_h5_message(17, struct.pack("<QQ", tree, heap))]
+        messages += [_h5_attribute(k, v) for k, v in attrs.items()]
+        return self.header(messages), tree, heap
+
+    def _btree_level(self, children, level: int):
+        """One level of a type-0 v1 B-tree over ``children``; returns its
+        nodes as children of the next level."""
+        spans = [children[i:i + 2 * _H5_NODE_K]
+                 for i in range(0, max(len(children), 1), 2 * _H5_NODE_K)]
+        first = len(self.buf)
+        addrs = [first + j * _H5_NODE_BYTES for j in range(len(spans))]
+        out, left_key = [], 0
+        for j, span in enumerate(spans):
+            node = b"TREE" + struct.pack(
+                "<BBHQQ", 0, level, len(span),
+                addrs[j - 1] if j else _H5_UNDEF,
+                addrs[j + 1] if j + 1 < len(spans) else _H5_UNDEF)
+            node += struct.pack("<Q", left_key)
+            for addr, key in span:
+                node += struct.pack("<QQ", addr, key)
+            self.put(node.ljust(_H5_NODE_BYTES, b"\0"))
+            left_key = span[-1][1] if span else left_key
+            out.append((addrs[j], left_key))
+        return out
+
+    def finish(self, root) -> bytes:
+        head, tree, heap = root
+        sb = b"\x89HDF\r\n\x1a\n" + struct.pack(
+            "<8B", self.superblock, 0, 0, 0, 0, 8, 8, 0) + struct.pack(
+            "<HHI", _H5_LEAF_K, _H5_NODE_K, 0)
+        if self.superblock == 1:
+            sb += struct.pack("<HH", 32, 0)
+        sb += struct.pack("<4Q", 0, _H5_UNDEF, len(self.buf), _H5_UNDEF)
+        sb += struct.pack("<QQIIQQ", 0, head, 1, 0, tree, heap)
+        self.buf[:len(sb)] = sb
+        return bytes(self.buf)
+
+
+def write_h5(path: str, root: tuple, superblock: int = 0) -> int:
+    """Write ``root`` to ``path`` as HDF5 without h5py; returns the bytes
+    written.  A group is ``(attrs, members)``: attrs map names to byte
+    strings (``np.bytes_`` or an ``S`` array), members map names to
+    float32 arrays (contiguous datasets) or to groups."""
+    w = _H5Writer(superblock)
+    data = w.finish(w.group(*root))
+    with open(path, "wb") as f:
+        f.write(data)
+    return len(data)
+
+
+def keras_tree(layers: dict, attrs: dict = None) -> tuple:
+    """``{layer: {weight: array}}`` in the layout Keras writes: the
+    ``layer_names`` attribute, and per layer a group with ``weight_names``
+    holding each weight at ``{layer}/{weight}:0``."""
+    members = {name: ({"weight_names": np.array(
+        [f"{name}/{k}:0".encode() for k in ws])},
+        {name: ({}, {f"{k}:0": v for k, v in ws.items()})})
+        for name, ws in layers.items()}
+    return ({"layer_names": np.array([n.encode() for n in layers]),
+             **(attrs or {})}, members)
+
+
+_KERAS_PARAM = {"gamma": "scale", "beta": "bias", "kernel": "kernel",
+                "bias": "bias"}
+_KERAS_STAT = {"moving_mean": "mean", "moving_variance": "var"}
+
+
+def keras_layers(params: dict, seed: int) -> dict:
+    """Keras-named layers for a flat-named tree (``models.bridge`` layout:
+    layer name → its conv or batch-norm leaves; the preact ResNets, the
+    aligned Xception and its DeepLab decoder), values from ``seed`` at a
+    trained network's scales.  ``*_depthwise`` kernels are Keras's
+    (H, W, C, 1)."""
     r = np.random.RandomState(seed)
     layers = {}
     for name, sub in params.items():
         if "kernel" in sub:
             k = sub["kernel"]
-            layers[name] = {"kernel": (r.randn(*k.shape) / math.sqrt(
-                k[..., 0].size)).astype(np.float32)}
-            continue
-        n = sub["bias"].shape[0]
-        w = {"beta": 0.1 * r.randn(n), "moving_mean": 0.1 * r.randn(n),
-             "moving_variance": 0.5 * np.abs(r.randn(n)) + 0.5}
-        if "scale" in sub:
-            w["gamma"] = 1.0 + 0.1 * r.randn(n)
-        layers[name] = {k: v.astype(np.float32) for k, v in w.items()}
-    with h5py.File(path, "w") as f:
-        f.attrs["layer_names"] = np.array([n.encode() for n in layers])
-        for name, ws in layers.items():
-            g = f.create_group(name)
-            g.attrs["weight_names"] = np.array(
-                [f"{name}/{k}:0".encode() for k in ws])
-            for k, v in ws.items():
-                g.create_dataset(f"{name}/{k}:0", data=v)
+            w = (r.randn(*k.shape) / math.sqrt(k[..., 0].size))
+            ws = ({"depthwise_kernel": np.transpose(w, (0, 1, 3, 2))}
+                  if name.endswith("_depthwise") else {"kernel": w})
+            if "bias" in sub:
+                ws["bias"] = 0.1 * r.randn(*sub["bias"].shape)
+        else:
+            n = sub["bias"].shape[0]
+            ws = {"gamma": 1.0 + 0.1 * r.randn(n)} if "scale" in sub else {}
+            ws.update(beta=0.1 * r.randn(n), moving_mean=0.1 * r.randn(n),
+                      moving_variance=0.5 * np.abs(r.randn(n)) + 0.5)
+        layers[name] = {k: v.astype(np.float32) for k, v in ws.items()}
     return layers
 
 
-def _geo_cfg(**over):
+def keras_equal(params: dict, stats: dict, layers: dict) -> bool:
+    """Whether every weight of ``layers`` equals its leaf in the
+    flat-named ``params``/``stats`` bit for bit."""
+    for name, ws in layers.items():
+        for k, v in ws.items():
+            if k == "depthwise_kernel":
+                got = np.transpose(params[name]["kernel"], (0, 1, 3, 2))
+            elif k in _KERAS_STAT:
+                got = stats[name][_KERAS_STAT[k]]
+            else:
+                got = params[name][_KERAS_PARAM[k]]
+            if got.dtype != v.dtype or got.tobytes() != v.tobytes():
+                return False
+    return True
+
+
+def _train_cfg(**over):
+    """``train``'s config (Unet-resnet34, its loss, optimizer, lr, batch,
+    the config-2 block), with ``over`` replaced."""
     return CF.parse_dict({"architecture": "Unet", "backbone": "resnet34",
                           "loss": LOSS, "optimizer": "Adam", "lr": LR,
-                          "batch": BATCH, "augmentation": GEO_BLOCK,
+                          "batch": BATCH, "augmentation": CONFIG2_BLOCK,
                           "metrics": ["dice", "iou"], **over})
 
 
+def _load_timed(model, cfg, what: str) -> float:
+    """``load_into_model`` of ``cfg.encoder_weights``, in seconds."""
+    t0 = time.perf_counter()
+    check(PT.load_into_model(model, cfg.backbone, cfg.encoder_weights),
+          f"{cfg.encoder_weights} resolves to {what}")
+    return time.perf_counter() - t0
+
+
+def _card_tree(model) -> dict:
+    """``model``'s variables in the ``models.bridge`` layout, on the
+    host."""
+    return BR.jax_from_state_dict(
+        {n: t.cpu() for n, t in model.state_dict().items()})
+
+
 def phase_pretrained(imgs, masks, seed: int, profile: str) -> dict:
-    """``encoder_weights: imagenet`` from a temporary STP_PRETRAINED_DIR:
-    a torchvision-named resnet34 ``.pt`` and its ``.npz`` export load into
-    Unet-resnet34 on the card bit for bit; a Keras preact ``.h5`` (if
-    ``h5py`` imports) selects ``keras-preact`` and loads bit for bit; then
-    10 bf16 train steps at 512² B16 from the ``.pt`` under GEO_BLOCK, the
-    kernels it launches held bit for bit on the first step, and three
-    profiled steps for the device's busy and idle time."""
+    """``encoder_weights`` from a temporary STP_PRETRAINED_DIR: a
+    torchvision-named resnet34 ``.pt`` and its ``.npz`` export load into
+    Unet-resnet34 on the card bit for bit, then 10 bf16 train steps at 512²
+    B16 from the ``.pt`` under GEO_BLOCK, the kernels it launches held bit
+    for bit on the first step, and three profiled steps for the device's
+    busy and idle time; then the Keras legs (``_pretrained_h5``), read by
+    the port's own HDF5 reader: nothing here imports ``h5py``."""
     tmp = tempfile.mkdtemp(prefix="stp_pretrained_")
     try:
         with env({"STP_PRETRAINED_DIR": tmp, "STP_REQUIRE_PRETRAINED": "1"}):
-            return _pretrained(tmp, imgs, masks, seed, profile)
+            out = _pretrained(tmp, imgs, masks, seed, profile)
+            out["h5"] = _pretrained_h5(tmp, imgs, masks, seed, out["load_s"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    check("h5py" not in sys.modules, "the pretrained phase imported h5py")
+    return out
 
 
 def _pretrained(tmp, imgs, masks, seed, profile) -> dict:
-    cfg = _geo_cfg(encoder_weights="imagenet")
+    cfg = _train_cfg(augmentation=GEO_BLOCK, encoder_weights="imagenet")
     check(MF._variant_for_config(cfg) == "", "no .h5: the plain graph")
     model = MF.init_model(MF.model_from_config(cfg), seed, "cpu")
     state = torchvision_resnet_state(model, seed + 7)
     torch.save(state, os.path.join(tmp, "resnet34.pt"))
-    t0 = time.perf_counter()
-    check(PT.load_into_model(model, cfg.backbone, cfg.encoder_weights),
-          "imagenet resolves to resnet34.pt")
-    load_s = time.perf_counter() - t0
+    load_s = _load_timed(model, cfg, "resnet34.pt")
     model.cuda()
     on_card = {n: t.cpu() for n, t in model.encoder.state_dict().items()}
     pt_equal = all(torch.equal(t, state[_torchvision_key(n)])
                    for n, t in on_card.items())
     check(pt_equal, "encoder on the card equals the .pt bit for bit")
     npz = os.path.join(tmp, "resnet34-export.npz")
-    PT.export_encoder_npz(npz, BR.jax_from_state_dict(
-        {n: t.cpu() for n, t in model.state_dict().items()}))
+    PT.export_encoder_npz(npz, _card_tree(model))
     other = MF.init_model(MF.model_from_config(cfg), seed + 1, "cpu")
     PT.load_into_model(other, cfg.backbone, npz)
     npz_equal = all(torch.equal(t, on_card[n])
                     for n, t in other.encoder.state_dict().items())
     check(npz_equal, "the .npz export loads to the same tensors")
-    h5 = _pretrained_h5(cfg, seed)
     aug = LW.build_augmentation(cfg.augmentation)
     routes = [seg.route(SIZE, SIZE) for seg in aug.segments]
     check(routes == ["gather"], ("GEO_BLOCK's route at 512²", routes))
     kbound = aug.segments[0].kbound(SIZE, SIZE)
-    out = phase_train("pretrained", cfg, imgs, masks, STEPS, seed, {},
+    return phase_train("pretrained", cfg, imgs, masks, STEPS, seed, {},
                       profile or os.path.join(tmp, "profile.txt"),
                       hold=("warp_x", "warp_y", "elastic"),
                       model=model, encoder_weights="imagenet (.pt)",
                       load_s=load_s, pt_bit_for_bit=pt_equal,
-                      npz_bit_for_bit=npz_equal, h5=h5, routes=routes,
+                      npz_bit_for_bit=npz_equal, routes=routes,
                       kbound=kbound)
+
+
+def _pretrained_h5(tmp, imgs, masks, seed, pt_load_s) -> dict:
+    """The Keras legs, each file written from the seed by ``write_h5``
+    and read by the port's own reader: (a) a classification_models preact
+    ``resnet34.h5`` makes the factory build ``keras-preact``, loads bit for
+    bit and trains 10 bf16 steps at 512² B16 under the config-2 block (X,
+    Y and elastic held bit for bit on the first step); (b) a bonlime
+    ``xception_aligned.h5`` full-model save (``model_weights``, a large
+    ``model_config``, ``optimizer_weights`` to skip) loads encoder, decoder
+    and head into DeepLabV3 bit for bit under ``pascal_voc`` and takes 3
+    steps; (c) each file's ``load_into_model`` seconds beside the
+    ``.pt``'s."""
+    root = os.path.join(tmp, "h5")
+    os.makedirs(root)
+    with env({"STP_PRETRAINED_DIR": root}):
+        preact = _preact_h5(root, imgs, masks, seed)
+        deeplab = _deeplab_h5(root, imgs, masks, seed)
+    out = dict(card=torch.cuda.get_device_name(0), pt_load_s=pt_load_s,
+               preact_h5_load_s=preact["load_s"],
+               preact_h5_bytes=preact["file_bytes"],
+               deeplab_h5_load_s=deeplab["load_s"],
+               deeplab_h5_bytes=deeplab["file_bytes"],
+               h5py_imported="h5py" in sys.modules)
+    emit("pretrained_load", **out)
     return out
 
 
-def _pretrained_h5(cfg, seed) -> dict:
-    """The Keras leg: with ``resnet34.h5`` in the directory, the factory
-    builds ``keras-preact`` and the file loads bit for bit.  Reported, not
-    skipped, when ``h5py`` is missing."""
-    if not _imports("h5py"):
-        return {"h5py": False}
-    root = os.path.join(os.environ["STP_PRETRAINED_DIR"], "h5")
-    os.makedirs(root)
-    with env({"STP_PRETRAINED_DIR": root}):
-        layers = _write_preact_h5(os.path.join(root, "resnet34.h5"),
-                                  MF.create_model(
-                                      "Unet", "resnet34",
-                                      encoder_variant="keras-preact"),
-                                  seed + 9)
-        variant = MF._variant_for_config(cfg)
-        check(variant == "keras-preact", ("an .h5 selects", variant))
-        model = MF.init_model(MF.model_from_config(cfg), seed, "cpu")
-        check(type(model.encoder).__name__ == "PreactResNetEncoder",
-              "keras-preact graph")
-        check(PT.load_into_model(model, cfg.backbone, cfg.encoder_weights),
-              "imagenet resolves to resnet34.h5")
+def _preact_h5(root, imgs, masks, seed) -> dict:
+    cfg = _train_cfg(encoder_weights="imagenet")
+    template = MF.create_model("Unet", "resnet34",
+                               encoder_variant="keras-preact")
+    layers = keras_layers(_card_tree(template)["params"]["encoder"],
+                          seed + 9)
+    nbytes = write_h5(os.path.join(root, "resnet34.h5"), keras_tree(layers))
+    variant = MF._variant_for_config(cfg)
+    check(variant == "keras-preact", ("an .h5 selects", variant))
+    model = MF.init_model(MF.model_from_config(cfg), seed, "cpu")
+    check(type(model.encoder).__name__ == "PreactResNetEncoder",
+          "keras-preact graph")
+    load_s = _load_timed(model, cfg, "resnet34.h5")
     model.cuda()
-    tree = BR.jax_from_state_dict(
-        {n: t.cpu() for n, t in model.state_dict().items()})
-    enc_p, enc_s = tree["params"]["encoder"], tree["batch_stats"]["encoder"]
-    names = {"gamma": ("scale", enc_p), "beta": ("bias", enc_p),
-             "moving_mean": ("mean", enc_s),
-             "moving_variance": ("var", enc_s), "kernel": ("kernel", enc_p)}
-    equal = all(np.array_equal(names[k][1][layer][names[k][0]], v)
-                for layer, ws in layers.items() for k, v in ws.items())
-    check(equal, "the .h5 loads bit for bit")
-    return {"h5py": True, "variant": variant, "layers": len(layers),
-            "bit_for_bit": equal}
+    tree = _card_tree(model)
+    equal = keras_equal(tree["params"]["encoder"],
+                        tree["batch_stats"]["encoder"], layers)
+    check(equal, "the preact .h5 loads bit for bit")
+    x_y_elastic = {"warp_x": 1, "warp_y": 1, "elastic": 1}
+    return phase_train("pretrained_h5", cfg, imgs, masks, STEPS, seed,
+                       x_y_elastic, hold=tuple(x_y_elastic), model=model,
+                       encoder_weights="imagenet (resnet34.h5)",
+                       variant=variant, layers=len(layers), load_s=load_s,
+                       file_bytes=nbytes, bit_for_bit=equal)
+
+
+def _deeplab_h5(root, imgs, masks, seed) -> dict:
+    cfg = _train_cfg(architecture="DeepLabV3", backbone="xception_aligned",
+                     encoder_weights="pascal_voc")
+    model = MF.init_model(MF.model_from_config(cfg), seed, "cpu")
+    params = _card_tree(model)["params"]
+    parts = {"encoder": keras_layers(params["encoder"], seed + 11),
+             "decoder": keras_layers(params["decoder"], seed + 12),
+             "head": keras_layers({"logits_semantic": params["logits_conv"]},
+                                  seed + 13)}
+    layers = {k: v for part in parts.values() for k, v in part.items()}
+    check(len(layers) == sum(map(len, parts.values())), "layer names clash")
+    meta = {"keras_version": np.bytes_(b"2.1.5"),
+            "backend": np.bytes_(b"tensorflow")}
+    # the layer list of the save's model_config (tens of KB, as a real
+    # save's), which the reader never decodes
+    config = json.dumps({"class_name": "Model", "config": {
+        "name": "deeplabv3plus", "layers": [
+            {"name": n, "class_name": ("DepthwiseConv2D"
+                                       if "depthwise_kernel" in ws else
+                                       "Conv2D" if "kernel" in ws else
+                                       "BatchNormalization"),
+             "inbound_nodes": [[[prev, 0, 0, {}]]]}
+            for prev, (n, ws) in zip(["input_1"] + list(layers),
+                                     layers.items())]}}).encode()
+    first = next(iter(parts["encoder"].values()))["kernel"]
+    moments = {f"Variable{s}:0": np.zeros_like(first) for s in ("", "_1")}
+    nbytes = write_h5(os.path.join(root, "xception_aligned.h5"), (
+        {"model_config": np.bytes_(config), **meta},
+        {"model_weights": keras_tree(layers, meta),
+         "optimizer_weights": (
+             {"weight_names": np.array([f"training/Adam/{k}".encode()
+                                        for k in moments])},
+             {"training": ({}, {"Adam": ({}, moments)})})}))
+    load_s = _load_timed(model, cfg, "xception_aligned.h5")
+    model.cuda()
+    tree = _card_tree(model)
+    p, st = tree["params"], tree["batch_stats"]
+    equal = {"encoder": keras_equal(p["encoder"], st["encoder"],
+                                    parts["encoder"]),
+             "decoder": keras_equal(p["decoder"], st["decoder"],
+                                    parts["decoder"]),
+             "head": keras_equal({"logits_semantic": p["logits_conv"]}, {},
+                                 parts["head"])}
+    check(all(equal.values()), ("the pascal_voc .h5 loads bit for bit",
+                                equal))
+    return phase_train("pretrained_deeplab", cfg, imgs, masks, 3, seed,
+                       {"warp_x": 1, "warp_y": 1, "elastic": 1}, model=model,
+                       encoder_weights="pascal_voc (xception_aligned.h5)",
+                       layers=len(layers), model_config_bytes=len(config),
+                       load_s=load_s, file_bytes=nbytes, bit_for_bit=equal)
 
 
 def phase_geo_paths(seed: int) -> dict:
@@ -2530,10 +2815,7 @@ def phase_train_photo(imgs, masks, seed: int, profile: str) -> dict:
     its segments in f32 on the card against the CPU on the same draws;
     then 10 bf16 train steps, X, Y and elastic held bit for bit on the
     first step's arguments."""
-    cfg = CF.parse_dict({"architecture": "Unet", "backbone": "resnet34",
-                         "loss": LOSS, "optimizer": "Adam", "lr": LR,
-                         "batch": BATCH, "augmentation": PHOTO_BLOCK,
-                         "metrics": ["dice", "iou"]})
+    cfg = _train_cfg(augmentation=PHOTO_BLOCK)
     aug = LW.build_augmentation(cfg.augmentation)
     per_block = block_launches(aug, SIZE, SIZE)
     x_y_elastic = {"warp_x": 1, "warp_y": 1, "elastic": 1}
@@ -2563,10 +2845,7 @@ def phase_train_filter(imgs, masks, seed: int, profile: str) -> dict:
     block (the OneOf runs all five filters on the batch) in f32 on the
     card against the CPU on the same draws; the block's ms, img/s, a
     falling loss and peak memory over 10 bf16 steps."""
-    cfg = CF.parse_dict({"architecture": "Unet", "backbone": "resnet34",
-                         "loss": LOSS, "optimizer": "Adam", "lr": LR,
-                         "batch": BATCH, "augmentation": FILTER_BLOCK,
-                         "metrics": ["dice", "iou"]})
+    cfg = _train_cfg(augmentation=FILTER_BLOCK)
     aug = LW.build_augmentation(cfg.augmentation)
     per_block = block_launches(aug, SIZE, SIZE)
     x_y_elastic = {"warp_x": 1, "warp_y": 1, "elastic": 1}
@@ -3356,10 +3635,7 @@ def main(argv=None) -> int:
     rows.update(timed("batchnorm", phase_batchnorm, SEED))
     paths = timed("warp_paths", phase_warp_paths, aug, imgs, masks, draws)
 
-    unet = CF.parse_dict({"architecture": "Unet", "backbone": "resnet34",
-                          "loss": LOSS, "optimizer": "Adam", "lr": LR,
-                          "batch": BATCH, "augmentation": CONFIG2_BLOCK,
-                          "metrics": ["dice", "iou"]})
+    unet = _train_cfg()
     x_y_elastic = {"warp_x": 1, "warp_y": 1, "elastic": 1}
     train = timed("train", phase_train, "train", unet, imgs, masks, STEPS,
                   SEED, x_y_elastic, a.profile, bn_exact=True)

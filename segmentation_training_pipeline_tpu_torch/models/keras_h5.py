@@ -3,8 +3,9 @@
 Counterpart of ``segmentation_training_pipeline_tpu/models/keras_h5.py``
 (a copy: the port imports nothing of that package).  It reads the Keras
 HDF5 layout (top-level or ``model_weights`` group, layer groups with
-``weight_names`` attributes) with ``h5py``, imported when a file is read,
-and converts into the encoder trees of ``models.bridge``:
+``weight_names`` attributes) with the port's own HDF5 reader
+(``utils/hdf5.py``; no ``h5py``), and converts into the encoder trees of
+``models.bridge``:
 
 * **resnet18/34/50/101/152, seresnet18/34** → the pre-activation
   ``PreactResNetEncoder`` variants (classification_models' graphs:
@@ -33,6 +34,7 @@ from typing import Any, Dict, Tuple
 
 import numpy as np
 
+from ..utils import hdf5
 from .pretrained import PretrainedWeightsError, tree_copy
 
 
@@ -45,17 +47,11 @@ def read_h5_weights(path: str) -> Dict[str, Dict[str, np.ndarray]]:
     ``bias``, ``gamma``, ``beta``, ``moving_mean``, ``moving_variance``,
     ``depthwise_kernel``).
     """
-    try:
-        import h5py
-    except ImportError as e:  # pragma: no cover
-        raise PretrainedWeightsError(
-            "h5py is required to read Keras .h5 weights") from e
-
     def _s(x):
         return x.decode() if isinstance(x, bytes) else str(x)
 
     out: Dict[str, Dict[str, np.ndarray]] = {}
-    with h5py.File(path, "r") as f:
+    with hdf5.File(path) as f:
         g = f["model_weights"] if "model_weights" in f else f
         if "layer_names" not in g.attrs:
             raise PretrainedWeightsError(

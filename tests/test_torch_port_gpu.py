@@ -13,7 +13,9 @@ frames, a non-zero fill, mask ties, displacements beyond K, argument
 checks, the shear kernel's negative offsets (the sign of the modulo) and
 mostly out-of-bounds lines, kernel YE's band check, the three warp paths
 and the launch counts; the batch-norm kernels on channel counts, map
-sizes, layouts and types the train shapes do not reach.  Every kernel tiles rows or lines and columns, so
+sizes, layouts and types the train shapes do not reach; a Keras ``.h5``
+written without h5py, loaded into the card's model by the port's own
+HDF5 reader.  Every kernel tiles rows or lines and columns, so
 the cases also take widths that are no multiple of 4, 32 or 128, heights
 and line counts that are no multiple of a tile, one and five channels,
 one image, ``py = K + 1``, elastic offsets of ±K at the frame's edges
@@ -1032,3 +1034,37 @@ def test_segment_quantisers_at_512_on_card(card, spec):
     off = ((gi.cpu() - ci).abs() > 0.5).float().mean()
     assert float(off) <= 1e-2, float(off)
     assert torch.equal(gm.cpu(), cm)
+
+
+def test_keras_h5_loads_into_the_preact_model_on_card(card, tmp_path,
+                                                      monkeypatch):
+    """A Keras-named preact resnet34 ``.h5`` from ``chip_smoke.write_h5``
+    (no h5py) loads into the ``keras-preact`` Unet on the card bit for bit,
+    read by the port's own HDF5 reader: ``h5py`` stays out of
+    ``sys.modules``."""
+    import importlib.util
+    import sys
+    from pathlib import Path
+
+    from segmentation_training_pipeline_tpu_torch.models import factory as MF
+    from segmentation_training_pipeline_tpu_torch.models import (
+        pretrained as PT)
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    monkeypatch.delitem(sys.modules, "h5py", raising=False)
+    template = MF.create_model("Unet", "resnet34",
+                               encoder_variant="keras-preact")
+    layers = cs.keras_layers(cs._card_tree(template)["params"]["encoder"], 9)
+    path = str(tmp_path / "resnet34.h5")
+    cs.write_h5(path, cs.keras_tree(layers))
+    model = MF.init_model(MF.create_model(
+        "Unet", "resnet34", encoder_variant="keras-preact"), 0, card)
+    assert PT.load_into_model(model, "resnet34", path)
+    assert all(t.is_cuda for t in model.state_dict().values())
+    tree = cs._card_tree(model)
+    assert cs.keras_equal(tree["params"]["encoder"],
+                          tree["batch_stats"]["encoder"], layers)
+    assert "h5py" not in sys.modules

@@ -2,8 +2,9 @@
 and its small pure functions against the JAX package's.
 
   * the package, ``chip_smoke.py`` and ``compare_kernels.py`` import
-    neither ``jax`` nor the JAX package, nor ``flax`` or ``msgpack`` (the
-    port reads checkpoints with its own codec), and ``cv2`` only inside the
+    neither ``jax`` nor the JAX package, nor ``flax``, ``msgpack`` or
+    ``h5py`` (the port reads checkpoints with its own codec and Keras
+    ``.h5`` files with its own HDF5 reader), and ``cv2`` only inside the
     functions that decode, encode or resize (a subprocess import and an
     AST scan);
   * entry points default to the card and raise on a host without one;
@@ -78,7 +79,7 @@ def test_port_imports_no_jax():
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'flax', 'optax')) or "
             "m.split('.')[0] in ('segmentation_training_pipeline_tpu', "
-            "'msgpack', 'cv2')]\n"
+            "'msgpack', 'h5py', 'cv2')]\n"
             "assert not bad, bad\n"
             "print(len(sys.modules))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -103,9 +104,8 @@ def _imports(node, in_function=False):
 def test_sources_import_no_jax(path):
     for top, in_function in _imports(ast.parse(path.read_text())):
         assert top not in ("jax", "jaxlib", "flax", "optax", "msgpack",
-                           "segmentation_training_pipeline_tpu"), top
+                           "h5py", "segmentation_training_pipeline_tpu"), top
         assert top != "cv2" or in_function, f"{path.name}: cv2 at import"
-        assert top != "h5py" or in_function, f"{path.name}: h5py at import"
 
 
 def test_entry_points_default_to_the_card(tmp_path):
